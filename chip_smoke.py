@@ -11,13 +11,17 @@ Numbered phases, each printing one JSON line with its seconds:
    one PyTorch library call (``library_ms``), beside the least time the card
    could take (``bound_ms``);
 3. the 72.1M-parameter snapshot in ``artifacts/`` loaded through the port's
-   own readers, one forward at [96, 128, 128, 52] with the kernel and one with
-   the plain attention, compared;
+   own readers, one forward at [96, 128, 128, 52] with the kernel: each of its
+   6 attention launches held against the plain version on the same inputs
+   within one bf16 ulp (an attention that drops a key must fail that), and
+   the forward against one with the plain attention, within what moving
+   every attention output by one bf16 ulp does to it;
 4. the main path: ``run_arrays`` at the settings of
    ``exp/configs/000_on-model-eval/s16_t6_spectral.yml`` (``num_samples``
    cut to 3, one ensemble group) on a synthetic 49-hour 128 x 128 trajectory,
-   checked for finite samples, A(x) = y at the observed frames, and a
-   kernel launch count of 6 per UNet forward.
+   as its two steps ``load_net`` and ``sample_arrays`` timed apart, checked
+   for finite samples, A(x) = y at the observed frames, and a kernel launch
+   count of 6 per UNet forward.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -143,20 +147,40 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
     return row
 
 
+def _one_ulp_off(q, k, v, g):
+    """The plain attention with every nonzero output moved one bf16 ulp up or
+    down at random: the most the kernel may differ by in one call."""
+    from climate2weather_tpu_torch.ops.attention import attention_reference
+
+    out = attention_reference(q, k, v)
+    step = torch.randint(0, 2, out.shape, generator=g, device=out.device, dtype=torch.int16) * 2 - 1
+    return (out.view(torch.int16) + step * (out != 0)).view(out.dtype)
+
+
+def _key_dropped(q, k, v):
+    """A faulty attention that ignores the last key."""
+    from climate2weather_tpu_torch.ops.attention import attention_reference
+
+    return attention_reference(q, k[:, :-1], v[:, :-1])
+
+
 def phase3_network(snapshot_dir, device, batch=96, res=128, seed=0, compare_plain=True) -> dict:
     """Load the snapshot through the port's readers and run one forward;
-    with ``compare_plain``, also one with the plain attention, compared."""
-    from climate2weather_tpu_torch.convert import load_params
-    from climate2weather_tpu_torch.io.snapshot import load_snapshot
-    from climate2weather_tpu_torch.models.score_net import build_score_unet
+    with ``compare_plain``, hold every attention launch of that forward
+    against the plain version on its own inputs, and the forward against
+    forwards with the plain attention, exact and moved by one ulp; a faulty
+    attention's readings are reported beside both."""
+    from climate2weather_tpu_torch.exp.downscaling import load_net
+    from climate2weather_tpu_torch.models import unet
     from climate2weather_tpu_torch.models.unet import AttentionBlock
-    from climate2weather_tpu_torch.ops.attention import launch_counts
+    from climate2weather_tpu_torch.ops.attention import (
+        attention_reference,
+        fused_attention,
+        launch_counts,
+    )
 
     t0 = time.time()
-    params, cfg = load_snapshot(str(snapshot_dir))
-    net = build_score_unet(cfg["network_kwargs"], dtype=torch.bfloat16)
-    load_params(net, params)
-    net.to(device).eval()
+    net, cfg = load_net(str(snapshot_dir), device)
     n_params = sum(p.numel() for p in net.parameters())
     channels = int(cfg["network_kwargs"]["channels"])
     g = torch.Generator(device=device).manual_seed(seed)
@@ -164,9 +188,24 @@ def phase3_network(snapshot_dir, device, batch=96, res=128, seed=0, compare_plai
     t = torch.rand((batch,), generator=g, device=device)
     n_attn = sum(isinstance(m, AttentionBlock) for m in net.modules())
     expect = n_attn if device.type == "cuda" else 0
+    calls = []
+
+    def recorded(q, k, v):
+        out = fused_attention(q, k, v)
+        if compare_plain:
+            calls.append((q, k, v, out))
+        return out
+
+    def forward(attend):
+        unet.fused_attention = attend
+        try:
+            return net(x, t).float()
+        finally:
+            unet.fused_attention = fused_attention
+
     with torch.no_grad():
         before = launch_counts["attention_fwd"]
-        out = net(x, t).float()
+        out = forward(recorded)
         rose = launch_counts["attention_fwd"] - before
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -177,25 +216,44 @@ def phase3_network(snapshot_dir, device, batch=96, res=128, seed=0, compare_plai
         result = {"params": n_params, "shape": list(out.shape), "attention_blocks": n_attn,
                   "launches": rose}
         if compare_plain:
-            for m in net.modules():
-                if isinstance(m, AttentionBlock):
-                    m.use_kernel = False
-            plain = net(x, t).float()
-            err = float((out - plain).abs().max())
-            scale = float(plain.abs().max())
-            # bf16 network: attention outputs may differ by one bf16 ulp, which
-            # the ~10 bf16 layers after level 4 carry to the output
-            tol = 2e-2 * scale
-            result.update(max_abs_err=err, out_scale=scale, tol=tol,
-                          mean_abs_err=float((out - plain).abs().mean()))
-            if err > tol:
+            # each launch against the plain version on its inputs, at the
+            # phase-2 tolerance: one bf16 ulp of that call's output scale,
+            # which an attention that drops a key must exceed
+            per_call = []
+            for q, k, v, got in calls:
+                want = attention_reference(q, k, v).float()
+                err, tol = float((got.float() - want).abs().max()), bf16_ulp(float(want.abs().max()))
+                fault = float((_key_dropped(q, k, v).float() - want).abs().max())
+                per_call.append({"max_abs_err": err, "tol": tol, "key_dropped_err": fault})
+                if err > tol:
+                    raise AssertionError(f"attention launch in the network disagrees: {per_call}")
+                if fault <= tol:
+                    raise AssertionError(f"the per-launch check cannot see a dropped key: {per_call}")
+            plain = forward(attention_reference)
+
+            def diff(y):
+                d = (y - plain).abs()
+                return float(d.max()), float(d.mean())
+
+            err, err_mean = diff(out)
+            ulp_max, ulp_mean = diff(forward(lambda q, k, v: _one_ulp_off(q, k, v, g)))
+            fault_max, fault_mean = diff(forward(_key_dropped))
+            # each launch is within one ulp of the plain version (above), so
+            # the forward may differ from the plain one by at most what moving
+            # every attention output one ulp does, in max and in mean. A
+            # dropped key moves the bf16 output about as much, so the
+            # per-launch check above is the one that sees such a fault.
+            tol, tol_mean = ulp_max, ulp_mean
+            result.update(per_call=per_call, max_abs_err=err, mean_abs_err=err_mean,
+                          out_scale=float(plain.abs().max()), tol=tol, tol_mean=tol_mean,
+                          one_ulp_max=ulp_max, one_ulp_mean=ulp_mean,
+                          key_dropped_max=fault_max, key_dropped_mean=fault_mean)
+            if err > tol or err_mean > tol_mean:
                 raise AssertionError(f"kernel forward disagrees with plain forward: {result}")
             if device.type == "cuda":  # one forward each way, warm, CUDA events
-                result["forward_plain_ms"] = cuda_time_ms(lambda: net(x, t), reps=3, warmup=1)
-                for m in net.modules():
-                    if isinstance(m, AttentionBlock):
-                        m.use_kernel = True
-                result["forward_ms"] = cuda_time_ms(lambda: net(x, t), reps=3, warmup=1)
+                result["forward_plain_ms"] = cuda_time_ms(lambda: forward(attention_reference),
+                                                          reps=3, warmup=1)
+                result["forward_ms"] = cuda_time_ms(lambda: forward(fused_attention), reps=3, warmup=1)
     emit(3, t0, **result)
     return result
 
@@ -220,9 +278,11 @@ def synthetic_inputs(L, H, W, C, n_train, seed):
 
 def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, seed=0,
                  overrides=None) -> dict:
-    """The main path: ``run_arrays`` at the config's settings."""
+    """The main path: ``run_arrays`` at the config's settings, as its two
+    steps ``load_net`` and ``sample_arrays``, timed apart."""
+    from climate2weather_tpu_torch.diffusion.calibrate import climatological_annulus_psd
     from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
-    from climate2weather_tpu_torch.exp.downscaling import run_arrays
+    from climate2weather_tpu_torch.exp.downscaling import load_net, sample_arrays
     from climate2weather_tpu_torch.io.snapshot import yaml_load_file
     from climate2weather_tpu_torch.ops.attention import launch_counts
 
@@ -236,10 +296,17 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
         torch.cuda.synchronize()
     for k in launch_counts:
         launch_counts[k] = 0
-    t_run = time.time()
-    samples, nan_flags = run_arrays(str(snapshot_dir), cfg, gt, calib_frames=train, device=device)
-    wall = time.time() - t_run
+    t_load = time.time()
+    net, snap_cfg = load_net(str(snapshot_dir), device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t_sample = time.time()
+    samples, nan_flags = sample_arrays(net, snap_cfg, cfg, gt, calib_frames=train, device=device)
+    t_end = time.time()  # sample_arrays ends in a copy to the host
     launches = dict(launch_counts)
+    t_psd = time.time()  # the host-side calibration target, which sample_arrays computes once
+    climatological_annulus_psd(train, s_step=int(cfg["s_step"]))
+    psd_s = time.time() - t_psd
 
     window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
     n_win, chunk = L - window + 1, int(cfg["batch_size"])
@@ -264,8 +331,9 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
         "nan_flags": nan_flags.tolist(), "sample_abs_max": x_max,
         "A_x_minus_y_max": consistency, "A_tol": tol,
         "unet_forwards": forwards, "attention_launches": launches.get("attention_fwd", 0),
-        "expected_launches": expect, "wall_s": wall, "window_evals": window_evals,
-        "window_evals_per_s": window_evals / wall,
+        "expected_launches": expect, "load_s": t_sample - t_load, "sampling_s": t_end - t_sample,
+        "calib_target_s": psd_s, "wall_s": t_end - t_load, "window_evals": window_evals,
+        "window_evals_per_s": window_evals / (t_end - t_sample),
     }
     emit(4, t0, **result)
     if not result["finite"] or nan_flags.any():

@@ -3,12 +3,14 @@ branch of climate2weather_tpu/exp/downscaling.py ``_run_impl``).
 
 :func:`run_arrays` is the array core of ``_run_impl`` for a config whose
 ``observation_path`` equals its ``data_path``: the observation is the
-coarsened ground truth ``A(gt)``. It loads the snapshot, builds the
-ScoreUNet, and samples ``num_samples`` trajectories in groups of
-``ensemble_batch`` (the JAX ``vmap`` written out as a batch dimension), each
-with DPM-Solver++(2M) under detached Gaussian guidance, then applies the
-climatological calibration and the t=0 projection. The ``.nc``/``.h5``
-readers and writers and the long-trajectory samplers are not ported.
+coarsened ground truth ``A(gt)``. It is :func:`load_net` (snapshot to
+ScoreUNet on the device) followed by :func:`sample_arrays`, which samples
+``num_samples`` trajectories in groups of ``ensemble_batch`` (the JAX
+``vmap`` written out as a batch dimension), each with DPM-Solver++(2M) under
+detached Gaussian guidance, then applies the climatological calibration and
+the t=0 projection. A caller downscaling several trajectories loads the net
+once and calls :func:`sample_arrays` for each. The ``.nc``/``.h5`` readers
+and writers and the long-trajectory samplers are not ported.
 """
 
 from __future__ import annotations
@@ -64,7 +66,16 @@ def _check_config(cfg: dict, L: int, calib_frames) -> None:
         )
 
 
-@torch.no_grad()
+def load_net(snapshot_dir: str, device="cuda", compute_dtype: torch.dtype = torch.bfloat16):
+    """The snapshot's ScoreUNet on the device, in eval mode, and the
+    snapshot's config dict: ``(net, snapshot_config)``."""
+    dev = resolve_device(device)
+    params, snap_config = load_snapshot(snapshot_dir)
+    net = build_score_unet(snap_config["network_kwargs"], dtype=compute_dtype)
+    load_params(net, params)
+    return net.to(dev).eval(), snap_config
+
+
 def run_arrays(
     snapshot_dir: str,
     cfg: dict,
@@ -87,6 +98,25 @@ def run_arrays(
     ``[num_samples, steps, L, H, W, C]``. The run is on the card unless
     ``device="cpu"``; ``compute_dtype`` is the network's (bf16 as in JAX).
     """
+    _check_config(cfg, len(ground_truth_lhwc), calib_frames)  # before the snapshot load
+    net, snap_config = load_net(snapshot_dir, device, compute_dtype)
+    return sample_arrays(net, snap_config, cfg, ground_truth_lhwc, calib_frames, device,
+                         noise=noise, z=z)
+
+
+@torch.no_grad()
+def sample_arrays(
+    net: torch.nn.Module,
+    snap_config: dict,
+    cfg: dict,
+    ground_truth_lhwc,
+    calib_frames=None,
+    device="cuda",
+    *,
+    noise: Optional[np.ndarray] = None,
+    z: Optional[np.ndarray] = None,
+):
+    """:func:`run_arrays` with the net already loaded by :func:`load_net`."""
     dev = resolve_device(device)
     set_reference_numerics()
     gt = torch.as_tensor(np.asarray(ground_truth_lhwc, np.float32), device=dev)
@@ -98,12 +128,7 @@ def run_arrays(
     s_step, t_step = int(cfg.get("s_step", 16)), int(cfg.get("t_step", 6))
     t0_project = str(cfg.get("t0_project", "") or "")
     seed = int(cfg.get("seed", 0))
-
-    params, snap_config = load_snapshot(snapshot_dir)
     markov_order = int(snap_config["dataset_kwargs"]["train"]["window"]) // 2
-    net = build_score_unet(snap_config["network_kwargs"], dtype=compute_dtype)
-    load_params(net, params)
-    net.to(dev).eval()
     process = construct_process(**snap_config["pipeline_kwargs"])
 
     A = SpatioTemporalCoarsening(s_step=s_step, t_step=t_step)

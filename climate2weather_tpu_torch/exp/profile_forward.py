@@ -52,7 +52,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cpu only to rehearse the script")
     ap.add_argument("--out", default=str(REPO / "chiprun_out" / "profile"))
     args = ap.parse_args(argv)
-    from climate2weather_tpu_torch.convert import load_params
     from climate2weather_tpu_torch.diffusion.guidance import (
         GaussianGuidance,
         SpatioTemporalCoarsening,
@@ -60,16 +59,14 @@ def main(argv=None) -> None:
     )
     from climate2weather_tpu_torch.diffusion.process import construct_process
     from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
-    from climate2weather_tpu_torch.io.snapshot import load_snapshot, yaml_load_file
-    from climate2weather_tpu_torch.models.score_net import build_score_unet
+    from climate2weather_tpu_torch.exp.downscaling import load_net
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
     from climate2weather_tpu_torch.utils.device import resolve_device, set_reference_numerics
 
     dev = resolve_device(args.device)
     set_reference_numerics()
-    params, snap = load_snapshot(str(SNAPSHOT))
+    net, snap = load_net(str(SNAPSHOT), dev)
     cfg = yaml_load_file(CONFIG)
-    net = build_score_unet(snap["network_kwargs"], dtype=torch.bfloat16)
-    load_params(net, params).to(dev).eval()
     process = construct_process(**snap["pipeline_kwargs"])
     window = int(snap["dataset_kwargs"]["train"]["window"])
     C = int(snap["dataset_kwargs"]["train"]["num_features"])

@@ -38,8 +38,7 @@ class ScoreUNet(nn.Module):
                  forcing_dim: int = 0, hidden_channels: Sequence[int] = (32, 64, 128),
                  hidden_blocks: Sequence[int] = (2, 3, 5),
                  attention_levels: Sequence[int] = (), kernel_size: int = 3,
-                 stride: int = 2, dtype: torch.dtype = torch.bfloat16, norm_ddof: int = 0,
-                 use_kernel_attention: bool = True):
+                 stride: int = 2, dtype: torch.dtype = torch.bfloat16, norm_ddof: int = 0):
         super().__init__()
         self.noise_features = noise_features
         self.forcing_dim = forcing_dim
@@ -49,7 +48,7 @@ class ScoreUNet(nn.Module):
             self.map_forcing = nn.Linear(forcing_dim, embedding_dim)
         self.unet = UNet(
             channels, channels, embedding_dim, hidden_channels, hidden_blocks,
-            attention_levels, kernel_size, stride, dtype, norm_ddof, use_kernel_attention,
+            attention_levels, kernel_size, stride, dtype, norm_ddof,
         )
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
@@ -73,8 +72,7 @@ class ScoreUNet(nn.Module):
         return out.permute(0, 2, 3, 1)
 
 
-def build_score_unet(model_cfg: dict, dtype: torch.dtype = torch.bfloat16,
-                     use_kernel_attention: bool = True) -> ScoreUNet:
+def build_score_unet(model_cfg: dict, dtype: torch.dtype = torch.bfloat16) -> ScoreUNet:
     """A ScoreUNet from a config dict (the sda_unet.yml / snapshot surface).
     Keys as in the JAX ``build_score_unet``; ``fused_upsample`` (a JAX-only
     rewrite of the same function) and 1-D/3-D nets are not ported."""
@@ -95,5 +93,4 @@ def build_score_unet(model_cfg: dict, dtype: torch.dtype = torch.bfloat16,
         stride=int(cfg.get("stride", 2)),
         dtype=dtype,
         norm_ddof=int(cfg.get("norm_ddof", 0)),
-        use_kernel_attention=use_kernel_attention,
     )

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from climate2weather_tpu_torch.ops.attention import attention_reference, fused_attention
+from climate2weather_tpu_torch.ops.attention import fused_attention
 
 
 def channel_norm(x: torch.Tensor, eps: float = 1e-5, ddof: int = 0, dim: int = 1) -> torch.Tensor:
@@ -79,17 +79,15 @@ class AttentionBlock(nn.Module):
     """Full self-attention over the flattened spatial positions.
 
     With one head it runs :func:`fused_attention` (the CUDA kernel on the
-    card, its plain version on the CPU), or :func:`attention_reference` when
-    ``use_kernel`` is off; with several heads, the einsum composition of the
-    JAX block (``unet.py:113-124``).
+    card, its plain version on the CPU); with several heads, the einsum
+    composition of the JAX block (``unet.py:113-124``).
     """
 
     def __init__(self, channels: int, num_heads: int = 1, dtype: torch.dtype = torch.bfloat16,
-                 norm_ddof: int = 0, use_kernel: bool = True):
+                 norm_ddof: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.norm_ddof = norm_ddof
-        self.use_kernel = use_kernel
         self.qkv = _Dense(channels, 3 * channels, dtype)
         self.proj_out = _Dense(channels, channels, dtype)
 
@@ -100,8 +98,7 @@ class AttentionBlock(nn.Module):
         qkv = self.qkv(channel_norm(h, ddof=self.norm_ddof, dim=-1))
         if self.num_heads == 1:
             q, k, v = qkv.chunk(3, dim=-1)
-            attend = fused_attention if self.use_kernel else attention_reference
-            out = attend(q, k, v)
+            out = fused_attention(q, k, v)
         else:
             nh = self.num_heads
             qkv = qkv.reshape(b, t, 3, nh, c // nh)
@@ -127,7 +124,7 @@ class UNet(nn.Module):
                  hidden_blocks: Sequence[int] = (2, 3, 5),
                  attention_levels: Sequence[int] = (), kernel_size: int = 3,
                  stride: int = 2, dtype: torch.dtype = torch.bfloat16,
-                 norm_ddof: int = 0, use_kernel_attention: bool = True):
+                 norm_ddof: int = 0):
         super().__init__()
         self.hidden_blocks = tuple(hidden_blocks)
         self.attention_levels = tuple(attention_levels)
@@ -149,8 +146,7 @@ class UNet(nn.Module):
                     if i in self.attention_levels:
                         self.add_module(
                             f"{stage}{i}_attn{bi}",
-                            AttentionBlock(hc[i], dtype=dtype, norm_ddof=norm_ddof,
-                                           use_kernel=use_kernel_attention),
+                            AttentionBlock(hc[i], dtype=dtype, norm_ddof=norm_ddof),
                         )
         for i in range(len(hc)):
             cout = out_channels if i == 0 else hc[i - 1]
