@@ -6,10 +6,12 @@ Numbered phases, each printing one JSON line with its seconds:
 
 0. the card (``nvidia-smi`` name and power limit) and the toolchain;
 1. build of every CUDA kernel from ``climate2weather_tpu_torch/csrc``;
-2. each kernel against its plain PyTorch version at the main path's shapes,
-   a small ragged one and the longest sequence it takes, with times of the kernel, the plain version and
-   one PyTorch library call (``library_ms``), beside the least time the card
-   could take (``bound_ms``);
+2. each kernel against its plain PyTorch version at its path's shapes, a
+   small ragged one and the longest sequence it takes, with times of the
+   kernel, the plain version and one PyTorch library call (``library_ms``),
+   beside the least time the card could take (``bound_ms``); for the
+   backward, a planted fault (dS without its row-sum term) that the check
+   must catch, and gradients reaching q, k and v through ``fused_attention``;
 3. the 72.1M-parameter snapshot in ``artifacts/`` loaded through the port's
    own readers, one forward at [96, 128, 128, 52] with the kernel: each of its
    6 attention launches held against the plain version on the same inputs
@@ -21,7 +23,16 @@ Numbered phases, each printing one JSON line with its seconds:
    cut to 3, one ensemble group) on a synthetic 49-hour 128 x 128 trajectory,
    as its two steps ``load_net`` and ``sample_arrays`` timed apart, checked
    for finite samples, A(x) = y at the observed frames, and a kernel launch
-   count of 6 per UNet forward.
+   count of 6 per UNet forward;
+5. training: ``training_loop`` on the 72.1M network of ``configs/sda_unet.yml``
+   (flax-style init from the seed, bf16 compute, fp32 parameters) at
+   128 x 128 on a synthetic device-resident trajectory, batch 64 in two
+   microbatches of 32, to 1024 ndata with a checkpoint and a snapshot, then
+   resumed to 2048: finite and falling losses, the checkpoint restored
+   exactly, the first resumed step's draws and loss against an
+   uninterrupted run's, 6 forward and 6 backward attention launches per
+   microbatch, each backward launch of one step against the plain version,
+   the fp16 snapshot loaded by ``load_net``, step time and peak memory.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -32,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -40,14 +52,19 @@ import time
 import numpy as np
 import torch
 
+from climate2weather_tpu_torch.data.dataset import AbstractSDADataset
+from climate2weather_tpu_torch.diffusion.process import VPCosineProcess
+
 REPO = pathlib.Path(__file__).resolve().parent
 SNAPSHOT = REPO / "artifacts" / "network-snapshot-0009437-0.999900"
 CONFIG = REPO / "exp" / "configs" / "000_on-model-eval" / "s16_t6_spectral.yml"
+MODEL_CONFIG = REPO / "configs" / "sda_unet.yml"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 MAIN_SHAPE = (96, 64, 512)  # windows per call x tokens x channels at level 4
+TRAIN_SHAPE = (32, 64, 512)  # microbatch x tokens x channels at level 4
 
 
 def emit(phase, t0, **fields):
@@ -92,13 +109,103 @@ def phase1_build() -> None:
     from climate2weather_tpu_torch.ops import attention, build
 
     attention.build_kernel()
-    ptxas = [ln.strip() for ln in build.build_logs.get("attention_fwd.cu", "").splitlines()
-             if "registers" in ln or "smem" in ln]
-    emit(1, t0, built=["attention_fwd"], ptxas=ptxas)
+    ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]
+             for src, log in build.build_logs.items()}
+    emit(1, t0, built=sorted(attention.launch_counts), ptxas=ptxas)
+
+
+def _rowsum_dropped(q, k, v, do):
+    """A faulty backward: dS = P o dP, without the row-sum term."""
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    s = q.shape[-1] ** (-0.25)
+    p = torch.softmax((q32 * s) @ (k32 * s).transpose(-1, -2), dim=-1)
+    ds = p * (do32 @ v32.transpose(-1, -2))
+    return ((ds @ k32) * s * s).to(q.dtype), ((ds.transpose(-1, -2) @ q32) * s * s).to(q.dtype), \
+        (p.transpose(-1, -2) @ do32).to(q.dtype)
+
+
+def _grads_err(got, want):
+    """Largest error over (dq, dk, dv) and each output's scale."""
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+    scales = [float(w.float().abs().max()) for w in want]
+    return errs, scales
+
+
+def _bwd_tols(scales, dtype):
+    # fp32: sums in another order, ~1e-5 of each output's scale; bf16: both
+    # sides round one fp32 value, so they differ by at most one ulp
+    return [1e-5 * sc if dtype == torch.float32 else bf16_ulp(sc) for sc in scales]
+
+
+def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
+    """The backward kernel against ``attention_bwd_reference`` at the
+    training shape, a ragged one and the longest T, fp32 and bf16, with a
+    planted fault that must fail; gradients through ``fused_attention``;
+    returns (checks, timing row)."""
+    from climate2weather_tpu_torch.ops import attention
+
+    checks, row = [], None
+    for shape in (TRAIN_SHAPE, (3, 16, 40), (2, 128, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            b, t, c = shape
+            qkv = torch.randn((b, t, 3 * c), generator=g, device=device).to(dtype)
+            q, k, v = qkv.chunk(3, dim=-1)
+            do = torch.randn((b, t, c), generator=g, device=device).to(dtype)
+            got = attention.attention_bwd(q, k, v, do)
+            want = attention.attention_bwd_reference(q, k, v, do)
+            torch.cuda.synchronize()
+            errs, scales = _grads_err(got, want)
+            tols = _bwd_tols(scales, dtype)
+            fault, _ = _grads_err(_rowsum_dropped(q, k, v, do), want)
+            rec = {"shape": list(shape), "dtype": str(dtype), "max_abs_err": errs, "tol": tols,
+                   "rowsum_dropped_err": fault}
+            checks.append(rec)
+            if any(e > tl for e, tl in zip(errs, tols)):
+                raise AssertionError(f"attention backward kernel disagrees: {rec}")
+            if fault[0] <= tols[0] or fault[1] <= tols[1]:
+                raise AssertionError(f"the backward check cannot see a dropped row sum: {rec}")
+            if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
+                s = c ** (-0.25)
+                lib_in = [x.detach().clone().requires_grad_(True)
+                          for x in ((q * s).contiguous(), (k * s).contiguous(), v.contiguous())]
+                lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_in, scale=1.0)
+                ms = cuda_time_ms(lambda: attention.attention_bwd(q, k, v, do))
+                plain_ms = cuda_time_ms(lambda: attention.attention_bwd_reference(q, k, v, do))
+                library_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                    lib_out, lib_in, do, retain_graph=True))
+                # q, k, v, dO read once, dQ, dK, dV written once; the fp32
+                # scratch is the kernel's own traffic, not the function's
+                nbytes = 7 * b * t * c * q.element_size()
+                flops = 10 * b * t * t * c  # QK^T, dO V^T, P^T dO, dS K, dS^T Q
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+                row = {
+                    "name": "attention_bwd", "route": "cuda",
+                    "source": "climate2weather_tpu_torch/csrc/attention_bwd.cu",
+                    "replaces": "climate2weather_tpu/ops/attention.py:89",
+                    "launches": None, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": 1e3 * max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": library_ms,
+                }
+    # the repair: gradients reach q, k and v through fused_attention
+    qkv = torch.randn((4, 64, 3 * 64), generator=g, device=device, requires_grad=True)
+    do = torch.randn((4, 64, 64), generator=g, device=device)
+    before = attention.launch_counts["attention_bwd"]
+    attention.fused_attention(*qkv.chunk(3, dim=-1)).backward(do)
+    torch.cuda.synchronize()
+    want = torch.cat(attention.attention_bwd_reference(*qkv.detach().chunk(3, dim=-1), do), dim=-1)
+    grad_err = float((qkv.grad - want).abs().max()) if qkv.grad is not None else None
+    grad_check = {"launched": attention.launch_counts["attention_bwd"] - before,
+                  "qkv_grad_err": grad_err, "tol": 1e-5 * float(want.abs().max())}
+    if grad_err is None or grad_check["launched"] != 1 or grad_err > grad_check["tol"]:
+        raise AssertionError(f"gradients do not reach q, k, v through the kernel: {grad_check}")
+    checks.append({"fused_attention_grad": grad_check})
+    return checks, row
 
 
 def phase2_kernels(device: torch.device, seed: int) -> dict:
-    """The kernel against its plain version; returns the main-shape row."""
+    """Each kernel against its plain version; returns the timing rows by
+    kernel name."""
     from climate2weather_tpu_torch.ops.attention import attention_reference, fused_attention
 
     t0 = time.time()
@@ -143,8 +250,9 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "library_ms": library_ms,
                 }
-    emit(2, t0, checks=checks, timing=row)
-    return row
+    bwd_checks, bwd_row = phase2_backward(device, g)
+    emit(2, t0, checks=checks + bwd_checks, timing=[row, bwd_row])
+    return {"attention_fwd": row, "attention_bwd": bwd_row}
 
 
 def _one_ulp_off(q, k, v, g):
@@ -345,6 +453,259 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
     return {"launches": launches, **result}
 
 
+class SeededTrajectory(AbstractSDADataset):
+    """Phase 5's training data: a synthetic [T, C, H, W] trajectory from
+    :func:`synthetic_inputs`, held in memory; named by its dotted path in the
+    dataset config, as a user's own dataset class would be."""
+
+    def __init__(self, num_features, spatial_res, window, frames, seed, flatten=True):
+        gt, _ = synthetic_inputs(frames, spatial_res, spatial_res, num_features, 1, seed)
+        self._cache = np.ascontiguousarray(gt.transpose(0, 3, 1, 2))  # [T, C, H, W]
+        self._window = int(window)
+        self.spatial_res = int(spatial_res)
+
+    @property
+    def window(self):
+        return self._window
+
+    @property
+    def flatten(self):
+        return True
+
+    @property
+    def num_features(self):
+        return self._cache.shape[1]
+
+    @property
+    def raw_data_shape(self):
+        return self._cache.shape
+
+    def __len__(self):
+        return self._cache.shape[0] - self._window + 1
+
+    def _reader(self):
+        return self._cache
+
+    def load_window(self, i):
+        return self._cache[i : i + self._window]
+
+    def __getitem__(self, i):
+        x = self.load_window(i)
+        w, c, h, wd = x.shape
+        return np.ascontiguousarray(x.transpose(2, 3, 0, 1)).reshape(h, wd, w * c)
+
+
+class RecordingProcess(VPCosineProcess):
+    """The training noise process, recording for phase 5 each microbatch's
+    loss, its t and a fingerprint of its eps, and the synchronised start
+    time of each step (the first microbatch's loss call)."""
+
+    records: list = []
+    rounds: int = 1
+
+    def perturb(self, x, t, generator=None, eps=None):
+        xt, eps = super().perturb(x, t, generator, eps)
+        RecordingProcess.records.append({
+            "t": t.detach().flatten().float().clone(),
+            "eps_sum": eps.sum(dtype=torch.float64), "eps_head": eps.flatten()[:8].float(),
+        })
+        return xt, eps
+
+    def loss(self, eps_model, x, forcing=None, generator=None, t=None, eps=None):
+        if x.device.type == "cuda" and len(RecordingProcess.records) % RecordingProcess.rounds == 0:
+            torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = super().loss(eps_model, x, forcing, generator, t, eps)
+        RecordingProcess.records[-1].update(loss=out.detach(), start=start)
+        return out
+
+
+def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=140,
+                    batch=64, batch_gpu=32, ndata=1024, compute_dtype=torch.bfloat16,
+                    check_launches=True) -> dict:
+    """Train with ``training_loop`` to ``ndata``, checkpoint and snapshot
+    there, and resume to ``2 * ndata``; see the module docstring."""
+    import shutil
+    import tempfile
+
+    from climate2weather_tpu_torch.data.dataset import InfiniteSampler
+    from climate2weather_tpu_torch.exp.downscaling import load_net
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+    from climate2weather_tpu_torch.models.score_net import build_score_unet
+    from climate2weather_tpu_torch.ops import attention
+    from climate2weather_tpu_torch.training.checkpoint import CheckpointIO
+    from climate2weather_tpu_torch.training.loop import training_loop
+    from climate2weather_tpu_torch.training.state import (
+        gather_windows,
+        init_train_state,
+        make_optimizer,
+        step_generator,
+        upload_dataset,
+    )
+
+    t0 = time.time()
+    window, n_features = 13, 4  # the 72.1M snapshot's: 4 variables x 13 frames
+    net_kwargs = {"class_name": "score_unet", "channels": n_features * window,
+                  **yaml_load_file(model_config)}
+    data_kwargs = {"class_name": "chip_smoke.SeededTrajectory", "num_features": n_features,
+                   "spatial_res": res, "window": window, "frames": frames, "seed": seed}
+    rounds = batch // batch_gpu
+    n_attn = 2 * sum(int(b) for i, b in enumerate(net_kwargs["hidden_blocks"])
+                     if i in net_kwargs.get("attention_levels", ()))
+    kwargs = dict(
+        dataset_kwargs={"train": data_kwargs}, network_kwargs=net_kwargs,
+        pipeline_kwargs={"class_name": "chip_smoke.RecordingProcess"},
+        optimizer_kwargs={"class_name": "adamw", "lr": 2e-4, "weight_decay": 1e-3,
+                          "betas": [0.9, 0.999]},
+        lr_kwargs={"func_name": "lr/linear", "ref_lr": 2e-4, "total_ndata": 2 * ndata},
+        batch_size=batch, batch_gpu=batch_gpu, log_ndata=None, status_ndata=ndata // 2,
+        snapshot_ndata=ndata, checkpoint_ndata=ndata, valid_ndata=None,
+        ema_kwargs={"rates": [0.9999]}, seed=seed, device=device, compute_dtype=compute_dtype,
+        loader_threads=1,
+    )
+    RecordingProcess.rounds = rounds
+    run_dir = tempfile.mkdtemp(prefix="c2w-train-")
+    cuda = device.type == "cuda"
+    try:
+        # -- run 1: 0 -> ndata, checkpoint and snapshot at ndata ------------
+        RecordingProcess.records = []
+        for name in attention.launch_counts:
+            attention.launch_counts[name] = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        state1 = training_loop(run_dir, total_ndata=ndata, **kwargs)
+        launches1 = dict(attention.launch_counts)
+        records = list(RecordingProcess.records)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+
+        # -- the checkpoint restores the state exactly ----------------------
+        ckpt = os.path.join(run_dir, f"training-state-{ndata // 1000:07d}.ckpt")
+        fresh_net = build_score_unet(net_kwargs, dtype=compute_dtype).to(device)
+        fresh = init_train_state(fresh_net, make_optimizer(fresh_net.parameters(),
+                                                           kwargs["optimizer_kwargs"]), [0.9999])
+        CheckpointIO(state=fresh, meta={"batch_size": batch}).load(ckpt, verbose=False)
+        mismatched = [k for k, v in state1.net.state_dict().items()
+                      if not torch.equal(v, fresh_net.state_dict()[k])]
+        p1, p2 = dict(state1.net.named_parameters()), dict(fresh_net.named_parameters())
+        for k in p1:
+            s1, s2 = state1.optimizer.state[p1[k]], fresh.optimizer.state[p2[k]]
+            if not (torch.equal(s1["exp_avg"], s2["exp_avg"])
+                    and torch.equal(s1["exp_avg_sq"], s2["exp_avg_sq"])
+                    and float(s1["step"]) == float(s2["step"])):
+                mismatched.append(f"opt:{k}")
+        for rk, ema in state1.emas.items():
+            mismatched += [f"ema{rk}:{k}" for k, v in ema.items() if not torch.equal(v, fresh.emas[rk][k])]
+        restored_exact = not mismatched and fresh.step == state1.step
+        del fresh, fresh_net
+
+        # -- what an uninterrupted run draws and computes at the next step -
+        ds = SeededTrajectory(**{k: v for k, v in data_kwargs.items() if k != "class_name"})
+        it = iter(InfiniteSampler(len(ds), seed=seed, start_idx=ndata))
+        idx = torch.tensor([next(it) for _ in range(batch_gpu)], device=device)
+        data = upload_dataset(ds._cache, ds.raw_data_shape[0], device=device)
+        RecordingProcess.records = []
+        with torch.no_grad():
+            RecordingProcess().loss(lambda xt, t, f: state1.net(xt, t),
+                                    gather_windows(data, idx, window),
+                                    generator=step_generator(seed, ndata // batch, device))
+        uninterrupted = RecordingProcess.records[0]
+        del state1, data
+
+        # -- run 2: resume ndata -> 2 ndata; record the backward launches of
+        # its first step
+        bwd_calls = []
+        plain_bwd = attention.attention_bwd
+
+        def recorded_bwd(q, k, v, do):
+            out = plain_bwd(q, k, v, do)
+            if len(bwd_calls) < n_attn * rounds:  # the launches of one step
+                bwd_calls.append((q, k, v, do.detach(), out))
+            return out
+
+        RecordingProcess.records = []
+        for name in attention.launch_counts:
+            attention.launch_counts[name] = 0
+        attention.attention_bwd = recorded_bwd
+        try:
+            training_loop(run_dir, total_ndata=2 * ndata, **kwargs)
+        finally:
+            attention.attention_bwd = plain_bwd
+        launches2 = dict(attention.launch_counts)
+        records += RecordingProcess.records
+        resumed = RecordingProcess.records[0]
+        if cuda:
+            peak = max(peak, torch.cuda.max_memory_allocated(device))
+
+        # -- checks ----------------------------------------------------------
+        steps = len(records) // rounds
+        losses = [float(sum(float(r["loss"]) for r in records[i * rounds:(i + 1) * rounds]) / rounds)
+                  for i in range(steps)]
+        draws_equal = bool(torch.equal(resumed["t"], uninterrupted["t"])
+                           and float(resumed["eps_sum"]) == float(uninterrupted["eps_sum"])
+                           and torch.equal(resumed["eps_head"], uninterrupted["eps_head"]))
+        resume_loss_diff = abs(float(resumed["loss"]) - float(uninterrupted["loss"]))
+        # the two forwards run the same kernels on the same bits
+        resume_tol = 1e-6 * abs(float(uninterrupted["loss"]))
+        per_run = n_attn * rounds * (ndata // batch) if cuda else 0
+        want_fwd = per_run * (2 if os.environ.get("C2W_REMAT", "0") == "1" else 1)
+        per_launch = []
+        with torch.no_grad():
+            for q, k, v, do, got in bwd_calls:
+                want = attention.attention_bwd_reference(q, k, v, do)
+                errs, scales = _grads_err(got, want)
+                tols = _bwd_tols(scales, q.dtype)
+                fault, _ = _grads_err(_rowsum_dropped(q, k, v, do), want)
+                per_launch.append({"max_abs_err": errs, "tol": tols,
+                                   "rowsum_dropped_err": fault[:2]})
+        starts = [records[i * rounds]["start"] for i in range(steps)]
+        half = ndata // batch
+        warm = [b - a for run in (starts[:half], starts[half:]) for a, b in zip(run[2:], run[3:])]
+        snap = os.path.join(run_dir, f"network-snapshot-{ndata // 1000:07d}-0.999900")
+        snap_net, _ = load_net(snap, device)
+        with torch.no_grad():
+            y = snap_net(torch.randn((2, res, res, n_features * window), generator=torch.Generator(
+                device=device).manual_seed(seed), device=device), 0.5)
+        result = {
+            "params": sum(p.numel() for p in snap_net.parameters()), "steps": steps,
+            "losses": losses, "first4_mean": float(np.mean(losses[:4])),
+            "last4_mean": float(np.mean(losses[-4:])), "restored_exact": restored_exact,
+            "restore_mismatches": mismatched[:5], "resume_draws_equal": draws_equal,
+            "resume_loss": float(resumed["loss"]), "uninterrupted_loss": float(uninterrupted["loss"]),
+            "resume_loss_diff": resume_loss_diff, "resume_tol": resume_tol,
+            "launches_run1": launches1, "launches_run2": launches2,
+            "expected_fwd": want_fwd, "expected_bwd": per_run,
+            "bwd_per_launch": per_launch,
+            "snapshot_forward_finite": bool(torch.isfinite(y.float()).all()),
+            "step_ms_warm": [1e3 * w for w in warm],
+            "step_ms_mean": 1e3 * float(np.mean(warm)) if warm else None,
+            "samples_per_s": batch / float(np.mean(warm)) if warm else None,
+            "max_memory_allocated": peak,
+        }
+        del snap_net
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    emit(5, t0, **result)
+    if not all(np.isfinite(losses)) or not result["last4_mean"] < result["first4_mean"]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    if not restored_exact:
+        raise AssertionError(f"checkpoint restore differs: {mismatched[:10]}")
+    if not draws_equal or resume_loss_diff > resume_tol:
+        raise AssertionError("the resumed step differs from the uninterrupted one: "
+                             f"draws equal {draws_equal}, loss diff {resume_loss_diff}")
+    if check_launches:
+        for name, got in (("run 1", launches1), ("run 2", launches2)):
+            if got["attention_fwd"] != want_fwd or got["attention_bwd"] != per_run:
+                raise AssertionError(f"{name}: launches {got}, want fwd {want_fwd} bwd {per_run}")
+    if len(bwd_calls) != n_attn * rounds or any(
+            any(e > tl for e, tl in zip(c["max_abs_err"], c["tol"])) for c in per_launch):
+        raise AssertionError(f"a backward launch in training disagrees: {per_launch}")
+    if any(min(c["rowsum_dropped_err"]) <= max(c["tol"][:2]) for c in per_launch):
+        raise AssertionError(f"the per-launch check cannot see a dropped row sum: {per_launch}")
+    if not result["snapshot_forward_finite"]:
+        raise AssertionError("the snapshot's forward is not finite")
+    return {"launches": {k: launches1[k] + launches2[k] for k in launches1}, **result}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -358,15 +719,21 @@ def main(argv=None) -> int:
 
     set_reference_numerics()
     device = torch.device("cuda", 0)
+    # the training phase names this script's classes by their dotted path
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     t_all = time.time()
     phase0_card()
     phase1_build()
-    row = phase2_kernels(device, args.seed)
+    rows = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     main_path = phase4_slice(SNAPSHOT, CONFIG, device, seed=args.seed)
-    row["launches"] = main_path["launches"]["attention_fwd"]
+    training = phase5_training(device, seed=args.seed)
+    # each kernel's launches on its own path: sampling for the forward,
+    # training for the backward
+    rows["attention_fwd"]["launches"] = main_path["launches"]["attention_fwd"]
+    rows["attention_bwd"]["launches"] = training["launches"]["attention_bwd"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": [rows["attention_fwd"], rows["attention_bwd"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -7,6 +7,8 @@ the port's ``state_dict`` use the same names, those of the snapshot:
 ``unet/{down,up}{i}_attn{b}/{qkv,proj_out}`` and ``unet/tail{i}``. Layouts
 differ: a flax conv kernel is HWIO and becomes torch's OIHW; a flax Dense
 kernel is ``[in, out]`` and becomes a Linear weight ``[out, in]``.
+:func:`to_flax_params` is the inverse of :func:`to_state_dict`, exact both
+ways, for writing checkpoints and snapshots in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -46,17 +48,47 @@ def to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """torch state_dict (or any dict of tensors keyed like one) -> flax
+    ``{'params': {...}}`` tree of numpy arrays in the tensors' dtype; the
+    inverse of :func:`to_state_dict`."""
+    tree: dict = {}
+    for name, tensor in state_dict.items():
+        module, _, leaf = name.rpartition(".")
+        arr = tensor.detach().cpu().numpy()
+        if leaf == "bias":
+            key = "bias"
+        elif leaf == "weight" and arr.ndim == 4:  # OIHW -> HWIO
+            key, arr = "kernel", np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)))
+        elif leaf == "weight" and arr.ndim == 2:  # [out, in] -> [in, out]
+            key, arr = "kernel", np.ascontiguousarray(arr.T)
+        else:
+            raise ValueError(f"no flax counterpart for {name} of shape {tuple(arr.shape)}")
+        node = tree
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        node[key] = arr
+    return {"params": tree}
+
+
+def fit_state_dict(params: Mapping, like: Mapping[str, torch.Tensor],
+                   what: str = "parameter tree") -> dict[str, torch.Tensor]:
+    """``to_state_dict(params)``, checked against the names and shapes of
+    ``like``; raises on a missing leaf, an extra leaf or a shape that
+    differs."""
+    sd = to_state_dict(params)
+    missing = sorted(set(like) - set(sd))
+    extra = sorted(set(sd) - set(like))
+    if missing or extra:
+        raise ValueError(f"{what} does not fit the model: missing {missing}, extra {extra}")
+    bad = [(k, tuple(sd[k].shape), tuple(v.shape)) for k, v in like.items() if sd[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"{what}: shape mismatch (name, given, wanted): {bad}")
+    return sd
+
+
 def load_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
     """Convert ``params`` and load them into ``model``; raises on a missing
     leaf, an extra leaf or a shape that differs."""
-    sd = to_state_dict(params)
-    want = model.state_dict()
-    missing = sorted(set(want) - set(sd))
-    extra = sorted(set(sd) - set(want))
-    if missing or extra:
-        raise ValueError(f"parameter tree does not fit the model: missing {missing}, extra {extra}")
-    bad = [(k, tuple(sd[k].shape), tuple(v.shape)) for k, v in want.items() if sd[k].shape != v.shape]
-    if bad:
-        raise ValueError(f"shape mismatch (name, given, wanted): {bad}")
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(fit_state_dict(params, model.state_dict()), strict=True)
     return model

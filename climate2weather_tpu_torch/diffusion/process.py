@@ -17,11 +17,15 @@ from typing import Callable, Optional
 
 import torch
 
+from climate2weather_tpu_torch.utils.registry import register
+
 
 def _f32(t) -> torch.Tensor:
     return torch.as_tensor(t, dtype=torch.float32)
 
 
+@register("vp_cosine")
+@register("sda_pipeline")  # the reference's name (thor.pipelines.SDAPipeline)
 @dataclass(frozen=True)
 class VPCosineProcess:
     """Cosine VP diffusion process with stability floor ``eta``."""
@@ -38,19 +42,29 @@ class VPCosineProcess:
         a = self.alpha(t)
         return torch.sqrt(1.0 - a**2 + self.eta**2)
 
-    def perturb(self, x: torch.Tensor, t, generator: Optional[torch.Generator] = None):
-        """x_t ~ N(mu(t) x, sigma(t)^2 I); returns (x_t, eps)."""
-        eps = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    def perturb(self, x: torch.Tensor, t, generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
+        """x_t ~ N(mu(t) x, sigma(t)^2 I); returns (x_t, eps). ``eps`` is
+        drawn from ``generator`` unless given."""
+        if eps is None:
+            eps = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        else:
+            eps = eps.to(device=x.device, dtype=x.dtype)
         mu = self.mu(t).to(device=x.device, dtype=x.dtype)
         sigma = self.sigma(t).to(device=x.device, dtype=x.dtype)
         return mu * x + sigma * eps, eps
 
     def loss(self, eps_model: Callable, x: torch.Tensor, forcing=None,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Denoising score-matching loss with per-sample t ~ U(0, 1)."""
+             generator: Optional[torch.Generator] = None, t: Optional[torch.Tensor] = None,
+             eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Denoising score-matching loss, mean over batch and elements, with
+        per-sample t ~ U(0, 1) shaped [B, 1, ..., 1]. ``t`` and then ``eps``
+        are drawn from ``generator`` unless given (the tests give the JAX
+        package's draws)."""
         b = x.shape[0]
-        t = torch.rand((b,) + (1,) * (x.dim() - 1), generator=generator, device=x.device)
-        xt, eps = self.perturb(x, t, generator)
+        if t is None:
+            t = torch.rand((b,) + (1,) * (x.dim() - 1), generator=generator, device=x.device)
+        xt, eps = self.perturb(x, t, generator, eps)
         err = eps_model(xt, t, forcing).float() - eps.float()
         return torch.mean(err**2)
 

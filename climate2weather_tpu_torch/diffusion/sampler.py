@@ -1,5 +1,6 @@
-"""DPM-Solver++(2M) sampler (port of climate2weather_tpu/diffusion/sampler.py
-``logsnr_time_grid`` and ``sample_dpmpp2m``).
+"""Samplers (port of climate2weather_tpu/diffusion/sampler.py ``sample``,
+``logsnr_time_grid`` and ``sample_dpmpp2m``): the predictor-corrector
+sampler that the training loop's validation runs, and DPM-Solver++(2M).
 
 The JAX ``lax.scan`` becomes a Python loop. The state may carry leading
 batch dimensions in front of the trajectory's ``[L, H, W, C]`` (an ensemble
@@ -17,6 +18,68 @@ import torch
 from climate2weather_tpu_torch.diffusion import steprules
 
 Generators = Union[torch.Generator, Sequence[torch.Generator]]
+
+
+@torch.no_grad()
+def sample(
+    process,
+    score_fn: Callable,
+    noise: torch.Tensor,
+    *,
+    steps: int = 64,
+    corrections: int = 0,
+    tau: float = 1.0,
+    corrector_variance_exact: bool = False,
+    rng: Optional[torch.Generator] = None,
+    z: Optional[Sequence[torch.Tensor]] = None,
+    proc_x0: Optional[Callable] = None,
+    denoise_final: bool = False,
+):
+    """Predictor-corrector reverse diffusion from ``noise``: at each of
+    ``steps`` uniform times t, a DDIM predictor (denoise at t, re-noise at
+    t - 1/steps), then ``corrections`` Langevin corrector steps with
+    delta = tau / mean(eps^2). The corrector noise comes from ``rng`` or,
+    for tests, from ``z`` (``steps * corrections`` tensors shaped like
+    ``noise``, in order). Returns ``(x, nan_detected)``, the flag a 0-d bool
+    tensor."""
+    if corrections > 0 and rng is None and z is None:
+        raise ValueError("corrections > 0 requires an rng generator or injected z")
+    if z is not None and len(z) != steps * corrections:
+        raise ValueError(f"{len(z)} injected draws for {steps} x {corrections} corrections")
+    dt = 1.0 / steps
+    # the JAX grid is fp32, and t - dt is an fp32 subtraction there
+    times = [float(t) for t in np.linspace(1.0, 0.0, steps + 1, dtype=np.float32)[:-1]]
+    x = noise
+    nan_flag = torch.zeros((), dtype=torch.bool, device=noise.device)
+    draw = 0
+    for t in times:
+        t2 = float(np.float32(t) - np.float32(dt))
+        eps = score_fn(x, t)
+        x = steprules.ddim_step(
+            x, eps, float(process.mu(t)), float(process.sigma(t)),
+            float(process.mu(t2)), float(process.sigma(t2)), proc_x0=proc_x0,
+        )
+        for _ in range(corrections):
+            if z is not None:
+                zc = z[draw].to(device=x.device, dtype=x.dtype)
+            else:
+                zc = torch.randn(x.shape, generator=rng, device=x.device, dtype=x.dtype)
+            draw += 1
+            eps_c = score_fn(x, t2)
+            delta = steprules.langevin_delta(tau, torch.mean(eps_c.float() ** 2))
+            x = steprules.langevin_step(
+                x, eps_c, zc, delta.to(x.dtype), float(process.sigma(t2)),
+                sqrt2delta=steprules.langevin_noise_scale(
+                    tau, delta, corrector_variance_exact).to(x.dtype),
+            )
+        nan_flag |= ~torch.isfinite(x).all()
+    if denoise_final:
+        eps = score_fn(x, 0.0)
+        x = process.denoise(x, 0.0, eps)
+        if proc_x0 is not None:
+            x = proc_x0(x)
+        nan_flag |= ~torch.isfinite(x).all()
+    return x, nan_flag
 
 
 def logsnr_time_grid(process, steps: int, grid_points: int = 20001) -> np.ndarray:

@@ -1,5 +1,7 @@
-"""DPM-Solver++(2M) update formulas, deterministic and SDE (port of
-climate2weather_tpu/diffusion/steprules.py).
+"""Reverse-diffusion update formulas (port of
+climate2weather_tpu/diffusion/steprules.py): the DDIM predictor and the
+Langevin corrector of the PC sampler, and DPM-Solver++(2M), deterministic
+and SDE.
 
 The coefficient functions compute fp32 scalars from the schedule (host
 tensors); the step functions are plain arithmetic on the state with those
@@ -11,12 +13,60 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "predict_x0",
+    "ddim_renoise",
+    "ddim_step",
+    "langevin_delta",
+    "langevin_noise_scale",
+    "langevin_step",
     "dpm_scalar_coeffs",
     "dpm_data_estimate",
     "dpm_step",
     "dpm_sde_scalar_coeffs",
     "dpm_sde_step",
 ]
+
+
+def predict_x0(x, eps, mu, sigma):
+    """x_hat0 = (x_t - sigma eps) / mu."""
+    return (x - sigma * eps) / mu
+
+
+def ddim_renoise(x0, eps, mu2, sigma2):
+    """Re-noise a denoised estimate at the next time: mu2 x0 + sigma2 eps."""
+    return mu2 * x0 + sigma2 * eps
+
+
+def ddim_step(x, eps, mu, sigma, mu2, sigma2, proc_x0=None):
+    """One predictor step; ``proc_x0`` post-processes the denoised estimate
+    before it is re-noised."""
+    x0 = predict_x0(x, eps, mu, sigma)
+    if proc_x0 is not None:
+        x0 = proc_x0(x0)
+    return ddim_renoise(x0, eps, mu2, sigma2)
+
+
+def langevin_delta(tau, mean_sq_eps):
+    """Adaptive corrector step size delta = tau / mean(eps^2)."""
+    return tau / mean_sq_eps
+
+
+def langevin_noise_scale(tau, delta, variance_exact: bool = False):
+    """Noise amplitude of one corrector step: ``sqrt(2 delta)`` (the
+    reference's unadjusted Euler-Maruyama), or ``sqrt((2 - tau) delta)``,
+    whose Gaussian stationary variance is exact (needs 0 < tau < 2)."""
+    if variance_exact:
+        if not 0.0 < tau < 2.0:
+            raise ValueError(f"variance-exact corrector requires 0 < tau < 2, got {tau}")
+        return ((2.0 - tau) * delta) ** 0.5
+    return (2.0 * delta) ** 0.5
+
+
+def langevin_step(x, eps, z, delta, sigma2, sqrt2delta=None):
+    """x <- x - (delta eps + sqrt(2 delta) z) sigma2."""
+    if sqrt2delta is None:
+        sqrt2delta = (2.0 * delta) ** 0.5
+    return x - (delta * eps + sqrt2delta * z) * sigma2
 
 
 def _lambda(process, t) -> torch.Tensor:

@@ -52,7 +52,7 @@ def _check_config(cfg: dict, L: int, calib_frames) -> None:
     if kind != "dpmpp2m":
         raise NotImplementedError(f"sampler_kind {kind!r} is not ported (dpmpp2m only)")
     if cfg.get("use_exact_grad", False):
-        raise NotImplementedError("use_exact_grad needs the attention backward, not yet ported")
+        raise NotImplementedError("use_exact_grad is not ported")
     if cfg.get("host_streaming", False) or L > int(cfg.get("long_trajectory_threshold", 512)):
         raise NotImplementedError("the long-trajectory and host-streaming samplers are not ported")
     if cfg.get("guidance_off", False):

@@ -29,6 +29,7 @@ CONFIG = REPO / "exp" / "configs" / "000_on-model-eval" / "s16_t6_spectral.yml"
 # kernel-name fragments -> group (first match wins)
 GROUPS = (
     ("attention_fwd", "attention kernel"),
+    ("attention_bwd", "attention backward kernel"),
     ("conv", "convolution"), ("xmma", "convolution"), ("cudnn", "convolution"),
     ("gemm", "matmul"), ("cutlass", "matmul"), ("cublas", "matmul"),
     ("reduce", "reduction"), ("fft", "fft"), ("index", "gather/scatter"),

@@ -17,6 +17,11 @@ PyYAML:
   scalars, and plain or simply quoted scalars resolved as YAML 1.1 does
   (``1e-3`` without a dot stays a string, ``yes`` is true,
   ``2014-04-07-04`` is a string). Anything else raises.
+
+Their writers, :func:`msgpack_dumps` (the bytes flax's ``to_bytes`` writes
+for the same tree) and :func:`yaml_dump` (block YAML of the same subset,
+keys sorted as PyYAML's ``safe_dump`` sorts them), write the training
+checkpoints and snapshots in the JAX package's formats.
 """
 
 from __future__ import annotations
@@ -30,6 +35,11 @@ import numpy as np
 
 # --------------------------------------------------------------------------
 # msgpack
+
+# flax's extension codes (flax/serialization.py _MsgpackExtType)
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+_ARRAY_DTYPES = ("float16", "float32", "float64", "int8", "int16", "int32", "int64",
+                 "uint8", "uint16", "uint32", "uint64", "bool")
 
 
 class _MsgpackReader:
@@ -103,9 +113,11 @@ class _MsgpackReader:
     def ext(self, n: int) -> np.ndarray:
         code = self.unpack(">b")
         payload = self.take(n)
-        if code != 1:
-            raise ValueError(f"msgpack: unsupported extension code {code}")
-        return _flax_ndarray(payload)
+        if code == _EXT_NDARRAY:
+            return _flax_ndarray(payload)
+        if code == _EXT_NPSCALAR:
+            return _flax_ndarray(payload)[()]
+        raise ValueError(f"msgpack: unsupported extension code {code}")
 
 
 def _flax_ndarray(payload: memoryview) -> np.ndarray:
@@ -117,7 +129,7 @@ def _flax_ndarray(payload: memoryview) -> np.ndarray:
     if isinstance(dtype_name, bytes):
         dtype_name = dtype_name.decode()
     shape = tuple(int(s) for s in shape)
-    if dtype_name in ("float16", "float32"):
+    if dtype_name in _ARRAY_DTYPES:
         arr = np.frombuffer(raw, dtype=np.dtype(dtype_name))
     elif dtype_name == "bfloat16":
         # bf16 is the upper half of an fp32: widen by a 16-bit shift
@@ -136,6 +148,102 @@ def msgpack_loads(data: bytes) -> Any:
     if reader.pos != len(data):
         raise ValueError("msgpack: trailing bytes after the top-level object")
     return out
+
+
+def _pack_length(out: bytearray, n: int, fix, fixmax: int, codes) -> None:
+    """Header of a str/bin/array/map/ext of length n: the shortest form, as
+    msgpack-python's packer chooses it."""
+    if fix is not None and n <= fixmax:
+        out.append(fix | n)
+        return
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out += struct.pack(">B" + fmt[1:], code, n)
+            return
+    raise ValueError(f"msgpack: object of length {n} too long")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 0x80:
+        out.append(v)
+    elif -0x20 <= v < 0:
+        out += struct.pack(">b", v)
+    elif v >= 0:
+        for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                               (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", (1 << 64) - 1)):
+            if v <= top:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"msgpack: int {v} out of range")
+    else:
+        for code, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                               (0xD2, ">i", -0x80000000), (0xD3, ">q", -(1 << 63))):
+            if v >= low:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"msgpack: int {v} out of range")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixext:
+        out.append(fixext[len(payload)])
+    else:
+        _pack_length(out, len(payload), None, 0, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    if arr.dtype.name not in _ARRAY_DTYPES:
+        raise ValueError(f"msgpack: unsupported array dtype {arr.dtype}")
+    return msgpack_dumps([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def _pack(out: bytearray, obj: Any) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif type(obj) is int:
+        _pack_int(out, obj)
+    elif type(obj) is float:
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif type(obj) is str:
+        raw = obj.encode("utf-8")
+        _pack_length(out, len(raw), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+        out += raw
+    elif type(obj) is bytes:
+        _pack_length(out, len(obj), None, 0, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+        out += obj
+    elif type(obj) in (list, tuple):
+        _pack_length(out, len(obj), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I")))
+        for item in obj:
+            _pack(out, item)
+    elif isinstance(obj, dict):
+        _pack_length(out, len(obj), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I")))
+        for key, val in obj.items():
+            _pack(out, key)
+            _pack(out, val)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_payload(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_payload(np.asarray(obj)))
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def msgpack_dumps(obj: Any) -> bytes:
+    """Encode nested dicts, lists, scalars and numpy arrays as flax's
+    ``msgpack_serialize`` does: an array is extension 1 holding the msgpack
+    triple ``(shape, dtype name, C-order bytes)``, a numpy scalar extension
+    3. Arrays above flax's 1 GiB chunking limit are not supported."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
 
 
 # --------------------------------------------------------------------------
@@ -220,6 +328,8 @@ def _scalar(text: str, lineno: int) -> Any:
 
 def _value(text: str, lineno: int) -> Any:
     text = text.strip()
+    if text == "{}":
+        return {}
     if text.startswith("["):
         if not text.endswith("]"):
             raise _yaml_error(lineno, f"unterminated flow list {text!r}")
@@ -325,6 +435,86 @@ def _mapping(lines, pos: int, indent: int):
 def yaml_load_file(path) -> Any:
     with open(path, encoding="utf-8") as f:
         return yaml_loads(f.read())
+
+
+def _yaml_scalar(v: Any) -> str:
+    """A scalar as PyYAML's safe_dump writes it, quoted where the plain form
+    would read back as something else."""
+    if v is None:
+        return "null"
+    if v is True or v is False:
+        return "true" if v else "false"
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    if isinstance(v, (float, np.floating)):
+        v = float(v)
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        if "." not in text and "e" in text:  # YAML 1.1 floats need a dot
+            text = text.replace("e", ".0e", 1)
+        return text
+    if not isinstance(v, str):
+        raise TypeError(f"yaml_dump: cannot write {type(v).__name__}")
+    if "\n" in v or "\r" in v:
+        raise ValueError(f"yaml_dump: multi-line strings are not supported: {v!r}")
+    try:
+        plain = v == v.strip() and _value(v, 0) == v and "#" not in v and ":" not in v
+    except ValueError:
+        plain = False
+    if plain and v[:1] not in ("-", "?", ",", "[", "]", "{", "}", "'", '"'):
+        return v
+    return "'" + v.replace("'", "''") + "'"
+
+
+def _yaml_lines(node: Any, indent: int, out: list) -> None:
+    pad = " " * indent
+    if isinstance(node, dict):
+        for key in sorted(node):
+            val = node[key]
+            head = f"{pad}{_yaml_scalar(key)}:"
+            if isinstance(val, dict) and val:
+                out.append(head)
+                _yaml_lines(val, indent + 2, out)
+            elif isinstance(val, (list, tuple)) and len(val):
+                out.append(head)
+                _yaml_lines(val, indent, out)
+            elif isinstance(val, (list, tuple)):
+                out.append(f"{head} []")
+            elif isinstance(val, dict):
+                out.append(f"{head} {{}}")
+            else:
+                out.append(f"{head} {_yaml_scalar(val)}")
+        return
+    for item in node:  # a non-empty list
+        if isinstance(item, (list, tuple)):
+            flat = [_yaml_scalar(x) for x in item]
+            if any(isinstance(x, (list, tuple, dict)) or f[:1] in ("'", '"') or "," in f
+                   for x, f in zip(item, flat)):
+                raise ValueError(f"yaml_dump: nested list {item!r} is not supported")
+            out.append(f"{pad}- [{', '.join(flat)}]")
+        elif isinstance(item, dict):
+            raise ValueError("yaml_dump: maps inside lists are not supported")
+        else:
+            out.append(f"{pad}- {_yaml_scalar(item)}")
+
+
+def yaml_dump(data: dict) -> str:
+    """Block YAML of nested dicts, lists and scalars, keys sorted, that
+    PyYAML's ``safe_load`` and :func:`yaml_loads` both read back to ``data``
+    (tuples come back as lists). Raises on what the reader does not take."""
+    if not isinstance(data, dict):
+        raise TypeError("yaml_dump writes a mapping at the top level")
+    out: list = []
+    _yaml_lines(data, 0, out)
+    return "\n".join(out) + "\n" if out else "{}\n"
+
+
+def yaml_dump_file(data: dict, path) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(yaml_dump(data))
 
 
 # --------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -82,6 +83,14 @@ def build(source: str) -> pathlib.Path:
             os.unlink(tmp)
     build_logs[source] = proc.stdout + proc.stderr
     return lib
+
+
+def build_all(sources) -> list:
+    """Build several sources at once, one ``nvcc`` process each, all started
+    together; returns their libraries' paths. Raises the first failure."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(build, sources))
 
 
 def load(source: str) -> ctypes.CDLL:

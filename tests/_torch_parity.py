@@ -3,6 +3,8 @@ the JAX package: inputs made with numpy, passed to both sides as arrays."""
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,11 @@ import torch
 
 # the repository's bar for fp32 parity (tests/test_import_snapshot.py)
 RTOL = ATOL = 2e-4
+
+# Under pytest-xdist each worker would otherwise start a thread per core for
+# torch's CPU kernels, and the workers' threads then contend for the cores.
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 def t(a) -> torch.Tensor:

@@ -93,3 +93,124 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     z = torch.zeros((2, 16, 16), device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         port.fused_attention(z, z, z)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 32), (3, 16, 40)])
+def test_gradients_match_jax_vjp_of_pallas_kernel(shape):
+    """``fused_attention``'s gradients on the CPU (the Function with
+    ``attention_bwd_reference``) against ``jax.vjp`` of the Pallas kernel in
+    interpret mode; rtol/atol 2e-4."""
+    rng = np.random.RandomState(sum(shape) + 7)
+    q, k, v, do = (rng.randn(*shape).astype(np.float32) for _ in range(4))
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused_attention(a, b, c, True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (t(x).requires_grad_(True) for x in (q, k, v))
+    port.fused_attention(tq, tk, tv).backward(t(do))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        close(got, w)
+
+
+def test_bwd_reference_is_autograd_of_the_forward():
+    """The step-by-step backward equals autograd through the plain forward
+    (fp32, rtol/atol 2e-4), and keeps bf16 inputs' dtype."""
+    rng = np.random.RandomState(3)
+    q, k, v, do = (t(rng.randn(2, 24, 16)) for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(port.attention_reference(*leaves), leaves, do)
+    for got, w in zip(port.attention_bwd_reference(q, k, v, do), want):
+        close(got, w)
+    half = [x.to(torch.bfloat16) for x in (q, k, v, do)]
+    assert all(g.dtype == torch.bfloat16 for g in port.attention_bwd_reference(*half))
+
+
+def test_function_runs_only_where_a_gradient_is_wanted(monkeypatch):
+    """With grad mode on and an input that requires grad, the CPU path goes
+    through ``FusedAttention`` (forward and backward wrappers); under
+    ``no_grad``, as in sampling, the forward runs alone and nothing is saved
+    for a backward."""
+    calls = []
+    real_fwd, real_bwd = port.attention_fwd, port.attention_bwd
+    monkeypatch.setattr(port, "attention_fwd", lambda *a: calls.append("fwd") or real_fwd(*a))
+    monkeypatch.setattr(port, "attention_bwd", lambda *a: calls.append("bwd") or real_bwd(*a))
+    rng = np.random.RandomState(4)
+    qkv = t(rng.randn(2, 16, 3 * 24)).requires_grad_(True)
+    out = port.fused_attention(*qkv.chunk(3, dim=-1))
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "FusedAttentionBackward"
+    out.sum().backward()
+    assert calls == ["fwd", "bwd"] and qkv.grad is not None
+    with torch.no_grad():
+        out = port.fused_attention(*qkv.chunk(3, dim=-1))
+    assert out.grad_fn is None and calls == ["fwd", "bwd", "fwd"]
+
+
+def test_attention_block_gradients_match_flax():
+    """Gradients of the AttentionBlock's parameters and input through the
+    strided q/k/v thirds of its projection, against the flax block with the
+    Pallas kernel in interpret mode (rtol/atol 2e-4)."""
+    from climate2weather_tpu.models.unet import AttentionBlock as JaxBlock
+    from climate2weather_tpu_torch.convert import load_params, to_state_dict
+    from climate2weather_tpu_torch.models.unet import AttentionBlock
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 8, 8, 32).astype(np.float32)
+    w = rng.randn(2, 8, 8, 32).astype(np.float32)
+    init_blk = JaxBlock(32, dtype=jnp.float32, use_pallas=False)
+    params = jax.tree.map(np.asarray, init_blk.init(jax.random.PRNGKey(2), jnp.asarray(x)))
+    import climate2weather_tpu.ops.attention as attn_mod
+
+    orig = attn_mod.fused_attention
+    attn_mod.fused_attention = lambda q, k, v, interpret=False: orig(q, k, v, True)
+    try:
+        blk = JaxBlock(32, dtype=jnp.float32, use_pallas=True)
+        want_p, want_x = jax.grad(lambda p, xx: jnp.sum(blk.apply(p, xx) * w), argnums=(0, 1))(
+            params, jnp.asarray(x))
+    finally:
+        attn_mod.fused_attention = orig
+    port_blk = AttentionBlock(32, dtype=torch.float32)
+    load_params(port_blk, params)
+    tx = t(x).requires_grad_(True)
+    (port_blk(tx.permute(0, 3, 1, 2)).permute(0, 2, 3, 1) * t(w)).sum().backward()
+    close(tx.grad, want_x)
+    want_sd = to_state_dict(jax.tree.map(np.asarray, want_p))
+    for name, p in port_blk.named_parameters():
+        close(p.grad, want_sd[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 64, 512), (3, 16, 40), (2, 128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain_version_on_card(cuda_device, shape, dtype):
+    """fp32: 1e-5 of each output's scale; bf16: one ulp of it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    b, s, c = shape
+    qkv = torch.randn((b, s, 3 * c), generator=g, device=cuda_device).to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    do = torch.randn((b, s, c), generator=g, device=cuda_device).to(dtype)
+    before = port.launch_counts["attention_bwd"]
+    got = port.attention_bwd(q, k, v, do)
+    assert port.launch_counts["attention_bwd"] == before + 1
+    for gt, want in zip(got, port.attention_bwd_reference(q, k, v, do)):
+        scale = float(want.float().abs().max())
+        tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(scale)) - 7)
+        assert gt.dtype == dtype and gt.is_contiguous()
+        assert float((gt.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_gradients_reach_qkv_through_the_kernels_on_card(cuda_device):
+    """The repair: on CUDA tensors the kernels' output carries a grad_fn, and
+    the qkv projection's gradient is the plain backward's (1e-5 of scale)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((4, 64, 3 * 64), generator=g, device=cuda_device, requires_grad=True)
+    do = torch.randn((4, 64, 64), generator=g, device=cuda_device)
+    before = dict(port.launch_counts)
+    out = port.fused_attention(*qkv.chunk(3, dim=-1))
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert port.launch_counts["attention_fwd"] == before["attention_fwd"] + 1
+    assert port.launch_counts["attention_bwd"] == before["attention_bwd"] + 1
+    want = torch.cat(port.attention_bwd_reference(*qkv.detach().chunk(3, dim=-1), do), dim=-1)
+    assert float((qkv.grad - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -70,3 +70,23 @@ def test_successful_build_is_reused(tmp_path, monkeypatch):
     lib = build.build("k.cu")
     assert lib.exists() and build.build("k.cu") == lib
     assert log.read_text().count("x") == 1
+
+
+def test_build_all_starts_every_compiler_at_once(tmp_path, monkeypatch):
+    """Two sources, two nvcc processes that overlap: each fake compiler
+    waits until both have started."""
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    for name in ("a.cu", "b.cu"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    marks = tmp_path / "marks"
+    marks.mkdir()
+    fake = _fake_nvcc(tmp_path, (
+        f'touch {marks}/$$\n'
+        f'for i in $(seq 100); do [ $(ls {marks} | wc -l) -ge 2 ] && break; sleep 0.05; done\n'
+        f'[ $(ls {marks} | wc -l) -ge 2 ] || exit 3\n'
+        'while [ "$1" != "-o" ]; do shift; done\necho lib > "$2"\n'
+    ))
+    monkeypatch.setattr(build, "find_nvcc", lambda: fake)
+    libs = build.build_all(["a.cu", "b.cu"])
+    assert [p.name.split("-")[0] for p in libs] == ["a", "b"] and all(p.exists() for p in libs)

@@ -2,15 +2,18 @@
 library, torch and numpy, and the smoke's phases run end to end.
 
 A subprocess blocks the import of jax, flax, optax, msgpack, yaml, h5py,
-netCDF4, xarray, ml_dtypes, ninja and climate2weather_tpu, imports the port
-and ``chip_smoke``, and runs the smoke's phase-3 and phase-4 functions on the
-CPU with a tiny snapshot (the kernel phases need the card).
+click, netCDF4, xarray, ml_dtypes, ninja and climate2weather_tpu, imports
+the port and ``chip_smoke``, and runs the smoke's phase-3 and phase-4
+functions on the CPU with a tiny snapshot, or its phase-5 training at a tiny
+size (the kernel phases need the card).
 """
 
 import json
 import pathlib
 import subprocess
 import sys
+
+import torch
 
 from _torch_parity import jax_net_and_params, tiny_config, write_snapshot
 
@@ -19,7 +22,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CHILD = r"""
 import importlib.abc, json, pathlib, pkgutil, sys
 
-BLOCKED = {"jax", "flax", "optax", "msgpack", "yaml", "h5py", "netCDF4", "xarray",
+BLOCKED = {"jax", "flax", "optax", "msgpack", "yaml", "h5py", "click", "netCDF4", "xarray",
            "ml_dtypes", "ninja", "climate2weather_tpu"}
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -29,9 +32,14 @@ class Blocker(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Blocker())
-repo, snap = sys.argv[1], sys.argv[2]
+# absent, as on a machine without them: imports fail, and probes such as
+# importlib.util.find_spec (torch's optimizers make some) answer None
+for name in BLOCKED:
+    sys.modules[name] = None
+repo, mode, snap, threads = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
 sys.path.insert(0, repo)
 import torch
+torch.set_num_threads(threads)  # the parent's share of the cores
 import climate2weather_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(climate2weather_tpu_torch.__path__, "climate2weather_tpu_torch.")]
 for m in mods:
@@ -39,12 +47,18 @@ for m in mods:
 import chip_smoke
 
 cpu = torch.device("cpu")
-p3 = chip_smoke.phase3_network(snap, cpu, batch=2, res=32, compare_plain=False)
-p4 = chip_smoke.phase4_slice(snap, chip_smoke.CONFIG, cpu, L=49, res=32, n_train=8,
-                             overrides={"num_sampling_steps": 8})
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-print(json.dumps({"modules": mods, "p3": p3, "p4_forwards": p4["unet_forwards"],
-                  "p4_shape": p4["samples_shape"], "leaked": leaked}))
+if mode == "sampling":
+    p3 = chip_smoke.phase3_network(snap, cpu, batch=2, res=32, compare_plain=False)
+    p4 = chip_smoke.phase4_slice(snap, chip_smoke.CONFIG, cpu, L=49, res=32, n_train=8,
+                                 overrides={"num_sampling_steps": 8})
+    out = {"p3": p3, "p4_forwards": p4["unet_forwards"], "p4_shape": p4["samples_shape"]}
+else:
+    p5 = chip_smoke.phase5_training(cpu, model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
+                                    res=16, frames=40, compute_dtype=torch.float32)
+    out = {"p5": {k: v for k, v in p5.items() if k != "bwd_per_launch"},
+           "bwd_checked": len(p5["bwd_per_launch"])}
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in BLOCKED)
+print(json.dumps({"modules": mods, "leaked": leaked, **out}))
 """
 
 
@@ -54,7 +68,7 @@ def test_port_and_smoke_need_only_stdlib_torch_numpy(tmp_path):
     _, params = jax_net_and_params(cfg, hw=32)
     snap = write_snapshot(tmp_path, cfg, params)
     proc = subprocess.run(
-        [sys.executable, "-c", CHILD, str(REPO), snap],
+        [sys.executable, "-c", CHILD, str(REPO), "sampling", snap, str(torch.get_num_threads())],
         capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -65,6 +79,28 @@ def test_port_and_smoke_need_only_stdlib_torch_numpy(tmp_path):
     # 3 samples in one group x (8 steps + final denoise) x 2 chunks of windows
     assert out["p4_forwards"] == 18
     assert out["p4_shape"] == [3, 49, 32, 32, 4]
+
+
+def test_smoke_training_phase_needs_only_stdlib_torch_numpy(tmp_path):
+    """Phase 5 end to end on the CPU with the tiny net at 16 x 16: two
+    loop runs (16 + 16 steps), the exact restore, the resumed step's draws
+    and loss, the per-launch backward checks and the snapshot's forward,
+    with nothing beyond stdlib, torch and numpy importable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "training", "", str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    assert "climate2weather_tpu_torch.training.loop" in out["modules"]
+    assert "climate2weather_tpu_torch.train" in out["modules"]
+    p5 = out["p5"]
+    assert p5["steps"] == 32 and p5["restored_exact"] and p5["resume_draws_equal"]
+    assert p5["resume_loss_diff"] == 0.0  # the CPU forwards run the same ops on the same bits
+    assert p5["last4_mean"] < p5["first4_mean"] and p5["snapshot_forward_finite"]
+    assert p5["launches"] == {"attention_fwd": 0, "attention_bwd": 0}  # no kernel on the CPU
+    assert out["bwd_checked"] == 4  # one step: 2 microbatches x the tiny net's 2 attention blocks
 
 
 def test_smoke_refuses_to_run_without_a_card(tmp_path):

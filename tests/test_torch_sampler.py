@@ -151,3 +151,55 @@ def test_sde_requires_noise_source():
         sampler.sample_dpmpp2m(VPCosineProcess(), lambda x, tt: x, torch.zeros(3), steps=2, sde_eta=0.3)
     with pytest.raises(ValueError):
         sampler.sample_dpmpp2m(VPCosineProcess(), lambda x, tt: x, torch.zeros(3), steps=2, sde_eta=-1)
+
+
+@pytest.mark.parametrize("corrections,exact", [(0, False), (1, False), (2, True)])
+@pytest.mark.parametrize("denoise_final", [False, True])
+def test_pc_sample_matches_jax(corrections, exact, denoise_final):
+    """The predictor-corrector sampler of the training loop's validation
+    against JAX's ``sample``, the corrector noise JAX draws (one ``split``
+    per corrector step) injected; rtol/atol 2e-4."""
+    rng = np.random.RandomState(9)
+    steps, shape = 10, (5, 3, 3, 4)
+    W = (rng.randn(4, 4) / 2).astype(np.float32)
+    noise = rng.randn(*shape).astype(np.float32)
+    jax_fn, torch_fn = _linear_score(W)
+    key = jax.random.PRNGKey(3)
+    kw = dict(steps=steps, corrections=corrections, tau=0.1, corrector_variance_exact=exact,
+              denoise_final=denoise_final)
+    want, want_nan = jsampler.sample(JaxProcess(), jax_fn, jnp.asarray(noise), rng=key, **kw)
+    z = [t(zi) for zi in jax_split_normals(key, steps * corrections, shape)] if corrections else None
+    got, got_nan = sampler.sample(VPCosineProcess(), torch_fn, t(noise), z=z, **kw)
+    close(got, want)
+    assert bool(got_nan) == bool(want_nan) is False
+
+
+def test_pc_sample_validation_path_matches_jax():
+    """The loop's validation sampling: the PC sampler over a window-scored
+    tiny net (one window of 5 frames) against JAX's, 8 steps; rtol/atol
+    2e-4 of the output's scale, which the untrained net's 1/mu(1) ~ 1e3
+    denoising gain makes large."""
+    from _torch_parity import jax_net_and_params, tiny_config, torch_net
+    from climate2weather_tpu.diffusion.window import WindowScoreFn as JaxWindowScoreFn
+    from climate2weather_tpu.diffusion.window import make_batched_eps_fn
+    from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+
+    cfg = tiny_config(channels=10, window=5)
+    net, params = jax_net_and_params(cfg)
+    noise = np.random.RandomState(4).randn(5, 16, 16, 2).astype(np.float32)
+    sf = JaxWindowScoreFn(make_batched_eps_fn(net.apply), params, 2)
+    want, _ = jax.jit(lambda x: jsampler.sample(JaxProcess(), sf, x, steps=8))(jnp.asarray(noise))
+    port_net = torch_net(cfg, params)
+    got, nan = sampler.sample(VPCosineProcess(), WindowScoreFn(lambda w, tt: port_net(w, tt), 2),
+                              t(noise), steps=8)
+    scale = float(np.abs(np.asarray(want)).max())
+    close(got, want, rtol=2e-4, atol=2e-4 * scale)
+    assert not bool(nan)
+
+
+def test_pc_sample_requires_a_corrector_noise_source():
+    with pytest.raises(ValueError):
+        sampler.sample(VPCosineProcess(), lambda x, tt: x, torch.zeros(3), steps=2, corrections=1)
+    with pytest.raises(ValueError):
+        sampler.sample(VPCosineProcess(), lambda x, tt: x, torch.zeros(3), steps=2, corrections=1,
+                       z=[torch.zeros(3)])

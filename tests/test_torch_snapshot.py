@@ -66,7 +66,7 @@ def test_msgpack_scalars_and_containers(value):
     msgpack.packb(1) + b"\x00",                          # trailing bytes
     msgpack.packb("abc")[:-1],                           # truncated
     msgpack.packb(msgpack.ExtType(5, b"1234")),          # unknown extension
-    serialization.to_bytes({"x": np.zeros(2, np.int32)}),  # unsupported array dtype
+    serialization.to_bytes({"x": np.zeros(2, np.complex64)}),  # unsupported array dtype
 ])
 def test_msgpack_rejects(blob):
     with pytest.raises(ValueError):
