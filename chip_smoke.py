@@ -5,19 +5,28 @@
 Numbered phases, each printing one JSON line with its seconds:
 
 0. the card (``nvidia-smi`` name and power limit) and the toolchain;
-1. build of every CUDA kernel from ``climate2weather_tpu_torch/csrc``;
-2. each kernel against its plain PyTorch version at its path's shapes, a
-   small ragged one and the longest sequence it takes, with times of the
-   kernel, the plain version and one PyTorch library call (``library_ms``),
-   beside the least time the card could take (``bound_ms``); for the
-   backward, a planted fault (dS without its row-sum term) that the check
-   must catch, and gradients reaching q, k and v through ``fused_attention``;
+1. build of every CUDA kernel from ``climate2weather_tpu_torch/csrc``, one
+   ``nvcc`` per source, all started together;
+2. each kernel against its plain PyTorch version, with times of the kernel,
+   the plain version and one PyTorch library call (``library_ms``) beside
+   the least time the card could take (``bound_ms``): the attention forward
+   and backward at the main paths' shapes and at T = 200, 256 and 1024
+   (fp32 and bf16; the backward with a planted fault, dS without its row-sum
+   term, that the check must catch, and gradients reaching q, k and v); the
+   Winograd conv at the 72.1M UNet's level-0 and level-4 block shapes in
+   bf16 with each ``pre``, ``vec`` and a residual, and one fp32 shape (with
+   a planted fault, the top halo row not zeroed, and gradients reaching x,
+   the kernel, the bias, vec and the residual);
 3. the 72.1M-parameter snapshot in ``artifacts/`` loaded through the port's
    own readers, one forward at [96, 128, 128, 52] with the kernel: each of its
    6 attention launches held against the plain version on the same inputs
    within one bf16 ulp (an attention that drops a key must fail that), and
    the forward against one with the plain attention, within what moving
    every attention output by one bf16 ulp does to it;
+3b. one ModResidualBlock of the snapshot at level 0 and one at level 4 as
+   two Winograd calls each (conv0 with the norm and the embedding's
+   projection, conv1 with SiLU and the residual), against the port's cuDNN
+   block in bf16, within what moving every conv output by one bf16 ulp does;
 4. the main path: ``run_arrays`` at the settings of
    ``exp/configs/000_on-model-eval/s16_t6_spectral.yml`` (``num_samples``
    cut to 3, one ensemble group) on a synthetic 49-hour 128 x 128 trajectory,
@@ -26,13 +35,25 @@ Numbered phases, each printing one JSON line with its seconds:
    count of 6 per UNet forward;
 5. training: ``training_loop`` on the 72.1M network of ``configs/sda_unet.yml``
    (flax-style init from the seed, bf16 compute, fp32 parameters) at
-   128 x 128 on a synthetic device-resident trajectory, batch 64 in two
+   128 x 128 from a [140, 4, 128, 128] training file written by the port's
+   HDF5 writer and read through ``WindowDataset``, batch 64 in two
    microbatches of 32, to 1024 ndata with a checkpoint and a snapshot, then
    resumed to 2048: finite and falling losses, the checkpoint restored
    exactly, the first resumed step's draws and loss against an
    uninterrupted run's, 6 forward and 6 backward attention launches per
    microbatch, each backward launch of one step against the plain version,
-   the fp16 snapshot loaded by ``load_net``, step time and peak memory.
+   the fp16 snapshot loaded by ``load_net``, step time and peak memory;
+6. ``predict`` from files with h5py made unimportable: the phase writes a
+   49-hour 128 x 128 grid, its quantiles, a training file and a coarse
+   observation grid with the port's writers, then runs
+   ``exp/downscaling.run`` on copies of ``s16_t6_spectral.yml`` and
+   ``s16_t6.yml`` (3 samples each) and on the external-observation and
+   ``guidance_off`` modes (8 steps), reading every ``.nc`` back: finite,
+   A(x) = y where the config projects, 6 attention launches per forward;
+7. the canonical training drive, ``python -m climate2weather_tpu_torch.train``
+   with ``configs/tiny_unet.yml`` at 32 x 32 (attention over 256 tokens,
+   forward and backward) from a file the port wrote, 4 steps: finite losses
+   and one step's attention launches against the plain versions.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -52,7 +73,6 @@ import time
 import numpy as np
 import torch
 
-from climate2weather_tpu_torch.data.dataset import AbstractSDADataset
 from climate2weather_tpu_torch.diffusion.process import VPCosineProcess
 
 REPO = pathlib.Path(__file__).resolve().parent
@@ -65,10 +85,27 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 MAIN_SHAPE = (96, 64, 512)  # windows per call x tokens x channels at level 4
 TRAIN_SHAPE = (32, 64, 512)  # microbatch x tokens x channels at level 4
+# T = 200 ragged, 128 (the old kernels' limit), 256 (tiny_unet at 32 x 32;
+# sda_unet_large's level 4 at 256 x 256), 1024 (a 32 x 32 attention level),
+# and a small ragged shape
+LONG_SHAPES = ((4, 200, 64), (2, 128, 64), (8, 256, 32), (4, 256, 512), (2, 1024, 64), (3, 16, 40))
+LONG_TIMED = (32, 256, 512)  # timed beside the main shapes: a training microbatch at T = 256
+WINO_SHAPES = ((32, 128, 128, 128), (32, 8, 8, 512))  # the 72.1M blocks at levels 0 and 4
 
 
 def emit(phase, t0, **fields):
     print(json.dumps({"phase": phase, "seconds": round(time.time() - t0, 3), **fields}), flush=True)
+
+
+def timing_row(name, source, replaces, err, ms, plain_ms, library_ms, nbytes, flops, shape) -> dict:
+    """One row of the kernels line; ``bound_ms`` is the larger of the bytes
+    over the HBM rate and the operations over the bf16 tensor-core peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": list(shape)}
 
 
 def cuda_time_ms(fn, reps=50, warmup=5) -> float:
@@ -106,12 +143,14 @@ def phase0_card() -> dict:
 
 def phase1_build() -> None:
     t0 = time.time()
-    from climate2weather_tpu_torch.ops import attention, build
+    from climate2weather_tpu_torch.ops import attention, build, winograd
 
+    build.build_all(build.SOURCES)  # one nvcc per source, all started together
     attention.build_kernel()
+    winograd.build_kernel()
     ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]
              for src, log in build.build_logs.items()}
-    emit(1, t0, built=sorted(attention.launch_counts), ptxas=ptxas)
+    emit(1, t0, built=sorted({**attention.launch_counts, **winograd.launch_counts}), ptxas=ptxas)
 
 
 def _rowsum_dropped(q, k, v, do):
@@ -145,8 +184,9 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
     from climate2weather_tpu_torch.ops import attention
 
     checks, row = [], None
-    for shape in (TRAIN_SHAPE, (3, 16, 40), (2, 128, 64)):
-        for dtype in (torch.float32, torch.bfloat16):
+    timed = {}
+    for shape in (TRAIN_SHAPE, *LONG_SHAPES, LONG_TIMED):
+        for dtype in ((torch.bfloat16,) if shape == LONG_TIMED else (torch.float32, torch.bfloat16)):
             b, t, c = shape
             qkv = torch.randn((b, t, 3 * c), generator=g, device=device).to(dtype)
             q, k, v = qkv.chunk(3, dim=-1)
@@ -164,7 +204,7 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
                 raise AssertionError(f"attention backward kernel disagrees: {rec}")
             if fault[0] <= tols[0] or fault[1] <= tols[1]:
                 raise AssertionError(f"the backward check cannot see a dropped row sum: {rec}")
-            if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
+            if shape in (TRAIN_SHAPE, LONG_TIMED) and dtype == torch.bfloat16:
                 s = c ** (-0.25)
                 lib_in = [x.detach().clone().requires_grad_(True)
                           for x in ((q * s).contiguous(), (k * s).contiguous(), v.contiguous())]
@@ -177,16 +217,11 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
                 # scratch is the kernel's own traffic, not the function's
                 nbytes = 7 * b * t * c * q.element_size()
                 flops = 10 * b * t * t * c  # QK^T, dO V^T, P^T dO, dS K, dS^T Q
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-                row = {
-                    "name": "attention_bwd", "route": "cuda",
-                    "source": "climate2weather_tpu_torch/csrc/attention_bwd.cu",
-                    "replaces": "climate2weather_tpu/ops/attention.py:89",
-                    "launches": None, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": 1e3 * max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": library_ms,
-                }
+                timed[shape] = timing_row(
+                    "attention_bwd", "climate2weather_tpu_torch/csrc/attention_bwd.cu",
+                    "climate2weather_tpu/ops/attention.py:89", max(errs), ms, plain_ms, library_ms,
+                    nbytes, flops, shape)
+    row = timed[TRAIN_SHAPE]
     # the repair: gradients reach q, k and v through fused_attention
     qkv = torch.randn((4, 64, 3 * 64), generator=g, device=device, requires_grad=True)
     do = torch.randn((4, 64, 64), generator=g, device=device)
@@ -200,7 +235,7 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
     if grad_err is None or grad_check["launched"] != 1 or grad_err > grad_check["tol"]:
         raise AssertionError(f"gradients do not reach q, k, v through the kernel: {grad_check}")
     checks.append({"fused_attention_grad": grad_check})
-    return checks, row
+    return checks, row, timed[LONG_TIMED]
 
 
 def phase2_kernels(device: torch.device, seed: int) -> dict:
@@ -210,10 +245,9 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
 
     t0 = time.time()
     g = torch.Generator(device=device).manual_seed(seed)
-    checks = []
-    row = None
-    for shape in (MAIN_SHAPE, (3, 16, 40), (2, 128, 64)):  # main, ragged, longest T
-        for dtype in (torch.float32, torch.bfloat16):
+    checks, timed = [], {}
+    for shape in (MAIN_SHAPE, *LONG_SHAPES, LONG_TIMED):
+        for dtype in ((torch.bfloat16,) if shape == LONG_TIMED else (torch.float32, torch.bfloat16)):
             b, t, c = shape
             qkv = torch.randn((b, t, 3 * c), generator=g, device=device).to(dtype)
             q, k, v = qkv.chunk(3, dim=-1)  # strided thirds, as the UNet passes them
@@ -230,7 +264,7 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
                            "tol": tol, "ok": ok})
             if not ok:
                 raise AssertionError(f"attention kernel disagrees: {checks[-1]}")
-            if shape == MAIN_SHAPE and dtype == torch.bfloat16:
+            if shape in (MAIN_SHAPE, LONG_TIMED) and dtype == torch.bfloat16:
                 s = c ** (-0.25)
                 qs, ks = (q * s).contiguous(), (k * s).contiguous()
                 vc = v.contiguous()
@@ -240,19 +274,169 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
                     qs, ks, vc, scale=1.0))
                 nbytes = 4 * b * t * c * q.element_size()  # q, k, v read, o written
                 flops = 4 * b * t * t * c  # QK^T and PV
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-                row = {
-                    "name": "attention_fwd", "route": "cuda",
-                    "source": "climate2weather_tpu_torch/csrc/attention_fwd.cu",
-                    "replaces": "climate2weather_tpu/ops/attention.py:71",
-                    "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": 1e3 * max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": library_ms,
-                }
-    bwd_checks, bwd_row = phase2_backward(device, g)
-    emit(2, t0, checks=checks + bwd_checks, timing=[row, bwd_row])
-    return {"attention_fwd": row, "attention_bwd": bwd_row}
+                timed[shape] = timing_row(
+                    "attention_fwd", "climate2weather_tpu_torch/csrc/attention_fwd.cu",
+                    "climate2weather_tpu/ops/attention.py:71", err, ms, plain_ms, library_ms,
+                    nbytes, flops, shape)
+    bwd_checks, bwd_row, bwd_long = phase2_backward(device, g)
+    wino_checks, wino_row = phase2_winograd(device, g)
+    rows = {"attention_fwd": timed[MAIN_SHAPE], "attention_bwd": bwd_row, "winograd_conv3x3": wino_row}
+    emit(2, t0, checks=checks + bwd_checks + wino_checks, timing=list(rows.values()),
+         timing_t256=[timed[LONG_TIMED], bwd_long])
+    return rows
+
+
+def _halo_unmasked(x, kernel, bias, vec, residual, pre, ddof=0):
+    """A faulty Winograd conv: the top halo row at the image edge holds
+    pre(x + vec) of row 0 (the row the Pallas kernel's clamped index map
+    fetches) instead of the conv's zero padding."""
+    from climate2weather_tpu_torch.ops import winograd
+
+    h = winograd._kernel_pre(x, vec, pre, ddof)
+    hp = torch.nn.functional.pad(h, (0, 0, 1, 1, 1, 1))
+    hp[:, 0, 1:-1] = h[:, 0]
+    u = winograd.transform_weights(kernel).to(x.dtype)
+    return winograd.winograd_from_padded(hp, u, bias, residual)
+
+
+def phase2_winograd(device: torch.device, g: torch.Generator) -> tuple:
+    """The Winograd kernel against ``winograd_reference`` at the 72.1M
+    block shapes in bf16 with each ``pre``, ``vec`` and a residual, and one
+    fp32 shape, with a planted fault (the top halo row not zeroed) that must
+    fail; the gradient through ``WinogradConv3x3``; returns (checks, timing
+    row of level 0's conv1: SiLU and the residual)."""
+    from climate2weather_tpu_torch.ops import winograd
+
+    checks, row = [], None
+    cases = [(shape, torch.bfloat16, pre) for shape in WINO_SHAPES for pre in (None, "norm", "silu")]
+    cases.append(((4, 32, 32, 64), torch.float32, "norm"))
+    for (n, h, w, c), dtype, pre in cases:
+        x = torch.randn((n, h, w, c), generator=g, device=device).to(dtype)
+        kernel = torch.randn((3, 3, c, c), generator=g, device=device) / (3 * c ** 0.5)
+        bias = 0.1 * torch.randn((c,), generator=g, device=device)
+        vec = torch.randn((n, c), generator=g, device=device).to(dtype)
+        res = torch.randn((n, h, w, c), generator=g, device=device).to(dtype)
+        args = (x, kernel, bias, vec, res, pre)
+        got = winograd.winograd_fwd(*args)
+        want = winograd.winograd_reference(*args).float()
+        torch.cuda.synchronize()
+        err, scale = float((got.float() - want).abs().max()), float(want.abs().max())
+        # fp32: sums in another order, ~1e-5 of the scale; bf16: both sides
+        # round one fp32 value, so they differ by at most one ulp
+        tol = 1e-5 * scale if dtype == torch.float32 else bf16_ulp(scale)
+        fault = float((_halo_unmasked(*args).float() - want).abs().max())
+        rec = {"shape": [n, h, w, c], "dtype": str(dtype), "pre": pre, "max_abs_err": err,
+               "tol": tol, "halo_unmasked_err": fault}
+        checks.append(rec)
+        if err > tol:
+            raise AssertionError(f"Winograd kernel disagrees: {rec}")
+        if fault <= tol:
+            raise AssertionError(f"the Winograd check cannot see an unmasked halo row: {rec}")
+        if (n, h, w, c) == WINO_SHAPES[0] and pre == "silu":
+            ms = cuda_time_ms(lambda: winograd.winograd_fwd(*args))
+            plain_ms = cuda_time_ms(lambda: winograd.winograd_reference(*args))
+            # the yardstick: cuDNN's conv on the channels-last bf16 tensor, plus
+            # the plain SiLU, bias and residual (never called by the port)
+            library_ms = cuda_time_ms(lambda: winograd.conv3x3_reference(*args))
+            el = x.element_size()
+            nbytes = 3 * n * h * w * c * el + 16 * c * c * el + n * c * el + 4 * c
+            flops = 2 * 16 * n * (h // 2) * (w // 2) * c * c  # the 16 plane products
+            row = timing_row("winograd_conv3x3", "climate2weather_tpu_torch/csrc/winograd_conv3x3.cu",
+                             "climate2weather_tpu/ops/winograd.py:230", err, ms, plain_ms, library_ms,
+                             nbytes, flops, (n, h, w, c))
+    # the gradient reaches x, the kernel, the bias, vec and the residual
+    n, h, w, c = 2, 16, 16, 32
+    leaves = [torch.randn(s, generator=g, device=device).requires_grad_(True)
+              for s in ((n, h, w, c), (3, 3, c, c), (c,), (n, c), (n, h, w, c))]
+    gout = torch.randn((n, h, w, c), generator=g, device=device)
+    before = winograd.launch_counts["winograd_conv3x3"]
+    winograd.winograd_conv3x3(*leaves, "norm", 0).backward(gout)
+    launched = winograd.launch_counts["winograd_conv3x3"] - before
+    ref = [t.detach().clone().requires_grad_(True) for t in leaves]
+    winograd.conv3x3_reference(*ref, "norm", 0).backward(gout)
+    grad_errs = [None if a.grad is None else float((a.grad - b.grad).abs().max()) for a, b in zip(leaves, ref)]
+    grad_tols = [1e-5 * float(b.grad.abs().max()) for b in ref]
+    grad_check = {"launched": launched, "grad_errs": grad_errs, "tols": grad_tols}
+    checks.append({"winograd_grad": grad_check})
+    if launched != 1 or any(e is None or e > tl for e, tl in zip(grad_errs, grad_tols)):
+        raise AssertionError(f"gradients do not reach every input through the Winograd conv: {grad_check}")
+    return checks, row
+
+
+def phase3b_winograd_blocks(snapshot_dir, device, batch=32, seed=0) -> dict:
+    """One ModResidualBlock of the snapshot at level 0 and one at its last
+    level as two Winograd calls each (conv0 with pre="norm" and vec =
+    project(emb); conv1 with pre="silu" and the block input as residual),
+    against the port's cuDNN block on the same input in bf16. The limit is
+    what moving every conv output of the cuDNN block by one bf16 ulp does
+    to its output; a first conv whose top halo row is not zeroed must
+    exceed it. Returns the phase's record with the kernel's launches."""
+    from climate2weather_tpu_torch.convert import conv_weight_hwio
+    from climate2weather_tpu_torch.exp.downscaling import load_net
+    from climate2weather_tpu_torch.ops import winograd
+
+    t0 = time.time()
+    net, cfg = load_net(str(snapshot_dir), device)
+    nk = cfg["network_kwargs"]
+    nlev = len(nk["hidden_channels"])
+    g = torch.Generator(device=device).manual_seed(seed)
+    res = 128
+    cases = []
+    for level in (0, nlev - 1):
+        block = getattr(net.unet, f"down{level}_block0")
+        c, side = int(nk["hidden_channels"][level]), res // 2 ** level
+        xn = torch.randn((batch, side, side, c), generator=g, device=device).to(torch.bfloat16)
+        emb = torch.randn((batch, block.project.in_features), generator=g, device=device)
+        cases.append((level, block, xn, emb.to(torch.bfloat16)))
+
+    def fused(block, xn, emb, first=winograd.winograd_conv3x3):
+        proj = block.project(emb)
+        k0, k1 = conv_weight_hwio(block.conv0.weight), conv_weight_hwio(block.conv1.weight)
+        h = first(xn, k0, block.conv0.bias, proj, None, "norm", block.norm_ddof)
+        return winograd.winograd_conv3x3(h, k1, block.conv1.bias, None, xn, "silu", 0).float()
+
+    def moved(module, inputs, out):  # every conv output one bf16 ulp up or down
+        step = torch.randint(0, 2, out.shape, generator=g, device=out.device, dtype=torch.int16) * 2 - 1
+        return (out.view(torch.int16) + step * (out != 0)).view(out.dtype)
+
+    with torch.no_grad():
+        # the path: the two fused calls of each block, counted alone
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        winograd.launch_counts["winograd_conv3x3"] = 0
+        outs = [fused(block, xn, emb) for _, block, xn, emb in cases]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = winograd.launch_counts["winograd_conv3x3"]
+        records = []
+        for (level, block, xn, emb), got in zip(cases, outs):
+            x = xn.permute(0, 3, 1, 2)  # the port's NCHW view of channels-last memory
+            want = block(x, emb).permute(0, 2, 3, 1).float()
+            hooks = [m.register_forward_hook(moved) for m in (block.conv0, block.conv1)]
+            try:
+                ulp_off = block(x, emb).permute(0, 2, 3, 1).float()
+            finally:
+                for hk in hooks:
+                    hk.remove()
+            fault = fused(block, xn, emb, first=_halo_unmasked)
+            d, u, f = (got - want).abs(), (ulp_off - want).abs(), (fault - want).abs()
+            records.append({"level": level, "shape": list(xn.shape),
+                            "max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+                            "tol": float(u.max()), "one_ulp_mean": float(u.mean()),
+                            "halo_unmasked_max": float(f.max()), "out_scale": float(want.abs().max()),
+                            "finite": bool(torch.isfinite(got).all())})
+    emit("3b", t0, blocks=records, launches=launches)
+    for rec in records:
+        if not rec["finite"]:
+            raise AssertionError(f"non-finite Winograd block output: {rec}")
+        if rec["max_abs_err"] > rec["tol"]:
+            raise AssertionError(f"the Winograd block disagrees with the cuDNN block: {rec}")
+        if rec["halo_unmasked_max"] <= rec["tol"]:
+            raise AssertionError(f"the block check cannot see an unmasked halo row: {rec}")
+    expect = 2 * len(records) if device.type == "cuda" else 0
+    if launches != expect:
+        raise AssertionError(f"Winograd kernel launched {launches} times, want {expect}")
+    return {"launches": launches, "blocks": records}
 
 
 def _one_ulp_off(q, k, v, g):
@@ -453,46 +637,17 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
     return {"launches": launches, **result}
 
 
-class SeededTrajectory(AbstractSDADataset):
-    """Phase 5's training data: a synthetic [T, C, H, W] trajectory from
-    :func:`synthetic_inputs`, held in memory; named by its dotted path in the
-    dataset config, as a user's own dataset class would be."""
+def write_training_h5(path, lhwc: np.ndarray) -> None:
+    """A training file of the layout ``merged_to_normed_h5`` writes: ``x``
+    [T, C, H, W] float32 in chunks of 24 frames, with the ``vars`` and
+    ``norm_mode`` attributes, through the port's own HDF5 writer."""
+    from climate2weather_tpu_torch.io import hdf5
 
-    def __init__(self, num_features, spatial_res, window, frames, seed, flatten=True):
-        gt, _ = synthetic_inputs(frames, spatial_res, spatial_res, num_features, 1, seed)
-        self._cache = np.ascontiguousarray(gt.transpose(0, 3, 1, 2))  # [T, C, H, W]
-        self._window = int(window)
-        self.spatial_res = int(spatial_res)
-
-    @property
-    def window(self):
-        return self._window
-
-    @property
-    def flatten(self):
-        return True
-
-    @property
-    def num_features(self):
-        return self._cache.shape[1]
-
-    @property
-    def raw_data_shape(self):
-        return self._cache.shape
-
-    def __len__(self):
-        return self._cache.shape[0] - self._window + 1
-
-    def _reader(self):
-        return self._cache
-
-    def load_window(self, i):
-        return self._cache[i : i + self._window]
-
-    def __getitem__(self, i):
-        x = self.load_window(i)
-        w, c, h, wd = x.shape
-        return np.ascontiguousarray(x.transpose(2, 3, 0, 1)).reshape(h, wd, w * c)
+    x = np.ascontiguousarray(lhwc.transpose(0, 3, 1, 2), np.float32)
+    with hdf5.Writer(path) as w:
+        w.create_dataset("x", data=x, chunks=(min(24, x.shape[0]),) + x.shape[1:])
+        w.attrs["vars"] = ["psl", "tas", "uas", "vas"][: x.shape[1]]
+        w.attrs["norm_mode"] = "quant95"
 
 
 class RecordingProcess(VPCosineProcess):
@@ -528,7 +683,7 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
     import shutil
     import tempfile
 
-    from climate2weather_tpu_torch.data.dataset import InfiniteSampler
+    from climate2weather_tpu_torch.data.dataset import InfiniteSampler, WindowDataset
     from climate2weather_tpu_torch.exp.downscaling import load_net
     from climate2weather_tpu_torch.io.snapshot import yaml_load_file
     from climate2weather_tpu_torch.models.score_net import build_score_unet
@@ -547,8 +702,11 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
     window, n_features = 13, 4  # the 72.1M snapshot's: 4 variables x 13 frames
     net_kwargs = {"class_name": "score_unet", "channels": n_features * window,
                   **yaml_load_file(model_config)}
-    data_kwargs = {"class_name": "chip_smoke.SeededTrajectory", "num_features": n_features,
-                   "spatial_res": res, "window": window, "frames": frames, "seed": seed}
+    run_dir = tempfile.mkdtemp(prefix="c2w-train-")
+    data_path = os.path.join(run_dir, "train.h5")
+    write_training_h5(data_path, synthetic_inputs(frames, res, res, n_features, 1, seed)[0])
+    data_kwargs = {"class_name": "cosmo_dataset", "data_path": data_path,
+                   "num_features": n_features, "spatial_res": res, "window": window}
     rounds = batch // batch_gpu
     n_attn = 2 * sum(int(b) for i, b in enumerate(net_kwargs["hidden_blocks"])
                      if i in net_kwargs.get("attention_levels", ()))
@@ -564,7 +722,6 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
         loader_threads=1,
     )
     RecordingProcess.rounds = rounds
-    run_dir = tempfile.mkdtemp(prefix="c2w-train-")
     cuda = device.type == "cuda"
     try:
         # -- run 1: 0 -> ndata, checkpoint and snapshot at ndata ------------
@@ -599,10 +756,10 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
         del fresh, fresh_net
 
         # -- what an uninterrupted run draws and computes at the next step -
-        ds = SeededTrajectory(**{k: v for k, v in data_kwargs.items() if k != "class_name"})
+        ds = WindowDataset(**{k: v for k, v in data_kwargs.items() if k != "class_name"})
         it = iter(InfiniteSampler(len(ds), seed=seed, start_idx=ndata))
         idx = torch.tensor([next(it) for _ in range(batch_gpu)], device=device)
-        data = upload_dataset(ds._cache, ds.raw_data_shape[0], device=device)
+        data = upload_dataset(ds._reader(), ds.raw_data_shape[0], device=device)
         RecordingProcess.records = []
         with torch.no_grad():
             RecordingProcess().loss(lambda xt, t, f: state1.net(xt, t),
@@ -706,6 +863,218 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
     return {"launches": {k: launches1[k] + launches2[k] for k in launches1}, **result}
 
 
+PREDICT_CONFIGS = REPO / "exp" / "configs" / "000_on-model-eval"
+# (name of the run, config it copies, overrides): the confirmed dpmpp2m
+# setting, PC at 256 steps, the external observation and guidance off
+PREDICT_RUNS = (
+    ("s16_t6_spectral", "s16_t6_spectral.yml", {"num_samples": 3}),
+    ("s16_t6", "s16_t6.yml", {"num_samples": 3}),
+    ("external_observation", "s16_t6_spectral.yml",
+     {"num_samples": 3, "num_sampling_steps": 8, "observation_path": "obs"}),
+    ("guidance_off", "s16_t6_spectral.yml",
+     {"num_samples": 3, "num_sampling_steps": 8, "guidance_off": True}),
+)
+# offset and scale of each variable in physical units (Pa, K, m/s)
+PHYSICAL = {"psl": (101000.0, 800.0), "tas": (285.0, 5.0), "uas": (0.0, 4.0), "vas": (0.0, 4.0)}
+
+
+def write_predict_inputs(root: pathlib.Path, res=128, hours=49, seed=0) -> dict:
+    """Phase 6's files, through the port's writers: a synthetic ``hours``-hour
+    grid of psl, tas, uas, vas from 2014-04-07T04, its quantile file, a
+    training file normalized with them, and a coarse observation grid (the
+    16x block means every 6 hours, tas biased by 1 K, as a climate model's
+    would be)."""
+    from climate2weather_tpu_torch.data.grid import GridDataset
+    from climate2weather_tpu_torch.data.pipeline import compute_quantiles, merged_to_normed_h5
+
+    gt, _ = synthetic_inputs(hours, res, res, len(PHYSICAL), 1, seed)
+    time_axis = np.datetime64("2014-04-07T04", "ns") + np.arange(hours) * np.timedelta64(1, "h")
+    coords = {"time": time_axis, "rlat": np.linspace(-5.0, 5.0, res), "rlon": np.linspace(-5.0, 5.0, res)}
+    ds = GridDataset({v: (gt[..., i] * sc + off).astype(np.float32)
+                      for i, (v, (off, sc)) in enumerate(sorted(PHYSICAL.items()))},
+                     coords, {"source": "chip_smoke synthetic"})
+    paths = {k: str(root / f) for k, f in (("data", "merged-allvars.nc"), ("quantiles", "quantiles.nc"),
+                                          ("train", "train_normed.h5"), ("obs", "observation-coarse.nc"))}
+    ds.to_file(paths["data"])
+    compute_quantiles(ds).to_file(paths["quantiles"])
+    merged_to_normed_h5(paths["data"], paths["quantiles"], paths["train"])
+    obs = ds.coarsen_mean(16).isel_time(np.arange(0, hours, 6))
+    obs.map(lambda k, v: v + np.float32(1.0 if k == "tas" else 0.0)).to_file(paths["obs"])
+    return paths
+
+
+def _expected_forwards(cfg: dict, L: int, window: int) -> int:
+    """UNet forwards of one run: groups x network evaluations x window chunks."""
+    n_win, chunk = L - window + 1, int(cfg.get("batch_size", 16))
+    n_chunks = -(-n_win // min(n_win, chunk))
+    steps = int(cfg.get("num_sampling_steps", 256))
+    if cfg.get("sampler_kind", "pc") == "pc":
+        steps *= 1 + int(cfg.get("num_corrections", 2))
+    evals = steps + int(bool(cfg.get("denoise_final", False)))
+    groups = -(-int(cfg.get("num_samples", 1)) // max(1, int(cfg.get("ensemble_batch", 1))))
+    return groups * evals * n_chunks
+
+
+def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_override=None) -> dict:
+    """``exp/downscaling.run`` (the ``predict`` entry point) from files the
+    phase writes with the port's writers, with h5py made unimportable: the
+    runs of ``PREDICT_RUNS``. Each output ``.nc`` is read back with the
+    port's reader and checked finite; where the config projects, A(x) = y
+    holds in normalized space under phase 4's tolerance; the attention
+    launches are 6 per UNet forward on the card."""
+    import shutil
+    import tempfile
+
+    from climate2weather_tpu_torch.data import pipeline
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
+    from climate2weather_tpu_torch.exp import downscaling
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    sys.modules["h5py"] = None  # the port reads and writes HDF5 without it
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-predict-"))
+    records = []
+    try:
+        paths = write_predict_inputs(root, res, hours, seed)
+        snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+        window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+        nk = snap_cfg["network_kwargs"]
+        n_attn = 2 * sum(int(b) for i, b in enumerate(nk["hidden_blocks"]) if i in nk.get("attention_levels", ()))
+        for name, base, overrides in PREDICT_RUNS:
+            cfg = yaml_load_file(PREDICT_CONFIGS / base)
+            cfg.update(model_path=str(snapshot_dir), data_path=paths["data"],
+                       quantile_path=paths["quantiles"], observation_path=paths["data"])
+            if cfg.get("spectral_calibrate"):
+                cfg["spectral_calibrate"] = paths["train"]
+            cfg.update({k: paths[v] if k == "observation_path" else v for k, v in overrides.items()})
+            if steps_override:
+                cfg["num_sampling_steps"] = min(int(cfg["num_sampling_steps"]), steps_override)
+            config_path = root / f"{name}.yml"
+            yaml_dump_file(cfg, config_path)
+            for k in launch_counts:
+                launch_counts[k] = 0
+            t_run = time.time()
+            out_dir = downscaling.run(str(root / "out"), str(config_path), device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.time() - t_run
+            launches = launch_counts["attention_fwd"]
+            expect = n_attn * _expected_forwards(cfg, hours, window) if device.type == "cuda" else 0
+            data_vars = sorted(cfg["data_vars"])
+            samples = [open_grid(str(out_dir / f"gen_sample_{i:03d}.nc")) for i in range(int(cfg["num_samples"]))]
+            finite = all(bool(np.isfinite(v).all()) for smp in samples for v in smp.data_vars.values())
+            rec = {"run": name, "seconds": seconds, "attention_launches": launches,
+                   "expected_launches": expect, "finite": finite,
+                   "outputs": sorted(p.name for p in out_dir.iterdir())}
+            if cfg.get("t0_project"):
+                def normed(ds):
+                    x = pipeline.ds_to_sorted_np(pipeline.normalize_ds(ds, paths["quantiles"],
+                                                                       cfg["data_norm_mode"]), data_vars)
+                    return torch.from_numpy(pipeline.nchw_to_nhwc(x))
+
+                A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
+                y = normed(open_grid(str(out_dir / "observation.nc")))
+                xs = [normed(smp) for smp in samples]
+                consistency = max(float((A(x) - y).abs().max()) for x in xs)
+                x_max = max(float(x.abs().max()) for x in xs)
+                tol = 1e-4 * max(1.0, float(y.abs().max())) + 1e-6 * x_max
+                rec.update(A_x_minus_y_max=consistency, A_tol=tol)
+            records.append(rec)
+            if not finite:
+                raise AssertionError(f"predict wrote non-finite samples: {rec}")
+            if "A_tol" in rec and rec["A_x_minus_y_max"] > rec["A_tol"]:
+                raise AssertionError(f"A(x) != y in the written samples: {rec}")
+            if launches != expect:
+                raise AssertionError(f"attention launches {launches} != 6 per UNet forward = {expect}: {rec}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(6, t0, runs=records)
+    return {"runs": records}
+
+
+def phase7_tiny_training(device, seed=0, steps=4) -> dict:
+    """The canonical training drive through the command line: ``python -m
+    climate2weather_tpu_torch.train`` with ``configs/tiny_unet.yml`` at
+    32 x 32 (attention over 16 x 16 = 256 tokens, forward and backward), from a
+    ``train.h5`` the port's writer made, for ``steps`` steps of 64 in two
+    microbatches, after the command's step-0 validation sampling. Every
+    logged loss must be finite, and each attention launch of the first
+    training step must agree with the plain version (one bf16 ulp)."""
+    import shutil
+    import tempfile
+
+    from climate2weather_tpu_torch import train
+    from climate2weather_tpu_torch.ops import attention
+
+    t0 = time.time()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-tiny-"))
+    calls = {"fwd": [], "bwd": []}
+    real_fwd, real_bwd = attention.attention_fwd, attention.attention_bwd
+    batch_gpu, per_step = 32, 2 * 2  # two attention blocks x two microbatches
+    # the step-0 validation: the PC sampler, 100 steps on one window, through
+    # both attention blocks (forward only)
+    valid_fwd = 2 * 100
+
+    def rec_fwd(q, k, v):
+        out = real_fwd(q, k, v)
+        if q.shape[0] == batch_gpu and len(calls["fwd"]) < per_step:  # a training microbatch
+            calls["fwd"].append((q.detach(), k.detach(), v.detach(), out))
+        return out
+
+    def rec_bwd(q, k, v, do):
+        out = real_bwd(q, k, v, do)
+        if len(calls["bwd"]) < per_step:
+            calls["bwd"].append((q.detach(), k.detach(), v.detach(), do.detach(), out))
+        return out
+
+    try:
+        write_training_h5(root / "train.h5", synthetic_inputs(64, 32, 32, 4, 1, seed)[0])
+        ndata = str(64 * steps)
+        argv = ["--run-dir", str(root / "runs"), "--run-id", "tiny", "--train-data", str(root / "train.h5"),
+                "--spatial-res", "32", "--num-features", "4", "--markov-order", "2",
+                "--model-config", str(REPO / "configs" / "tiny_unet.yml"), "--lr", "1e-3",
+                "--total-ndata", ndata, "--batch", "64", "--batch-gpu", str(batch_gpu), "--status", "64",
+                "--snapshot", "1024", "--checkpoint", "1024", "--logging", "64", "--seed", str(seed),
+                "--device", device.type]
+        for k in attention.launch_counts:
+            attention.launch_counts[k] = 0
+        attention.attention_fwd, attention.attention_bwd = rec_fwd, rec_bwd
+        try:
+            train.main(argv)
+        finally:
+            attention.attention_fwd, attention.attention_bwd = real_fwd, real_bwd
+        launches = dict(attention.launch_counts)
+        lines = (root / "runs" / "tiny" / "metrics.jsonl").read_text().splitlines()
+        losses = [json.loads(ln)["train/loss"] for ln in lines if "train/loss" in json.loads(ln)]
+        per_launch = []
+        with torch.no_grad():
+            for q, k, v, out in calls["fwd"]:
+                want = attention.attention_reference(q, k, v).float()
+                per_launch.append({"kernel": "fwd", "tokens": q.shape[1], "max_abs_err": [
+                    float((out.float() - want).abs().max())], "tol": [bf16_ulp(float(want.abs().max()))]})
+            for q, k, v, do, out in calls["bwd"]:
+                errs, scales = _grads_err(out, attention.attention_bwd_reference(q, k, v, do))
+                per_launch.append({"kernel": "bwd", "tokens": q.shape[1], "max_abs_err": errs,
+                                   "tol": _bwd_tols(scales, q.dtype)})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cuda = device.type == "cuda"
+    result = {"steps": steps, "losses": losses, "launches": launches, "per_launch": per_launch}
+    emit(7, t0, **result)
+    if len(losses) != steps or not all(x is not None and np.isfinite(x) for x in losses):
+        raise AssertionError(f"the tiny drive's losses are missing or not finite: {losses}")
+    want_bwd = per_step * steps if cuda else 0
+    want_fwd = want_bwd + valid_fwd if cuda else 0
+    if launches.get("attention_fwd") != want_fwd or launches.get("attention_bwd") != want_bwd:
+        raise AssertionError(f"tiny drive launches {launches}, want fwd {want_fwd} bwd {want_bwd}")
+    if len(per_launch) != 2 * per_step or any(q_tok != 256 for q_tok in (c["tokens"] for c in per_launch)) or any(
+            any(e > tl for e, tl in zip(c["max_abs_err"], c["tol"])) for c in per_launch):
+        raise AssertionError(f"an attention launch of the tiny drive disagrees: {per_launch}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -726,14 +1095,19 @@ def main(argv=None) -> int:
     phase1_build()
     rows = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
+    blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
     main_path = phase4_slice(SNAPSHOT, CONFIG, device, seed=args.seed)
     training = phase5_training(device, seed=args.seed)
+    phase6_predict(SNAPSHOT, device, seed=args.seed)
+    phase7_tiny_training(device, seed=args.seed)
     # each kernel's launches on its own path: sampling for the forward,
-    # training for the backward
+    # training for the backward, the ModResidualBlock composition for the
+    # Winograd conv
     rows["attention_fwd"]["launches"] = main_path["launches"]["attention_fwd"]
     rows["attention_bwd"]["launches"] = training["launches"]["attention_bwd"]
+    rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
-    print(json.dumps({"kernels": [rows["attention_fwd"], rows["attention_bwd"]]}), flush=True)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -92,3 +92,9 @@ def load_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
     leaf, an extra leaf or a shape that differs."""
     model.load_state_dict(fit_state_dict(params, model.state_dict()), strict=True)
     return model
+
+
+def conv_weight_hwio(weight: torch.Tensor) -> torch.Tensor:
+    """A port conv weight (OIHW) as the flax/JAX HWIO kernel, the layout
+    ``ops.winograd.winograd_conv3x3`` takes (a view, not a copy)."""
+    return weight.permute(2, 3, 1, 0)

@@ -6,7 +6,8 @@ prefetch loader (port of climate2weather_tpu/data/dataset.py, numpy only).
   rank-strided, resumed exactly by ``start_idx = cur_ndata``.
 - ``WindowDataset`` (registered as ``cosmo_dataset``): item i is the window
   x[i:i+window] of the HDF5 dataset ``"x"`` [T, C, H, W], flattened
-  frame-major into channels. h5py is imported only when one is opened.
+  frame-major into channels. The file is read through ``io/hdf5.py``
+  (h5py is not needed); a window read touches only its chunks.
 - ``PrefetchLoader``: host threads assemble [rounds, B, ...] float32 batches
   ahead of the train step, delivered in exact sampler order. The JAX
   package's native C++ assembler for host-side NHWC batches is not ported;
@@ -21,6 +22,7 @@ from typing import Iterator
 
 import numpy as np
 
+from climate2weather_tpu_torch.io import hdf5
 from climate2weather_tpu_torch.utils.registry import register
 from climate2weather_tpu_torch.utils.seeding import derive_seed
 
@@ -99,8 +101,6 @@ class WindowDataset(AbstractSDADataset):
         flatten: bool = True,
         h5_var: str = "x",
     ):
-        import h5py
-
         self._data_path = os.path.abspath(data_path)
         assert os.path.isfile(self._data_path), self._data_path
         self._h5_var = h5_var
@@ -109,7 +109,7 @@ class WindowDataset(AbstractSDADataset):
         self._cached = bool(cached)
         self._local = threading.local()
 
-        with h5py.File(self._data_path, "r") as f:
+        with hdf5.open_file(self._data_path) as f:
             shape = f[self._h5_var].shape
             if self._cached:
                 self._cache = f[self._h5_var][:]
@@ -156,9 +156,7 @@ class WindowDataset(AbstractSDADataset):
         # one lazy h5 handle per reader thread (reference: per-worker handle,
         # dataset.py:115-116)
         if not hasattr(self._local, "ds"):
-            import h5py
-
-            self._local.ds = h5py.File(self._data_path, "r")[self._h5_var]
+            self._local.ds = hdf5.open_file(self._data_path)[self._h5_var]
         return self._local.ds
 
     def load_window(self, i: int) -> np.ndarray:

@@ -4,13 +4,18 @@ climate2weather_tpu/diffusion/calibrate.py).
 Each sample's radial-annulus Fourier amplitudes outside the observation
 square are rescaled to the training climatology's annulus power; phases and
 the observed band are untouched. The climatology comes from training frames
-given as an array (the HDF5 reader is not ported).
+given as an array or as the path of a training HDF5 file (read through
+``io/hdf5.py``).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+from climate2weather_tpu_torch.io import hdf5
 
 
 def annulus_index_map(H: int, W: int):
@@ -32,14 +37,24 @@ def obs_square_mask(H: int, W: int, s_step: int) -> np.ndarray:
     return m
 
 
-def climatological_annulus_psd(frames: np.ndarray, s_step: int = 16, n_frames: int = 256) -> np.ndarray:
-    """[C, n_bins] float32 annulus-mean PSD of training ``frames`` [T, C, H, W]
-    (the layout of the training HDF5's ``x``), outside-square bins only, over
-    a deterministic stride of at most ``n_frames`` frames."""
-    frames = np.asarray(frames)
-    T, C, H, W = frames.shape
-    take = np.unique(np.linspace(0, T - 1, min(n_frames, T)).round().astype(int))
-    frames = frames[take]
+def _frame_stride(T: int, n_frames: int) -> np.ndarray:
+    return np.unique(np.linspace(0, T - 1, min(n_frames, T)).round().astype(int))
+
+
+def climatological_annulus_psd(frames, s_step: int = 16, n_frames: int = 256) -> np.ndarray:
+    """[C, n_bins] float32 annulus-mean PSD of training frames [T, C, H, W],
+    outside-square bins only, over a deterministic stride of at most
+    ``n_frames`` frames. ``frames`` is an array or the path of a training
+    HDF5 file, whose dataset ``x`` is read (only the frames taken)."""
+    if isinstance(frames, (str, os.PathLike)):
+        with hdf5.open_file(frames) as f:
+            x = f["x"]
+            take = _frame_stride(x.shape[0], n_frames)
+            frames = x[take]
+    else:
+        frames = np.asarray(frames)
+        frames = frames[_frame_stride(frames.shape[0], n_frames)]
+    _, C, H, W = frames.shape
     idx, n_bins = annulus_index_map(H, W)
     outside = ~obs_square_mask(H, W, s_step)
     sel = idx[outside]

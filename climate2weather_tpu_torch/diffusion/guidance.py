@@ -123,7 +123,7 @@ def per_channel(values, num_channels: int, device=None) -> torch.Tensor:
 class GaussianGuidance:
     """Likelihood-guided eps prediction in the detached (production) mode.
 
-    ``exact_grad`` needs the attention backward and raises here. ``prolong``
+    ``exact_grad`` (autodiff through the network) is not ported and raises. ``prolong``
     spreads the residual with :meth:`SpatioTemporalCoarsening.prolong`;
     ``anneal`` scales the correction by ``min(t / anneal, 1)``.
     """
@@ -139,7 +139,8 @@ class GaussianGuidance:
     def __post_init__(self):
         if self.exact_grad:
             raise NotImplementedError(
-                "exact_grad guidance needs the attention backward kernel, not yet ported"
+                "exact-gradient guidance (use_exact_grad) is not ported; the detached "
+                "guidance is"
             )
 
     def anneal_weight(self, t) -> float:

@@ -4,7 +4,8 @@ sampler that the training loop's validation runs, and DPM-Solver++(2M).
 
 The JAX ``lax.scan`` becomes a Python loop. The state may carry leading
 batch dimensions in front of the trajectory's ``[L, H, W, C]`` (an ensemble
-written out as a batch); the NaN flag is then one per leading index.
+written out as a batch, where JAX ``vmap``s); every per-sample reduction, the
+corrector's step size and the NaN flag, is then one per leading index.
 """
 
 from __future__ import annotations
@@ -30,18 +31,21 @@ def sample(
     corrections: int = 0,
     tau: float = 1.0,
     corrector_variance_exact: bool = False,
-    rng: Optional[torch.Generator] = None,
+    rng: Optional[Generators] = None,
     z: Optional[Sequence[torch.Tensor]] = None,
     proc_x0: Optional[Callable] = None,
     denoise_final: bool = False,
+    batch_dims: int = 0,
 ):
-    """Predictor-corrector reverse diffusion from ``noise``: at each of
-    ``steps`` uniform times t, a DDIM predictor (denoise at t, re-noise at
-    t - 1/steps), then ``corrections`` Langevin corrector steps with
-    delta = tau / mean(eps^2). The corrector noise comes from ``rng`` or,
-    for tests, from ``z`` (``steps * corrections`` tensors shaped like
-    ``noise``, in order). Returns ``(x, nan_detected)``, the flag a 0-d bool
-    tensor."""
+    """Predictor-corrector reverse diffusion from ``noise``
+    [*batch, L, H, W, C]: at each of ``steps`` uniform times t, a DDIM
+    predictor (denoise at t, re-noise at t - 1/steps), then ``corrections``
+    Langevin corrector steps with delta = tau / mean(eps^2), the mean taken
+    per leading index as the JAX ``vmap`` over an ensemble takes it. The
+    corrector noise comes from ``rng`` (one generator, or one per leading
+    index) or, for tests, from ``z`` (``steps * corrections`` tensors shaped
+    like ``noise``, in order). Returns ``(x, nan_detected)``; the flag has
+    shape ``noise.shape[:batch_dims]``."""
     if corrections > 0 and rng is None and z is None:
         raise ValueError("corrections > 0 requires an rng generator or injected z")
     if z is not None and len(z) != steps * corrections:
@@ -50,7 +54,9 @@ def sample(
     # the JAX grid is fp32, and t - dt is an fp32 subtraction there
     times = [float(t) for t in np.linspace(1.0, 0.0, steps + 1, dtype=np.float32)[:-1]]
     x = noise
-    nan_flag = torch.zeros((), dtype=torch.bool, device=noise.device)
+    lead = noise.shape[:batch_dims]
+    per_member = (-1,) + (1,) * (noise.dim() - batch_dims)  # [*batch] -> broadcast over x
+    nan_flag = torch.zeros(lead, dtype=torch.bool, device=noise.device)
     draw = 0
     for t in times:
         t2 = float(np.float32(t) - np.float32(dt))
@@ -63,22 +69,25 @@ def sample(
             if z is not None:
                 zc = z[draw].to(device=x.device, dtype=x.dtype)
             else:
-                zc = torch.randn(x.shape, generator=rng, device=x.device, dtype=x.dtype)
+                zc = draw_normal(x.shape, rng, x.device, batch_dims).to(x.dtype)
             draw += 1
             eps_c = score_fn(x, t2)
-            delta = steprules.langevin_delta(tau, torch.mean(eps_c.float() ** 2))
+            mean_sq = (eps_c.float() ** 2).reshape(*lead, -1).mean(dim=-1)
+            delta = steprules.langevin_delta(tau, mean_sq)
+            noise_scale = steprules.langevin_noise_scale(tau, delta, corrector_variance_exact)
+            if batch_dims:
+                delta, noise_scale = delta.reshape(per_member), noise_scale.reshape(per_member)
             x = steprules.langevin_step(
                 x, eps_c, zc, delta.to(x.dtype), float(process.sigma(t2)),
-                sqrt2delta=steprules.langevin_noise_scale(
-                    tau, delta, corrector_variance_exact).to(x.dtype),
+                sqrt2delta=noise_scale.to(x.dtype),
             )
-        nan_flag |= ~torch.isfinite(x).all()
+        nan_flag |= _nan_flag(x, batch_dims)
     if denoise_final:
         eps = score_fn(x, 0.0)
         x = process.denoise(x, 0.0, eps)
         if proc_x0 is not None:
             x = proc_x0(x)
-        nan_flag |= ~torch.isfinite(x).all()
+        nan_flag |= _nan_flag(x, batch_dims)
     return x, nan_flag
 
 

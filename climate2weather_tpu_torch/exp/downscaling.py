@@ -1,26 +1,41 @@
-"""Guided short-window downscaling on arrays (port of the short-trajectory
-branch of climate2weather_tpu/exp/downscaling.py ``_run_impl``).
+"""Guided short-window downscaling (port of climate2weather_tpu/exp/downscaling.py
+``run`` and the short-trajectory branch of ``_run_impl``).
 
-:func:`run_arrays` is the array core of ``_run_impl`` for a config whose
-``observation_path`` equals its ``data_path``: the observation is the
-coarsened ground truth ``A(gt)``. It is :func:`load_net` (snapshot to
-ScoreUNet on the device) followed by :func:`sample_arrays`, which samples
+:func:`run` is the ``predict`` entry point: it reads a YAML config, applies
+overrides, makes the numbered save directory with ``config_freeze.yaml``,
+loads the ground truth from ``data_path`` (normalized with the quantiles of
+``quantile_path``), and writes ``ground_truth.nc``, ``observation.nc`` and
+one ``gen_sample_NNN.nc`` per sample, de-normalized, as the JAX
+``_run_impl`` writes them. It conditions in one of three modes: no
+observation (``observation_path`` unset), the coarsened ground truth
+(``observation_path == data_path``), or an external observation file.
+
+:func:`run_arrays` and :func:`sample_arrays` are its array core:
+:func:`load_net` (snapshot to ScoreUNet on the device) and the sampling of
 ``num_samples`` trajectories in groups of ``ensemble_batch`` (the JAX
-``vmap`` written out as a batch dimension), each with DPM-Solver++(2M) under
-detached Gaussian guidance, then applies the climatological calibration and
-the t=0 projection. A caller downscaling several trajectories loads the net
-once and calls :func:`sample_arrays` for each. The ``.nc``/``.h5`` readers
-and writers and the long-trajectory samplers are not ported.
+``vmap`` written out as a batch dimension), with the PC sampler or
+DPM-Solver++(2M) under detached Gaussian guidance (or none, with
+``guidance_off``), then the climatological calibration and the t=0
+projection. A caller downscaling several trajectories loads the net once and
+calls :func:`sample_arrays` for each.
+
+Not ported, and refused before any sampling: the long-trajectory and
+host-streaming samplers, exact-gradient guidance and DPM-Solver++(3M).
 """
 
 from __future__ import annotations
 
+import os
+import pathlib
+import time
+from datetime import datetime
 from typing import Optional
 
 import numpy as np
 import torch
 
 from climate2weather_tpu_torch.convert import load_params
+from climate2weather_tpu_torch.data import pipeline as data_pipeline
 from climate2weather_tpu_torch.diffusion.calibrate import (
     calibrate_trajectory,
     climatological_annulus_psd,
@@ -31,38 +46,40 @@ from climate2weather_tpu_torch.diffusion.guidance import (
     per_channel,
 )
 from climate2weather_tpu_torch.diffusion.process import construct_process
-from climate2weather_tpu_torch.diffusion.sampler import sample_dpmpp2m
+from climate2weather_tpu_torch.diffusion.sampler import sample, sample_dpmpp2m
 from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
-from climate2weather_tpu_torch.io.snapshot import load_snapshot
+from climate2weather_tpu_torch.io.snapshot import load_snapshot, yaml_dump_file, yaml_load_file
 from climate2weather_tpu_torch.models.score_net import build_score_unet
 from climate2weather_tpu_torch.utils.device import resolve_device, set_reference_numerics
 from climate2weather_tpu_torch.utils.seeding import derive_seed
 
 _T0_METHODS = ("", "spectral", "block")
+_SAMPLERS = ("pc", "dpmpp2m")
 
 
-def _check_config(cfg: dict, L: int, calib_frames) -> None:
-    """Reject, before any sampling, settings this slice does not run."""
-    if cfg.get("observation_path") != cfg.get("data_path") or cfg.get("observation_path") is None:
+def _check_config(cfg: dict, L: int, calib_frames, observation_given: bool = False) -> None:
+    """Reject, before any sampling, settings this port does not run."""
+    obs_path = cfg.get("observation_path")
+    if obs_path is not None and obs_path != cfg.get("data_path") and not observation_given:
         raise NotImplementedError(
-            "run_arrays conditions on the coarsened ground truth "
-            "(observation_path == data_path); other modes are not ported"
+            "an external observation file is read by exp.downscaling.run; the array "
+            "entry points take it as the normalized `observation` array"
         )
     kind = cfg.get("sampler_kind", "pc")
-    if kind != "dpmpp2m":
-        raise NotImplementedError(f"sampler_kind {kind!r} is not ported (dpmpp2m only)")
+    if kind not in _SAMPLERS:
+        raise NotImplementedError(f"sampler_kind {kind!r} is not ported ({', '.join(_SAMPLERS)})")
+    if cfg.get("sde_eta", 0.0) and kind != "dpmpp2m":
+        raise ValueError(f"sde_eta applies to sampler_kind dpmpp2m only (got {kind!r})")
     if cfg.get("use_exact_grad", False):
         raise NotImplementedError("use_exact_grad is not ported")
     if cfg.get("host_streaming", False) or L > int(cfg.get("long_trajectory_threshold", 512)):
         raise NotImplementedError("the long-trajectory and host-streaming samplers are not ported")
-    if cfg.get("guidance_off", False):
-        raise NotImplementedError("guidance_off is not ported")
     if str(cfg.get("t0_project", "") or "") not in _T0_METHODS:
         raise ValueError(f"t0_project must be one of {_T0_METHODS}, got {cfg['t0_project']!r}")
     if bool(cfg.get("spectral_calibrate")) != (calib_frames is not None):
         raise ValueError(
-            "calib_frames (training frames [T, C, H, W]) must be given exactly "
-            "when the config sets spectral_calibrate"
+            "calib_frames (training frames [T, C, H, W], or the training h5's path) must be "
+            "given exactly when the config sets spectral_calibrate"
         )
 
 
@@ -84,6 +101,7 @@ def run_arrays(
     device="cuda",
     *,
     compute_dtype: torch.dtype = torch.bfloat16,
+    observation=None,
     noise: Optional[np.ndarray] = None,
     z: Optional[np.ndarray] = None,
 ):
@@ -92,16 +110,21 @@ def run_arrays(
 
     ``ground_truth_lhwc`` is the normalized trajectory ``[L, H, W, C]``;
     ``cfg`` the dict of a downscaling YAML (``io.snapshot.yaml_load_file``).
-    Sample ``sid`` draws its initial noise and its per-step SDE noise from a
-    generator seeded with ``derive_seed(seed, "sample", sid)``; tests inject
-    both instead through ``noise`` ``[num_samples, L, H, W, C]`` and ``z``
-    ``[num_samples, steps, L, H, W, C]``. The run is on the card unless
-    ``device="cpu"``; ``compute_dtype`` is the network's (bf16 as in JAX).
+    ``observation`` is the normalized external observation ``[Lo, h, w, C]``
+    when the config's ``observation_path`` names another file than its
+    ``data_path``. Sample ``sid`` draws its initial noise and its per-step
+    noise from a generator seeded with ``derive_seed(seed, "sample", sid)``;
+    tests inject both instead through ``noise`` ``[num_samples, L, H, W, C]``
+    and ``z`` ``[num_samples, draws, L, H, W, C]`` (one draw per step for
+    DPM-Solver++(2M) with ``sde_eta > 0``, one per corrector step for PC).
+    The run is on the card unless ``device="cpu"``; ``compute_dtype`` is the
+    network's (bf16 as in JAX).
     """
-    _check_config(cfg, len(ground_truth_lhwc), calib_frames)  # before the snapshot load
+    # before the snapshot load
+    _check_config(cfg, len(ground_truth_lhwc), calib_frames, observation is not None)
     net, snap_config = load_net(snapshot_dir, device, compute_dtype)
     return sample_arrays(net, snap_config, cfg, ground_truth_lhwc, calib_frames, device,
-                         noise=noise, z=z)
+                         observation=observation, noise=noise, z=z)
 
 
 @torch.no_grad()
@@ -113,6 +136,7 @@ def sample_arrays(
     calib_frames=None,
     device="cuda",
     *,
+    observation=None,
     noise: Optional[np.ndarray] = None,
     z: Optional[np.ndarray] = None,
 ):
@@ -121,10 +145,9 @@ def sample_arrays(
     set_reference_numerics()
     gt = torch.as_tensor(np.asarray(ground_truth_lhwc, np.float32), device=dev)
     L, H, W, C = gt.shape
-    _check_config(cfg, L, calib_frames)
+    _check_config(cfg, L, calib_frames, observation is not None)
     num_samples = int(cfg.get("num_samples", 1))
     steps = int(cfg.get("num_sampling_steps", 256))
-    sde_eta = float(cfg.get("sde_eta", 0.0))
     s_step, t_step = int(cfg.get("s_step", 16)), int(cfg.get("t_step", 6))
     t0_project = str(cfg.get("t0_project", "") or "")
     seed = int(cfg.get("seed", 0))
@@ -132,22 +155,52 @@ def sample_arrays(
     process = construct_process(**snap_config["pipeline_kwargs"])
 
     A = SpatioTemporalCoarsening(s_step=s_step, t_step=t_step)
-    observation = A(gt)
-    guidance = GaussianGuidance(
-        A=A, y=observation,
-        std=per_channel(cfg.get("likelihood_std", 1e-2), C, dev),
-        gamma=per_channel(cfg.get("likelihood_gamma", 1e-2), C, dev),
-        prolong=cfg.get("guidance_prolong", False),
-        anneal=float(cfg.get("guidance_anneal", 0.0)),
-    )
+    obs_path = cfg.get("observation_path")
+    if obs_path is None:
+        y = None
+    elif obs_path == cfg.get("data_path"):
+        y = A(gt)
+    else:
+        y = torch.as_tensor(np.asarray(observation, np.float32), device=dev)
     calib_target = None
     if calib_frames is not None:
-        calib_target = torch.as_tensor(climatological_annulus_psd(calib_frames, s_step=s_step), device=dev)
+        calib_target = torch.as_tensor(climatological_annulus_psd(calib_frames, s_step=s_step),
+                                       device=dev)
 
     score = WindowScoreFn(net, markov_order, chunk_size=int(cfg.get("batch_size", 16)))
+    if y is not None and not cfg.get("guidance_off", False):
+        guidance = GaussianGuidance(
+            A=A, y=y,
+            std=per_channel(cfg.get("likelihood_std", 1e-2), C, dev),
+            gamma=per_channel(cfg.get("likelihood_gamma", 1e-2), C, dev),
+            prolong=cfg.get("guidance_prolong", False),
+            anneal=float(cfg.get("guidance_anneal", 0.0)),
+        )
 
-    def score_fn(x, t):
-        return guidance.guided_eps(score, process, x, t)
+        def score_fn(x, t):
+            return guidance.guided_eps(score, process, x, t)
+    else:
+        score_fn = score
+
+    kind = cfg.get("sampler_kind", "pc")
+    if kind == "pc":
+        corrections = int(cfg.get("num_corrections", 2))
+        n_draws = steps * corrections
+
+        def run_sampler(x_init, gens, zs):
+            return sample(process, score_fn, x_init, steps=steps, corrections=corrections,
+                          tau=float(cfg.get("correction_tau", 0.5)),
+                          corrector_variance_exact=bool(cfg.get("corrector_variance_exact", False)),
+                          rng=gens, z=zs, denoise_final=bool(cfg.get("denoise_final", False)),
+                          batch_dims=1)
+    else:
+        sde_eta = float(cfg.get("sde_eta", 0.0))
+        n_draws = steps if sde_eta > 0 else 0
+
+        def run_sampler(x_init, gens, zs):
+            return sample_dpmpp2m(process, score_fn, x_init, steps=steps, rng=gens, z=zs,
+                                  denoise_final=bool(cfg.get("denoise_final", False)),
+                                  sde_eta=sde_eta, batch_dims=1)
 
     eb = max(1, int(cfg.get("ensemble_batch", 1)))
     samples = np.empty((num_samples, L, H, W, C), np.float32)
@@ -164,19 +217,112 @@ def sample_arrays(
             ]
             x_init = torch.stack([torch.randn((L, H, W, C), generator=g, device=dev) for g in gens])
         zs = None
-        if z is not None:
-            zg = np.asarray(z[sids], np.float32)  # [members, steps, L, H, W, C]
-            zs = [torch.as_tensor(zg[:, i], device=dev) for i in range(steps)]
-        out, nan_flag = sample_dpmpp2m(
-            process, score_fn, x_init, steps=steps, rng=gens, z=zs,
-            denoise_final=bool(cfg.get("denoise_final", False)), sde_eta=sde_eta,
-            batch_dims=1,
-        )
+        if z is not None and n_draws:
+            zg = np.asarray(z[sids], np.float32)  # [members, draws, L, H, W, C]
+            zs = [torch.as_tensor(zg[:, i], device=dev) for i in range(n_draws)]
+        out, nan_flag = run_sampler(x_init, gens, zs)
         if calib_target is not None:
             out = calibrate_trajectory(out, calib_target, s_step)
-        if t0_project:
-            out = A.project(out, observation, iters=int(cfg.get("t0_project_iters", 3)),
-                            method=t0_project)
+        if y is not None and t0_project:
+            out = A.project(out, y, iters=int(cfg.get("t0_project_iters", 3)), method=t0_project)
         samples[sids] = out.float().cpu().numpy()
         nan_flags[sids] = nan_flag.cpu().numpy()
     return samples, nan_flags
+
+
+# ---------------------------------------------------------------------------
+# the predict entry point, from files
+
+
+def run(save_path: str, config_path: str, device="cuda", *, compute_dtype: torch.dtype = torch.bfloat16,
+        noise: Optional[np.ndarray] = None, z: Optional[np.ndarray] = None, **kwargs) -> pathlib.Path:
+    """Load a YAML experiment config, apply the overrides ``kwargs`` (None
+    values are ignored), create the numbered save directory
+    ``<save_path>/NNN_<config stem>`` with ``config_freeze.yaml``, and run;
+    returns the directory. ``device``, ``compute_dtype``, ``noise`` and
+    ``z`` as for :func:`run_arrays`."""
+    config_path = pathlib.Path(config_path)
+    save_path = pathlib.Path(save_path)
+    subdir_i = len([s for s in save_path.iterdir() if s.is_dir()]) + 1 if save_path.exists() else 1
+    save_path = save_path / f"{subdir_i:03d}_{config_path.stem}"
+    if not (config_path.exists() and config_path.suffix.lower() in (".yaml", ".yml")):
+        raise FileNotFoundError(f"Config file not found: {config_path}")
+    config = yaml_load_file(config_path)
+    for k, v in kwargs.items():
+        if v is None:
+            continue
+        if k in config:
+            print(f">>> CONFIG: Overwriting value for {k}: {config[k]} -> {v}")
+        else:
+            print(f">>> CONFIG: Setting {k} = {v}")
+        config[k] = v
+    save_path.mkdir(parents=True, exist_ok=False)
+    yaml_dump_file(config, save_path / "config_freeze.yaml")
+    _run_impl(save_path, config, device, compute_dtype=compute_dtype, noise=noise, z=z)
+    print("Done. \n")
+    return save_path
+
+
+_REQUIRED = ("model_path", "data_path", "quantile_path", "start_time", "num_hours", "data_norm_mode")
+
+
+def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, noise, z) -> pathlib.Path:
+    missing = [k for k in _REQUIRED if k not in cfg]
+    if missing:
+        raise TypeError(f"config lacks {missing}")
+    data_vars = sorted(cfg.get("data_vars", ("psl", "tas", "uas", "vas")))
+    data_path, quantile_path = cfg["data_path"], cfg["quantile_path"]
+    norm_mode, obs_path = cfg["data_norm_mode"], cfg.get("observation_path")
+    start_time, num_hours = str(cfg["start_time"]), int(cfg["num_hours"])
+    s_step, t_step = int(cfg.get("s_step", 16)), int(cfg.get("t_step", 6))
+    calib = cfg.get("spectral_calibrate") or None
+    print(f"STARTING DOWNSCALING AT {datetime.now().strftime('%Y-%m-%d_%H%M%S')} >>>")
+    print(f"Saving results to {save_path}")
+
+    unnormed = data_pipeline.load_processed(data_path, data_vars, start_time, num_hours)
+    L = len(unnormed.time)
+    # every refusal before any output beyond config_freeze.yaml, and before sampling
+    _check_config(cfg, L, calib, observation_given=True)
+    dev = resolve_device(device)
+    unnormed.to_file(os.path.join(save_path, "ground_truth.nc"))
+    cosmo = data_pipeline.normalize_ds(unnormed, quantile_path, norm_mode)
+    gt = data_pipeline.nchw_to_nhwc(data_pipeline.ds_to_sorted_np(cosmo, data_vars))  # [L, H, W, C]
+
+    observation, observation_ds = None, None
+    if obs_path is None:
+        print("No observation provided. Sampling without conditioning.")
+    elif obs_path == data_path:
+        print(f"Conditioning on observations of the ground truth at {obs_path}")
+        observation_ds = cosmo.coarsen_mean(s_step).isel_time(np.arange(0, min(num_hours, L), t_step))
+    else:
+        print(f"Conditioning on provided observation at {obs_path}")
+        observation_ds = data_pipeline.normalize_ds(
+            data_pipeline.load_processed(obs_path, data_vars, start_time, num_hours),
+            quantile_path, norm_mode)
+        observation = data_pipeline.nchw_to_nhwc(data_pipeline.ds_to_sorted_np(observation_ds, data_vars))
+    if observation_ds is not None:
+        data_pipeline.unnormalize_ds(observation_ds, quantile_path, norm_mode).to_file(
+            os.path.join(save_path, "observation.nc"))
+    if obs_path is not None and cfg.get("guidance_off", False):
+        print("Likelihood guidance OFF (observation kept for the t=0 projection).")
+
+    net, snap_config = load_net(cfg["model_path"], dev, compute_dtype)
+    window = int(snap_config["dataset_kwargs"]["train"]["window"])
+    print(f"Loaded score network from {cfg['model_path']} (window {window}, order {window // 2})")
+    print("Starting sampling...")
+    t0 = time.time()
+    samples, nan_flags = sample_arrays(net, snap_config, cfg, gt, calib, dev,
+                                       observation=observation, noise=noise, z=z)
+    total = time.time() - t0
+    print(f"Total sampling time: {total:.2f} s = {total / 60:.3f} min = {total / 3600:.4f} h")
+    for sid, (g, is_nan) in enumerate(zip(samples, nan_flags)):
+        if is_nan:  # write the finite samples first, then fail loudly
+            continue
+        sample_ds = data_pipeline.np_to_ds(data_pipeline.nhwc_to_nchw(g), reference_ds=cosmo,
+                                           data_vars=data_vars)
+        sample_ds = data_pipeline.unnormalize_ds(sample_ds, quantile_path, norm_mode)
+        sample_ds.to_file(str(save_path / f"gen_sample_{sid:03d}.nc"))
+    if nan_flags.any():
+        raise FloatingPointError(f"NaN detected in sample(s) {np.nonzero(nan_flags)[0].tolist()}")
+    print(f"Saved results to {save_path}")
+    return save_path

@@ -78,9 +78,10 @@ def _library(name: str) -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        max_seq = getattr(lib, f"c2w_{name}_max_seq")
-        max_seq.argtypes = []
-        max_seq.restype = ctypes.c_int
+        for limit in ("max_seq", "max_ch"):
+            fn_limit = getattr(lib, f"c2w_{name}_{limit}")
+            fn_limit.argtypes = []
+            fn_limit.restype = ctypes.c_int
     return lib
 
 
@@ -116,9 +117,11 @@ def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     if c % 8:
         raise ValueError(f"C must be a multiple of 8, got {c}")
     lib = _library(name)
-    max_t = getattr(lib, f"c2w_{name}_max_seq")()
+    max_t, max_c = getattr(lib, f"c2w_{name}_max_seq")(), getattr(lib, f"c2w_{name}_max_ch")()
     if not 1 <= t <= max_t:
-        raise ValueError(f"T={t} outside the kernel's 1..{max_t} (shared memory bound)")
+        raise ValueError(f"T={t} outside the {name} kernel's supported range 1..{max_t}")
+    if c > max_c:
+        raise ValueError(f"C={c} above the {name} kernel's supported {max_c} (shared memory)")
     if b < 1:
         raise ValueError("empty batch")
     return lib

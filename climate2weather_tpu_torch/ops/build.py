@@ -28,6 +28,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# every kernel source of the package
+SOURCES = tuple(sorted(p.name for p in CSRC_DIR.glob("*.cu")))
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register and shared-memory report) of each build

@@ -298,6 +298,7 @@ def training_loop(
                 logger.log({
                     "train/kdata": cur_ndata // 1000,
                     f"valid/sample_nan-{rate_key(rate)}": bool(nan_flag),
+                    f"valid/sample_nonfinite-{rate_key(rate)}": int((~np.isfinite(gen)).sum()),
                     f"valid/sample_mean-{rate_key(rate)}": float(np.mean(gen)),
                     f"valid/sample_std-{rate_key(rate)}": float(np.std(gen)),
                 })

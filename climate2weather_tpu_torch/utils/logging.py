@@ -1,7 +1,8 @@
 """Run logging (own copy of climate2weather_tpu/utils/logging.py):
 ``<run_dir>/metrics.jsonl`` gets one JSON object per log call; images go to
-``<run_dir>/media/``; W&B is used when importable and asked for. PIL,
-matplotlib and wandb are imported only where an image or W&B is used."""
+``<run_dir>/media/``; W&B is used when importable and asked for. PIL and
+wandb are imported only where an image or W&B is used, and neither is
+needed."""
 
 from __future__ import annotations
 
@@ -75,32 +76,19 @@ class RunLogger:
             self._wandb.finish()
 
 
-def value_histogram_image(values, bins: int = 80):
-    """Histogram of sample values as a grayscale image array."""
-    import io
-
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    from PIL import Image
-
-    fig, ax = plt.subplots(figsize=(4, 3))
+def value_histogram_image(values, bins: int = 80, height: int = 100, width: int = 3) -> np.ndarray:
+    """Histogram of the finite sample values as a grayscale [height,
+    bins * width] image drawn with numpy: one bar per bin, its height the
+    bin's count over the largest count."""
     vals = np.asarray(values).ravel()
     finite = vals[np.isfinite(vals)]
-    n_bad = vals.size - finite.size
+    img = np.zeros((height, bins * width), np.float32)
     if finite.size:
-        ax.hist(finite, bins=bins, density=True)
-    title = "sample value distribution"
-    if n_bad:
-        title += f" ({n_bad} non-finite dropped)"
-    ax.set_title(title)
-    fig.tight_layout()
-    buf = io.BytesIO()
-    fig.savefig(buf, format="png", dpi=100)
-    plt.close(fig)
-    buf.seek(0)
-    return np.asarray(Image.open(buf).convert("L"))
+        counts, _ = np.histogram(finite, bins=bins)
+        tops = np.round(counts / max(counts.max(), 1) * height).astype(int)
+        for i, top in enumerate(tops):
+            img[height - top:, i * width:(i + 1) * width] = 1.0
+    return img
 
 
 def trajectory_to_imgrid(traj):

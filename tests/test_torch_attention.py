@@ -12,7 +12,7 @@ from climate2weather_tpu.ops.attention import fused_attention as jax_fused_atten
 from climate2weather_tpu_torch.ops import attention as port
 
 
-@pytest.mark.parametrize("shape", [(4, 64, 128), (2, 64, 512), (3, 16, 40)])
+@pytest.mark.parametrize("shape", [(4, 64, 128), (2, 64, 512), (3, 16, 40), (2, 256, 32)])
 def test_reference_matches_pallas_kernel(shape):
     rng = np.random.RandomState(sum(shape))
     q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
@@ -65,7 +65,8 @@ def test_attention_block_matches_flax(num_heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(96, 64, 512), (3, 16, 40), (2, 128, 64)])
+@pytest.mark.parametrize("shape", [(96, 64, 512), (3, 16, 40), (2, 128, 64), (8, 256, 32),
+                                   (4, 256, 512), (4, 200, 64), (2, 1024, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version_on_card(cuda_device, shape, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -87,15 +88,18 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     x = torch.zeros((2, 16, 12), device=cuda_device)
     with pytest.raises(ValueError):
         port.fused_attention(x, x, x)  # C not a multiple of 8
-    y = torch.zeros((2, 256, 16), device=cuda_device)
-    with pytest.raises(ValueError):
-        port.fused_attention(y, y, y)  # T beyond shared memory
+    y = torch.zeros((2, 16, 4096), device=cuda_device)
+    with pytest.raises(ValueError, match="supported"):
+        port.fused_attention(y, y, y)  # C beyond the forward's shared memory
+    long = torch.zeros((1, 8193, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="supported range"):
+        port.attention_bwd(long, long, long, long)  # T beyond the backward's range
     z = torch.zeros((2, 16, 16), device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         port.fused_attention(z, z, z)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 32), (3, 16, 40)])
+@pytest.mark.parametrize("shape", [(2, 64, 32), (3, 16, 40), (2, 256, 32)])
 def test_gradients_match_jax_vjp_of_pallas_kernel(shape):
     """``fused_attention``'s gradients on the CPU (the Function with
     ``attention_bwd_reference``) against ``jax.vjp`` of the Pallas kernel in
@@ -178,7 +182,8 @@ def test_attention_block_gradients_match_flax():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 64, 512), (3, 16, 40), (2, 128, 64)])
+@pytest.mark.parametrize("shape", [(32, 64, 512), (3, 16, 40), (2, 128, 64), (8, 256, 32),
+                                   (4, 256, 512), (4, 200, 64), (2, 1024, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernel_matches_plain_version_on_card(cuda_device, shape, dtype):
     """fp32: 1e-5 of each output's scale; bf16: one ulp of it."""

@@ -46,3 +46,18 @@ def test_calibrate_trajectory(lead, max_gain):
     else:
         want = jcal.calibrate_trajectory(jnp.asarray(x), jnp.asarray(target), 16, max_gain=max_gain)
     close(got, want)
+
+
+@pytest.mark.parametrize("T,n_frames", [(53, 256), (53, 9)])
+def test_psd_from_h5_path_matches_jax(tmp_path, T, n_frames):
+    """``climatological_annulus_psd`` given the training file's path, read
+    through the port's HDF5 reader (a chunked file as ``merged_to_normed_h5``
+    writes it), against the JAX function on the same path."""
+    frames = np.random.RandomState(T).randn(T, 2, 32, 32).astype(np.float32)
+    path = tmp_path / "train_normed.h5"
+    with h5py.File(path, "w") as f:
+        f.create_dataset("x", data=frames, chunks=(24, 2, 32, 32), maxshape=(None, 2, 32, 32))
+    want = jcal.climatological_annulus_psd(str(path), s_step=8, n_frames=n_frames)
+    got = cal.climatological_annulus_psd(str(path), s_step=8, n_frames=n_frames)
+    close(got, want, rtol=1e-6, atol=0)
+    close(cal.climatological_annulus_psd(path, s_step=8, n_frames=n_frames), want, rtol=1e-6, atol=0)

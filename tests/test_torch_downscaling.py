@@ -162,10 +162,10 @@ def test_run_arrays_draws_its_own_noise_reproducibly(setup):
 
 
 @pytest.mark.parametrize("override,error", [
-    ({"sampler_kind": "pc"}, NotImplementedError),
+    ({"sampler_kind": "dpmpp3m"}, NotImplementedError),
     ({"use_exact_grad": True}, NotImplementedError),
     ({"host_streaming": True}, NotImplementedError),
-    ({"guidance_off": True}, NotImplementedError),
+    ({"long_trajectory_threshold": 4}, NotImplementedError),
     ({"observation_path": "/elsewhere.nc"}, NotImplementedError),
     ({"t0_project": "bilinear"}, ValueError),
     ({"spectral_calibrate": ""}, ValueError),

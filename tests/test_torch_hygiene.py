@@ -2,10 +2,13 @@
 library, torch and numpy, and the smoke's phases run end to end.
 
 A subprocess blocks the import of jax, flax, optax, msgpack, yaml, h5py,
-click, netCDF4, xarray, ml_dtypes, ninja and climate2weather_tpu, imports
+click, netCDF4, xarray, ml_dtypes, ninja, matplotlib, PIL and
+climate2weather_tpu, imports
 the port and ``chip_smoke``, and runs the smoke's phase-3 and phase-4
-functions on the CPU with a tiny snapshot, or its phase-5 training at a tiny
-size (the kernel phases need the card).
+functions on the CPU with a tiny snapshot, its phase-5 training at a tiny
+size, or its phase-6 ``predict`` from files (written and read through
+``io/hdf5.py``), its phase-7 training drive and a Winograd call (the kernel
+phases need the card).
 """
 
 import json
@@ -23,7 +26,7 @@ CHILD = r"""
 import importlib.abc, json, pathlib, pkgutil, sys
 
 BLOCKED = {"jax", "flax", "optax", "msgpack", "yaml", "h5py", "click", "netCDF4", "xarray",
-           "ml_dtypes", "ninja", "climate2weather_tpu"}
+           "ml_dtypes", "ninja", "matplotlib", "PIL", "climate2weather_tpu"}
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -52,6 +55,16 @@ if mode == "sampling":
     p4 = chip_smoke.phase4_slice(snap, chip_smoke.CONFIG, cpu, L=49, res=32, n_train=8,
                                  overrides={"num_sampling_steps": 8})
     out = {"p3": p3, "p4_forwards": p4["unet_forwards"], "p4_shape": p4["samples_shape"]}
+elif mode == "predict":
+    from climate2weather_tpu_torch.ops import winograd
+    p6 = chip_smoke.phase6_predict(snap, cpu, res=32, steps_override=2)
+    p7 = chip_smoke.phase7_tiny_training(cpu, steps=2)
+    x = torch.randn(2, 8, 8, 16)
+    k, b = torch.randn(3, 3, 16, 16) / 12, torch.zeros(16)
+    wino = winograd.winograd_conv3x3(x, k, b, torch.randn(2, 16), x, "norm", 0)
+    out = {"p6": p6["runs"], "p7_losses": p7["losses"], "p7_checked": len(p7["per_launch"]),
+           "wino_shape": list(wino.shape), "wino_finite": bool(torch.isfinite(wino).all()),
+           "wino_launches": winograd.launch_counts["winograd_conv3x3"]}
 else:
     p5 = chip_smoke.phase5_training(cpu, model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
                                     res=16, frames=40, compute_dtype=torch.float32)
@@ -101,6 +114,33 @@ def test_smoke_training_phase_needs_only_stdlib_torch_numpy(tmp_path):
     assert p5["last4_mean"] < p5["first4_mean"] and p5["snapshot_forward_finite"]
     assert p5["launches"] == {"attention_fwd": 0, "attention_bwd": 0}  # no kernel on the CPU
     assert out["bwd_checked"] == 4  # one step: 2 microbatches x the tiny net's 2 attention blocks
+
+
+def test_predict_hdf5_and_winograd_need_only_stdlib_torch_numpy(tmp_path):
+    """Phase 6 (``predict`` from files the port writes and reads back
+    through ``io/hdf5.py``, all four runs, 2 steps each) and phase 7 (the
+    tiny training drive from a file) on the CPU, and a Winograd call, with
+    h5py, click, yaml and the rest unimportable."""
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "predict", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    assert "climate2weather_tpu_torch.io.hdf5" in out["modules"]
+    assert "climate2weather_tpu_torch.experiment" in out["modules"]
+    runs = {r["run"]: r for r in out["p6"]}
+    assert sorted(runs) == ["external_observation", "guidance_off", "s16_t6", "s16_t6_spectral"]
+    for r in runs.values():
+        assert r["finite"] and "ground_truth.nc" in r["outputs"] and "gen_sample_002.nc" in r["outputs"]
+    for name in ("s16_t6_spectral", "external_observation", "guidance_off"):  # the projected runs
+        assert runs[name]["A_x_minus_y_max"] <= runs[name]["A_tol"]
+    assert len(out["p7_losses"]) == 2 and out["p7_checked"] == 8
+    assert out["wino_shape"] == [2, 8, 8, 16] and out["wino_finite"] and out["wino_launches"] == 0
 
 
 def test_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -203,3 +203,25 @@ def test_pc_sample_requires_a_corrector_noise_source():
     with pytest.raises(ValueError):
         sampler.sample(VPCosineProcess(), lambda x, tt: x, torch.zeros(3), steps=2, corrections=1,
                        z=[torch.zeros(3)])
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_pc_sample_batched_equals_each_member_alone(exact):
+    """With an ensemble as a leading batch dimension, the corrector's
+    delta = tau / mean(eps^2) and the NaN flag are per member, as JAX's vmap
+    over samples makes them: the batched run equals each member run alone
+    (its own draws injected); rtol/atol 2e-4."""
+    rng = np.random.RandomState(11)
+    steps, corrections, shape = 6, 2, (4, 3, 3, 4)
+    W = (rng.randn(4, 4) / 2).astype(np.float32)
+    _, torch_fn = _linear_score(W)
+    noise = rng.randn(2, *shape).astype(np.float32)
+    noise[1] *= 3.0  # members whose mean(eps^2) differ
+    z = rng.randn(steps * corrections, 2, *shape).astype(np.float32)
+    kw = dict(steps=steps, corrections=corrections, tau=0.2, corrector_variance_exact=exact)
+    got, nan = sampler.sample(VPCosineProcess(), torch_fn, t(noise), z=[t(zi) for zi in z],
+                              batch_dims=1, **kw)
+    assert nan.shape == (2,) and not nan.any()
+    for m in range(2):
+        alone, _ = sampler.sample(VPCosineProcess(), torch_fn, t(noise[m]), z=[t(zi[m]) for zi in z], **kw)
+        close(got[m], alone)

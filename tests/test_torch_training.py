@@ -354,3 +354,17 @@ def test_train_cli_config_matches_jax_and_runs(tiny_h5, tmp_path, monkeypatch):
     port_train.main([a if a != "1Ki" or i != argv.index("--total-ndata") + 1 else "2Ki"
                      for i, a in enumerate(argv)] + ["--device", "cpu"])
     assert (run / "training-state-0000002.ckpt").exists()
+
+
+def test_value_histogram_image_draws_the_finite_counts():
+    """The validation histogram: one bar per bin, its height the bin's count
+    over the largest count; non-finite values are left out of the bars."""
+    from climate2weather_tpu_torch.utils.logging import value_histogram_image
+
+    values = np.array([0.0, 0.1, 0.1, 0.9, 1.0, 1.0, 1.0, 1.0, np.nan, np.inf], np.float32)
+    img = value_histogram_image(values, bins=2, height=8, width=3)
+    assert img.shape == (8, 6)
+    heights = img.sum(axis=0)
+    # bins [0, 0.5) and [0.5, 1.0]: 3 and 5 finite values
+    np.testing.assert_array_equal(heights, [5, 5, 5, 8, 8, 8])
+    assert not value_histogram_image(np.full(4, np.nan)).any()
