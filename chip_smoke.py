@@ -11,8 +11,11 @@ Numbered phases, each printing one JSON line with its seconds:
    the plain version and one PyTorch library call (``library_ms``) beside
    the least time the card could take (``bound_ms``): the attention forward
    and backward at the main paths' shapes and at T = 200, 256 and 1024
-   (fp32 and bf16; the backward with a planted fault, dS without its row-sum
-   term, that the check must catch, and gradients reaching q, k and v); the
+   (fp32 and bf16; the forward also at C = 768 and timed at the training
+   shape too, with its device time from a CUDA graph and its host time per
+   call beside the back-to-back time; the backward with a planted fault, dS
+   without its row-sum term, that the check must catch, and gradients
+   reaching q, k and v); the
    Winograd conv at the 72.1M UNet's level-0 and level-4 block shapes in
    bf16 with each ``pre``, ``vec`` and a residual, and one fp32 shape (with
    a planted fault, the top halo row not zeroed, and gradients reaching x,
@@ -22,7 +25,8 @@ Numbered phases, each printing one JSON line with its seconds:
    6 attention launches held against the plain version on the same inputs
    within one bf16 ulp (an attention that drops a key must fail that), and
    the forward against one with the plain attention, within what moving
-   every attention output by one bf16 ulp does to it;
+   every attention output by one bf16 ulp does to it (beside, not gated:
+   what one moved output, and either product summed in float64, do);
 3b. one ModResidualBlock of the snapshot at level 0 and one at level 4 as
    two Winograd calls each (conv0 with the norm and the embedding's
    projection, conv1 with SiLU and the residual), against the port's cuDNN
@@ -90,6 +94,10 @@ TRAIN_SHAPE = (32, 64, 512)  # microbatch x tokens x channels at level 4
 # and a small ragged shape
 LONG_SHAPES = ((4, 200, 64), (2, 128, 64), (8, 256, 32), (4, 256, 512), (2, 1024, 64), (3, 16, 40))
 LONG_TIMED = (32, 256, 512)  # timed beside the main shapes: a training microbatch at T = 256
+# the forward alone: sda_unet_large's level 5 (768 channels) at 256 x 256
+# (8 x 8 tokens) and 512 x 512 (16 x 16: three channel slices of the
+# tensor-core kernel)
+WIDE_SHAPES = ((4, 64, 768), (4, 256, 768))
 WINO_SHAPES = ((32, 128, 128, 128), (32, 8, 8, 512))  # the 72.1M blocks at levels 0 and 4
 
 
@@ -120,6 +128,45 @@ def cuda_time_ms(fn, reps=50, warmup=5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps=50, warmup=3) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph and
+    replayed once between CUDA events. Where a call's host work (the Python
+    wrapper, ctypes) outlasts its kernels, back-to-back calls time the host;
+    the replay times the device alone."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_time_ms(fn, reps=50, warmup=5) -> float:
+    """Host time of one call: ``reps`` calls timed on the host's clock before
+    the card is waited for (while the queue is not full, the host's work)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / reps
+
+
 def bf16_ulp(x: float) -> float:
     return float(2.0 ** (np.floor(np.log2(x)) - 7))
 
@@ -148,7 +195,8 @@ def phase1_build() -> None:
     build.build_all(build.SOURCES)  # one nvcc per source, all started together
     attention.build_kernel()
     winograd.build_kernel()
-    ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]
+    ptxas = {src: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "smem" in ln or "spill" in ln]
              for src, log in build.build_logs.items()}
     emit(1, t0, built=sorted({**attention.launch_counts, **winograd.launch_counts}), ptxas=ptxas)
 
@@ -246,8 +294,9 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
     t0 = time.time()
     g = torch.Generator(device=device).manual_seed(seed)
     checks, timed = [], {}
-    for shape in (MAIN_SHAPE, *LONG_SHAPES, LONG_TIMED):
-        for dtype in ((torch.bfloat16,) if shape == LONG_TIMED else (torch.float32, torch.bfloat16)):
+    for shape in (MAIN_SHAPE, *LONG_SHAPES, *WIDE_SHAPES, TRAIN_SHAPE, LONG_TIMED):
+        for dtype in ((torch.bfloat16,) if shape in (TRAIN_SHAPE, LONG_TIMED)
+                      else (torch.float32, torch.bfloat16)):
             b, t, c = shape
             qkv = torch.randn((b, t, 3 * c), generator=g, device=device).to(dtype)
             q, k, v = qkv.chunk(3, dim=-1)  # strided thirds, as the UNet passes them
@@ -264,25 +313,30 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
                            "tol": tol, "ok": ok})
             if not ok:
                 raise AssertionError(f"attention kernel disagrees: {checks[-1]}")
-            if shape in (MAIN_SHAPE, LONG_TIMED) and dtype == torch.bfloat16:
+            if shape in (MAIN_SHAPE, TRAIN_SHAPE, LONG_TIMED) and dtype == torch.bfloat16:
                 s = c ** (-0.25)
                 qs, ks = (q * s).contiguous(), (k * s).contiguous()
                 vc = v.contiguous()
+                sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vc, scale=1.0)
                 ms = cuda_time_ms(lambda: fused_attention(q, k, v))
                 plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v))
-                library_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qs, ks, vc, scale=1.0))
+                library_ms = cuda_time_ms(sdpa)
                 nbytes = 4 * b * t * c * q.element_size()  # q, k, v read, o written
                 flops = 4 * b * t * t * c  # QK^T and PV
                 timed[shape] = timing_row(
                     "attention_fwd", "climate2weather_tpu_torch/csrc/attention_fwd.cu",
                     "climate2weather_tpu/ops/attention.py:71", err, ms, plain_ms, library_ms,
                     nbytes, flops, shape)
+                # beside the back-to-back times (the method of every row), the
+                # device time alone and the wrapper's host time per call
+                timed[shape].update(graph_ms=graph_time_ms(lambda: fused_attention(q, k, v)),
+                                    library_graph_ms=graph_time_ms(sdpa),
+                                    host_ms=host_time_ms(lambda: fused_attention(q, k, v)))
     bwd_checks, bwd_row, bwd_long = phase2_backward(device, g)
     wino_checks, wino_row = phase2_winograd(device, g)
     rows = {"attention_fwd": timed[MAIN_SHAPE], "attention_bwd": bwd_row, "winograd_conv3x3": wino_row}
     emit(2, t0, checks=checks + bwd_checks + wino_checks, timing=list(rows.values()),
-         timing_t256=[timed[LONG_TIMED], bwd_long])
+         timing_train_fwd=timed[TRAIN_SHAPE], timing_t256=[timed[LONG_TIMED], bwd_long])
     return rows
 
 
@@ -456,6 +510,37 @@ def _key_dropped(q, k, v):
     return attention_reference(q, k[:, :-1], v[:, :-1])
 
 
+def _one_output_moved(q, k, v, g):
+    """The plain attention with one output, drawn at random, moved one bf16
+    ulp: the least a kernel that is not the plain version can differ by."""
+    from climate2weather_tpu_torch.ops.attention import attention_reference
+
+    out = attention_reference(q, k, v).contiguous()
+    flat = out.view(-1)
+    i = int(torch.randint(0, flat.numel(), (1,), generator=g, device=out.device))
+    flat.view(torch.int16)[i] += 1
+    return out
+
+
+def _logits_exact(q, k, v):
+    """The plain attention with QK^T summed in float64 and rounded once to
+    fp32: the logits that any summation order but the plain version's own
+    comes near (tensor cores sum exact bf16 products in fp32 partial sums)."""
+    s = q.shape[-1] ** (-0.25)
+    logits = torch.matmul(q.double() * s, (k.double() * s).transpose(-1, -2)).float()
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return torch.matmul(e / e.sum(dim=-1, keepdim=True), v.float()).to(q.dtype)
+
+
+def _pv_exact(q, k, v):
+    """The plain attention with P V summed in float64 and rounded once to
+    q's dtype."""
+    from climate2weather_tpu_torch.ops.attention import _softmax_probs
+
+    p = _softmax_probs(q.float(), k.float())
+    return torch.matmul(p.double(), v.double()).to(q.dtype)
+
+
 def phase3_network(snapshot_dir, device, batch=96, res=128, seed=0, compare_plain=True) -> dict:
     """Load the snapshot through the port's readers and run one forward;
     with ``compare_plain``, hold every attention launch of that forward
@@ -516,7 +601,8 @@ def phase3_network(snapshot_dir, device, batch=96, res=128, seed=0, compare_plai
                 want = attention_reference(q, k, v).float()
                 err, tol = float((got.float() - want).abs().max()), bf16_ulp(float(want.abs().max()))
                 fault = float((_key_dropped(q, k, v).float() - want).abs().max())
-                per_call.append({"max_abs_err": err, "tol": tol, "key_dropped_err": fault})
+                per_call.append({"max_abs_err": err, "tol": tol, "key_dropped_err": fault,
+                                 "outputs_differ": int((got.float() != want).sum())})
                 if err > tol:
                     raise AssertionError(f"attention launch in the network disagrees: {per_call}")
                 if fault <= tol:
@@ -530,6 +616,14 @@ def phase3_network(snapshot_dir, device, batch=96, res=128, seed=0, compare_plai
             err, err_mean = diff(out)
             ulp_max, ulp_mean = diff(forward(lambda q, k, v: _one_ulp_off(q, k, v, g)))
             fault_max, fault_mean = diff(forward(_key_dropped))
+            # other attentions, read against the same limits and not gated:
+            # how far the forward goes when one output moves, or when either
+            # product is summed in another order than the plain version's
+            controls = {
+                "one_output_moved": diff(forward(lambda q, k, v: _one_output_moved(q, k, v, g))),
+                "logits_exact": diff(forward(_logits_exact)),
+                "pv_exact": diff(forward(_pv_exact)),
+            }
             # each launch is within one ulp of the plain version (above), so
             # the forward may differ from the plain one by at most what moving
             # every attention output one ulp does, in max and in mean. A
@@ -539,7 +633,8 @@ def phase3_network(snapshot_dir, device, batch=96, res=128, seed=0, compare_plai
             result.update(per_call=per_call, max_abs_err=err, mean_abs_err=err_mean,
                           out_scale=float(plain.abs().max()), tol=tol, tol_mean=tol_mean,
                           one_ulp_max=ulp_max, one_ulp_mean=ulp_mean,
-                          key_dropped_max=fault_max, key_dropped_mean=fault_mean)
+                          key_dropped_max=fault_max, key_dropped_mean=fault_mean,
+                          controls=controls)
             if err > tol or err_mean > tol_mean:
                 raise AssertionError(f"kernel forward disagrees with plain forward: {result}")
             if device.type == "cuda":  # one forward each way, warm, CUDA events

@@ -137,6 +137,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         return attention_reference(q, k, v)
     lib = _check_inputs("attention_fwd", q, k, v)
     b, t, c = q.shape
+    if q.dtype == torch.bfloat16 and (
+            any(x.data_ptr() % 16 for x in (q, k, v)) or q.stride(0) % 8 or q.stride(1) % 8):
+        raise ValueError(
+            f"the bf16 kernels copy 16-byte rows: q, k, v must start on 16 bytes and their "
+            f"strides {q.stride()} be multiples of 8")
     out = torch.empty((b, t, c), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -66,7 +66,8 @@ def test_attention_block_matches_flax(num_heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(96, 64, 512), (3, 16, 40), (2, 128, 64), (8, 256, 32),
-                                   (4, 256, 512), (4, 200, 64), (2, 1024, 64)])
+                                   (4, 256, 512), (4, 200, 64), (2, 1024, 64), (4, 64, 768),
+                                   (4, 256, 768)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version_on_card(cuda_device, shape, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -84,6 +85,20 @@ def test_kernel_matches_plain_version_on_card(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(96, 64, 512), (32, 64, 512), (3, 16, 40), (4, 64, 768),
+                                   (5, 49, 64)])
+def test_bf16_kernel_equals_plain_version_where_keys_fit_one_tile(cuda_device, shape):
+    """At T <= 64 the bf16 route runs the plain version's fp32 arithmetic in
+    its own order: every output equals the plain version's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, tt, c = shape
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    qkv = torch.randn((b, tt, 3 * c), generator=g, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert torch.equal(port.fused_attention(q, k, v), port.attention_reference(q, k, v))
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     x = torch.zeros((2, 16, 12), device=cuda_device)
     with pytest.raises(ValueError):
@@ -97,6 +112,9 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     z = torch.zeros((2, 16, 16), device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         port.fused_attention(z, z, z)
+    rows = torch.zeros((2, 16, 50), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        port.fused_attention(*rows[..., :48].chunk(3, dim=-1))  # rows of 100 bytes
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 32), (3, 16, 40), (2, 256, 32)])
@@ -219,3 +237,27 @@ def test_gradients_reach_qkv_through_the_kernels_on_card(cuda_device):
     assert port.launch_counts["attention_bwd"] == before["attention_bwd"] + 1
     want = torch.cat(port.attention_bwd_reference(*qkv.detach().chunk(3, dim=-1), do), dim=-1)
     assert float((qkv.grad - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("control", ["one_output_moved", "logits_exact", "pv_exact"])
+def test_smoke_network_controls_move_the_attention_by_at_most_one_ulp(control):
+    """chip_smoke.py phase 3 reads, beside the kernel, the forward with the
+    plain attention changed in one output, or with either product summed in
+    float64: each stays within one bf16 ulp of the plain version, and one
+    moved output is exactly one output one ulp away."""
+    import chip_smoke
+
+    rng = np.random.RandomState(5)
+    qkv = t(rng.randn(4, 64, 3 * 32)).to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    want = port.attention_reference(q, k, v)
+    if control == "one_output_moved":
+        got = chip_smoke._one_output_moved(q, k, v, torch.Generator().manual_seed(0))
+    else:
+        got = getattr(chip_smoke, f"_{control}")(q, k, v)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= ulp
+    if control == "one_output_moved":
+        moved = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+        assert int((moved != 0).sum()) == 1 and int(moved.max()) == 1
