@@ -17,9 +17,12 @@ Numbered phases, each printing one JSON line with its seconds:
    without its row-sum term, that the check must catch, and gradients
    reaching q, k and v); the
    Winograd conv at the 72.1M UNet's level-0 and level-4 block shapes in
-   bf16 with each ``pre``, ``vec`` and a residual, and one fp32 shape (with
-   a planted fault, the top halo row not zeroed, and gradients reaching x,
-   the kernel, the bias, vec and the residual);
+   bf16 with each ``pre``, ``vec`` and a residual, at a ragged bf16 shape
+   (C = 40, O = 20) and one fp32 shape (each with a planted fault, the top
+   halo row not zeroed, and gradients reaching x, the kernel, the bias, vec
+   and the residual), timed at level 0's conv1 and conv0 and level 4's
+   conv1 (``timing_winograd``), each with its device time from a CUDA graph
+   of the launch alone and the wrapper's host time per call;
 3. the 72.1M-parameter snapshot in ``artifacts/`` loaded through the port's
    own readers, one forward at [96, 128, 128, 52] with the kernel: each of its
    6 attention launches held against the plain version on the same inputs
@@ -62,6 +65,7 @@ Numbered phases, each printing one JSON line with its seconds:
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 There is no CPU mode: without a card the script exits non-zero at once.
+``--winograd-only`` stops after phase 2's Winograd part (no device line).
 """
 
 from __future__ import annotations
@@ -99,6 +103,15 @@ LONG_TIMED = (32, 256, 512)  # timed beside the main shapes: a training microbat
 # tensor-core kernel)
 WIDE_SHAPES = ((4, 64, 768), (4, 256, 768))
 WINO_SHAPES = ((32, 128, 128, 128), (32, 8, 8, 512))  # the 72.1M blocks at levels 0 and 4
+# C not a multiple of 16, O not a multiple of 8, ragged tile rows and columns
+WINO_RAGGED = ((3, 10, 14, 40), 20)
+# the timed Winograd calls: name, [N, H, W, C], O, pre, vec, residual. The
+# first is the kernels line's row (level 0's conv1 as earlier versions
+# timed it, vec included); then level 0's conv0 and level 4's conv1 as the
+# ModResidualBlock calls them
+WINO_TIMED = (("level0_conv1", WINO_SHAPES[0], 128, "silu", True, True),
+              ("level0_conv0", WINO_SHAPES[0], 128, "norm", True, False),
+              ("level4_conv1", WINO_SHAPES[1], 512, "silu", False, True))
 
 
 def emit(phase, t0, **fields):
@@ -333,10 +346,11 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
                                     library_graph_ms=graph_time_ms(sdpa),
                                     host_ms=host_time_ms(lambda: fused_attention(q, k, v)))
     bwd_checks, bwd_row, bwd_long = phase2_backward(device, g)
-    wino_checks, wino_row = phase2_winograd(device, g)
-    rows = {"attention_fwd": timed[MAIN_SHAPE], "attention_bwd": bwd_row, "winograd_conv3x3": wino_row}
+    wino_checks, wino_rows = phase2_winograd(device, g)
+    rows = {"attention_fwd": timed[MAIN_SHAPE], "attention_bwd": bwd_row, "winograd_conv3x3": wino_rows[0]}
     emit(2, t0, checks=checks + bwd_checks + wino_checks, timing=list(rows.values()),
-         timing_train_fwd=timed[TRAIN_SHAPE], timing_t256=[timed[LONG_TIMED], bwd_long])
+         timing_train_fwd=timed[TRAIN_SHAPE], timing_t256=[timed[LONG_TIMED], bwd_long],
+         timing_winograd=wino_rows[1:])
     return rows
 
 
@@ -353,51 +367,83 @@ def _halo_unmasked(x, kernel, bias, vec, residual, pre, ddof=0):
     return winograd.winograd_from_padded(hp, u, bias, residual)
 
 
+def _winograd_launch(winograd, x, kernel, bias, vec, residual, pre, ddof=0):
+    """The kernel's launch alone through its C entry point, U transformed
+    beforehand: a CUDA graph of it replays the kernel's device time. The
+    entry point and the wrapper's codes are those of every version of
+    ``ops/winograd.py`` since the kernel came in, so this times an older
+    checkout too."""
+    n, h, w, c = x.shape
+    o = kernel.shape[3]
+    u = winograd.transform_weights(kernel).to(x.dtype).contiguous()
+    b32 = bias.float().contiguous()
+    out = torch.empty((n, h, w, o), dtype=x.dtype, device=x.device)
+    lib = winograd._library()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+    def launch():
+        err = lib.c2w_winograd_conv3x3(
+            x.data_ptr(), u.data_ptr(), b32.data_ptr(), ptr(vec), ptr(residual), out.data_ptr(),
+            n, h, w, c, o, winograd._PRE_CODES[pre], ddof, winograd._DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"winograd_conv3x3 launch failed: cudaError {err}")
+    return launch
+
+
+def _winograd_inputs(g, device, shape, o, dtype, vec=True, residual=True):
+    n, h, w, c = shape
+    x = torch.randn((n, h, w, c), generator=g, device=device).to(dtype)
+    kernel = torch.randn((3, 3, c, o), generator=g, device=device) / (3 * c ** 0.5)
+    bias = 0.1 * torch.randn((o,), generator=g, device=device)
+    v = torch.randn((n, c), generator=g, device=device).to(dtype) if vec else None
+    res = torch.randn((n, h, w, o), generator=g, device=device).to(dtype) if residual else None
+    return x, kernel, bias, v, res
+
+
+def _winograd_check(winograd, args, rec):
+    """The kernel against ``winograd_reference`` and the planted fault (the
+    top halo row not zeroed), into ``rec``; raises on a disagreement or a
+    fault the limit cannot see."""
+    x = args[0]
+    got = winograd.winograd_fwd(*args)
+    want = winograd.winograd_reference(*args).float()
+    torch.cuda.synchronize()
+    err, scale = float((got.float() - want).abs().max()), float(want.abs().max())
+    # fp32: sums in another order, ~1e-5 of the scale; bf16: both sides
+    # round one fp32 value, so they differ by at most one ulp
+    tol = 1e-5 * scale if x.dtype == torch.float32 else bf16_ulp(scale)
+    fault = float((_halo_unmasked(*args).float() - want).abs().max())
+    rec.update(max_abs_err=err, tol=tol, halo_unmasked_err=fault)
+    if err > tol:
+        raise AssertionError(f"Winograd kernel disagrees: {rec}")
+    if fault <= tol:
+        raise AssertionError(f"the Winograd check cannot see an unmasked halo row: {rec}")
+    return err
+
+
 def phase2_winograd(device: torch.device, g: torch.Generator) -> tuple:
     """The Winograd kernel against ``winograd_reference`` at the 72.1M
-    block shapes in bf16 with each ``pre``, ``vec`` and a residual, and one
-    fp32 shape, with a planted fault (the top halo row not zeroed) that must
-    fail; the gradient through ``WinogradConv3x3``; returns (checks, timing
-    row of level 0's conv1: SiLU and the residual)."""
+    block shapes in bf16 with each ``pre``, ``vec`` and a residual, at a
+    ragged bf16 shape and at one fp32 shape, each with a planted fault (the
+    top halo row not zeroed) that must fail; the gradient through
+    ``WinogradConv3x3``; then the three calls of ``WINO_TIMED``, each checked
+    the same way and timed: back to back through the wrapper (``ms``, U's
+    transform included, as earlier versions timed it), the kernel's launch alone from a
+    CUDA graph (``graph_ms``), the wrapper's host time per call
+    (``host_ms``), the plain version and cuDNN's conv with the plain
+    epilogue. Returns (checks, timing rows in ``WINO_TIMED``'s order)."""
     from climate2weather_tpu_torch.ops import winograd
 
-    checks, row = [], None
-    cases = [(shape, torch.bfloat16, pre) for shape in WINO_SHAPES for pre in (None, "norm", "silu")]
-    cases.append(((4, 32, 32, 64), torch.float32, "norm"))
-    for (n, h, w, c), dtype, pre in cases:
-        x = torch.randn((n, h, w, c), generator=g, device=device).to(dtype)
-        kernel = torch.randn((3, 3, c, c), generator=g, device=device) / (3 * c ** 0.5)
-        bias = 0.1 * torch.randn((c,), generator=g, device=device)
-        vec = torch.randn((n, c), generator=g, device=device).to(dtype)
-        res = torch.randn((n, h, w, c), generator=g, device=device).to(dtype)
-        args = (x, kernel, bias, vec, res, pre)
-        got = winograd.winograd_fwd(*args)
-        want = winograd.winograd_reference(*args).float()
-        torch.cuda.synchronize()
-        err, scale = float((got.float() - want).abs().max()), float(want.abs().max())
-        # fp32: sums in another order, ~1e-5 of the scale; bf16: both sides
-        # round one fp32 value, so they differ by at most one ulp
-        tol = 1e-5 * scale if dtype == torch.float32 else bf16_ulp(scale)
-        fault = float((_halo_unmasked(*args).float() - want).abs().max())
-        rec = {"shape": [n, h, w, c], "dtype": str(dtype), "pre": pre, "max_abs_err": err,
-               "tol": tol, "halo_unmasked_err": fault}
+    checks = []
+    cases = [(shape, shape[3], torch.bfloat16, pre) for shape in WINO_SHAPES for pre in (None, "norm", "silu")]
+    cases.append((WINO_RAGGED[0], WINO_RAGGED[1], torch.bfloat16, "norm"))
+    cases.append(((4, 32, 32, 64), 64, torch.float32, "norm"))
+    for shape, o, dtype, pre in cases:
+        x, kernel, bias, vec, res = _winograd_inputs(g, device, shape, o, dtype)
+        rec = {"shape": list(shape), "o": o, "dtype": str(dtype), "pre": pre}
         checks.append(rec)
-        if err > tol:
-            raise AssertionError(f"Winograd kernel disagrees: {rec}")
-        if fault <= tol:
-            raise AssertionError(f"the Winograd check cannot see an unmasked halo row: {rec}")
-        if (n, h, w, c) == WINO_SHAPES[0] and pre == "silu":
-            ms = cuda_time_ms(lambda: winograd.winograd_fwd(*args))
-            plain_ms = cuda_time_ms(lambda: winograd.winograd_reference(*args))
-            # the yardstick: cuDNN's conv on the channels-last bf16 tensor, plus
-            # the plain SiLU, bias and residual (never called by the port)
-            library_ms = cuda_time_ms(lambda: winograd.conv3x3_reference(*args))
-            el = x.element_size()
-            nbytes = 3 * n * h * w * c * el + 16 * c * c * el + n * c * el + 4 * c
-            flops = 2 * 16 * n * (h // 2) * (w // 2) * c * c  # the 16 plane products
-            row = timing_row("winograd_conv3x3", "climate2weather_tpu_torch/csrc/winograd_conv3x3.cu",
-                             "climate2weather_tpu/ops/winograd.py:230", err, ms, plain_ms, library_ms,
-                             nbytes, flops, (n, h, w, c))
+        _winograd_check(winograd, (x, kernel, bias, vec, res, pre), rec)
     # the gradient reaches x, the kernel, the bias, vec and the residual
     n, h, w, c = 2, 16, 16, 32
     leaves = [torch.randn(s, generator=g, device=device).requires_grad_(True)
@@ -414,7 +460,33 @@ def phase2_winograd(device: torch.device, g: torch.Generator) -> tuple:
     checks.append({"winograd_grad": grad_check})
     if launched != 1 or any(e is None or e > tl for e, tl in zip(grad_errs, grad_tols)):
         raise AssertionError(f"gradients do not reach every input through the Winograd conv: {grad_check}")
-    return checks, row
+
+    rows = []
+    for name, shape, o, pre, has_vec, has_res in WINO_TIMED:
+        x, kernel, bias, vec, res = _winograd_inputs(g, device, shape, o, torch.bfloat16, has_vec, has_res)
+        args = (x, kernel, bias, vec, res, pre)
+        rec = {"shape": list(shape), "o": o, "dtype": str(x.dtype), "pre": pre, "timed": name}
+        checks.append(rec)
+        err = _winograd_check(winograd, args, rec)
+        ms = cuda_time_ms(lambda: winograd.winograd_fwd(*args))
+        plain_ms = cuda_time_ms(lambda: winograd.winograd_reference(*args))
+        # the yardstick: cuDNN's conv on the channels-last bf16 tensor, plus
+        # the plain SiLU or norm, bias and residual (never called by the port)
+        library_ms = cuda_time_ms(lambda: winograd.conv3x3_reference(*args))
+        n, h, w, c = shape
+        el = x.element_size()
+        # x read, the output written, the residual read, U, vec and the bias
+        nbytes = (n * h * w * c + n * h * w * o * (2 if has_res else 1) + 16 * c * o
+                  + (n * c if has_vec else 0)) * el + 4 * o
+        flops = 2 * 16 * n * (h // 2) * (w // 2) * c * o  # the 16 plane products
+        row = timing_row("winograd_conv3x3", "climate2weather_tpu_torch/csrc/winograd_conv3x3.cu",
+                         "climate2weather_tpu/ops/winograd.py:230", err, ms, plain_ms, library_ms,
+                         nbytes, flops, shape)
+        row.update(call=name, o=o, pre=pre, vec=has_vec, residual=has_res,
+                   graph_ms=graph_time_ms(_winograd_launch(winograd, *args)),
+                   host_ms=host_time_ms(lambda: winograd.winograd_fwd(*args)))
+        rows.append(row)
+    return checks, rows
 
 
 def phase3b_winograd_blocks(snapshot_dir, device, batch=32, seed=0) -> dict:
@@ -1173,6 +1245,10 @@ def phase7_tiny_training(device, seed=0, steps=4) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--winograd-only", action="store_true",
+                    help="phases 0 and 1, then phase 2's Winograd checks and timings, and stop "
+                         "(a copy of this file run from another checkout's root times that "
+                         "checkout's kernel by this method)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only",
@@ -1188,6 +1264,13 @@ def main(argv=None) -> int:
     t_all = time.time()
     phase0_card()
     phase1_build()
+    if args.winograd_only:
+        t0 = time.time()
+        g = torch.Generator(device=device).manual_seed(args.seed)
+        checks, wino_rows = phase2_winograd(device, g)
+        emit(2, t0, checks=checks, timing_winograd=wino_rows)
+        print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
+        return 0
     rows = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)

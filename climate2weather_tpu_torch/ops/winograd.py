@@ -47,14 +47,21 @@ EPS = 1e-5
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray, 2016)
 _G = np.array([[1, 0, 0], [0.5, 0.5, 0.5], [0.5, -0.5, 0.5], [0, 0, 1]], np.float32)
+# G (x) G as [16, 9] (its entries 0, +-1/4, +-1/2, 1 are exact), on each
+# device it was asked on: a copy from host memory on every call would wait
+# for the card's queue to drain
+_GG = np.einsum("ia,jb->ijab", _G, _G).reshape(16, 9)
+_GG_ON: dict = {}
 
 
 def transform_weights(kernel: torch.Tensor) -> torch.Tensor:
     """[3, 3, C, O] kernel -> [16, C, O] Winograd-domain weights
-    U[4i+j] = sum_ab G[i,a] G[j,b] K[a,b], in fp32."""
-    g = torch.from_numpy(_G).to(kernel.device)
-    u = torch.einsum("ia,jb,abco->ijco", g, g, kernel.float())
-    return u.reshape(16, *kernel.shape[2:])
+    U[4i+j] = sum_ab G[i,a] G[j,b] K[a,b], in fp32, as one matrix product."""
+    gg = _GG_ON.get(kernel.device)
+    if gg is None:
+        gg = _GG_ON[kernel.device] = torch.from_numpy(_GG).to(kernel.device)
+    c, o = kernel.shape[2:]
+    return (gg @ kernel.float().reshape(9, c * o)).reshape(16, c, o)
 
 
 def winograd_eligible(x_shape, kernel_size, strides, spatial) -> bool:

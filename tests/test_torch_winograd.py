@@ -187,3 +187,67 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
                               .contiguous().transpose(1, 2), k, b)  # not contiguous
     with pytest.raises(TypeError):
         port.winograd_conv3x3(torch.zeros((1, 8, 8, 8), device=cuda_device, dtype=torch.float16), k, b)
+
+
+def _on_card_case(device, shape, pre, seed=5, misaligned=False):
+    """bf16 inputs for the kernel on the card, with vec and a residual; x
+    one element past a 16-byte boundary where ``misaligned``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    nb, h, w, c, o = shape
+    x = torch.randn((nb, h, w, c), generator=g, device=device).to(torch.bfloat16)
+    if misaligned:
+        x = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)[1:].view(x.shape).copy_(x)
+    k = torch.randn((3, 3, c, o), generator=g, device=device) / (3 * c ** 0.5)
+    b = torch.randn((o,), generator=g, device=device)
+    vec = torch.randn((nb, c), generator=g, device=device).to(torch.bfloat16)
+    res = torch.randn((nb, h, w, o), generator=g, device=device).to(torch.bfloat16)
+    return x, k, b, vec, res, pre, 1 if pre == "norm" else 0
+
+
+def _within_one_ulp(got, want):
+    scale = float(want.abs().max())
+    return float((got.float() - want).abs().max()) <= 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 18, 22, 32, 32),    # 9 x 11 tiles an image: no multiple of the block's 64
+    (2, 16, 16, 24, 40),    # C not a multiple of 16
+    (3, 10, 14, 40, 20),    # O not a multiple of 8
+    (2, 16, 16, 64, 384),   # O above the block's 128-channel slice
+    (4, 8, 8, 512, 512),    # level 4: the slice narrowed to 32 channels
+    (2, 6, 4, 3, 5),        # C and O below 8: element-wise copies
+    (70, 2, 2, 16, 16),     # one tile an image: many images a block
+])
+@pytest.mark.parametrize("pre", [None, "norm", "silu"])
+def test_tensor_core_route_edges_on_card(cuda_device, shape, pre):
+    """The bf16 route against its plain version where its tiles, channel
+    chunks and output slices run ragged: one bf16 ulp of the output's scale."""
+    args = _on_card_case(cuda_device, shape, pre)
+    before = port.launch_counts["winograd_conv3x3"]
+    got = port.winograd_conv3x3(*args)
+    assert port.launch_counts["winograd_conv3x3"] == before + 1
+    assert _within_one_ulp(got, port.winograd_reference(*args).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 16, 32, 32), (3, 10, 14, 40, 20)])
+def test_tensor_core_route_misaligned_input_on_card(cuda_device, shape):
+    """x not on a 16-byte boundary: the patch is copied element by element."""
+    args = _on_card_case(cuda_device, shape, "norm", misaligned=True)
+    assert args[0].data_ptr() % 16 != 0
+    assert _within_one_ulp(port.winograd_conv3x3(*args), port.winograd_reference(*args).float())
+
+
+@pytest.mark.cuda
+def test_silu_reciprocal_is_correctly_rounded_on_card(cuda_device):
+    """The SiLU's branch-free reciprocal equals __frcp_rn on every float in
+    [1, 2^126), the range of 1 + exp(-v) it takes (above it, or NaN, the
+    kernel calls __frcp_rn): the prologue's SiLU rounds as torch's does."""
+    import ctypes
+
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    fn = port._library().c2w_winograd_rcp_mismatches
+    fn.argtypes, fn.restype = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+    assert fn(0x3F800000, 0x7E800000, bad.data_ptr(), torch.cuda.current_stream(cuda_device).cuda_stream) == 0
+    assert int(bad.item()) == 0
