@@ -11,11 +11,13 @@ Numbered phases, each printing one JSON line with its seconds:
    the plain version and one PyTorch library call (``library_ms``) beside
    the least time the card could take (``bound_ms``): the attention forward
    and backward at the main paths' shapes and at T = 200, 256 and 1024
-   (fp32 and bf16; the forward also at C = 768 and timed at the training
-   shape too, with its device time from a CUDA graph and its host time per
-   call beside the back-to-back time; the backward with a planted fault, dS
-   without its row-sum term, that the check must catch, and gradients
-   reaching q, k and v); the
+   (fp32 and bf16; both at C = 768; the forward timed at the training shape
+   too, with its device time from a CUDA graph and its host time per call
+   beside the back-to-back time; the backward also at T = 1 and 65, called
+   twice for the same bits, with a planted fault, dS without its row-sum
+   term, that the check must catch, gradients reaching q, k and v, and its
+   timed rows with their graph and host times and SDPA's backward from a
+   graph); the
    Winograd conv at the 72.1M UNet's level-0 and level-4 block shapes in
    bf16 with each ``pre``, ``vec`` and a residual, at a ragged bf16 shape
    (C = 40, O = 20) and one fp32 shape (each with a planted fault, the top
@@ -65,7 +67,9 @@ Numbered phases, each printing one JSON line with its seconds:
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 There is no CPU mode: without a card the script exits non-zero at once.
-``--winograd-only`` stops after phase 2's Winograd part (no device line).
+``--winograd-only`` stops after phase 2's Winograd part, and
+``--attention-bwd-only`` after phase 2's attention backward part (no device
+line in either).
 """
 
 from __future__ import annotations
@@ -98,10 +102,13 @@ TRAIN_SHAPE = (32, 64, 512)  # microbatch x tokens x channels at level 4
 # and a small ragged shape
 LONG_SHAPES = ((4, 200, 64), (2, 128, 64), (8, 256, 32), (4, 256, 512), (2, 1024, 64), (3, 16, 40))
 LONG_TIMED = (32, 256, 512)  # timed beside the main shapes: a training microbatch at T = 256
-# the forward alone: sda_unet_large's level 5 (768 channels) at 256 x 256
-# (8 x 8 tokens) and 512 x 512 (16 x 16: three channel slices of the
-# tensor-core kernel)
+# sda_unet_large's level 5 (768 channels) at 256 x 256 (8 x 8 tokens) and
+# 512 x 512 (16 x 16: three channel slices of the forward's tensor-core
+# kernel, six of the backward's)
 WIDE_SHAPES = ((4, 64, 768), (4, 256, 768))
+# the backward's route edges beside T = 64 (TRAIN_SHAPE) and 16: the first T
+# of the three-kernel route, and one token
+BWD_EDGE_SHAPES = ((4, 65, 128), (6, 1, 64))
 WINO_SHAPES = ((32, 128, 128, 128), (32, 8, 8, 512))  # the 72.1M blocks at levels 0 and 4
 # C not a multiple of 16, O not a multiple of 8, ragged tile rows and columns
 WINO_RAGGED = ((3, 10, 14, 40), 20)
@@ -145,7 +152,8 @@ def graph_time_ms(fn, reps=50, warmup=3) -> float:
     """Device time of one call: ``reps`` calls captured in one CUDA graph and
     replayed once between CUDA events. Where a call's host work (the Python
     wrapper, ctypes) outlasts its kernels, back-to-back calls time the host;
-    the replay times the device alone."""
+    the replay times the device alone. The capture is relaxed, so that a
+    launcher that sets a kernel attribute on every call can be captured."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture, as torch asks
@@ -154,9 +162,13 @@ def graph_time_ms(fn, reps=50, warmup=3) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
+    return _replay_ms(graph, reps)
+
+
+def _replay_ms(graph, reps) -> float:
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -164,6 +176,26 @@ def graph_time_ms(fn, reps=50, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sdpa_bwd_graph_ms(inputs, do, reps=50, warmup=3) -> float:
+    """Device time of SDPA's backward alone: fresh leaves and the forward on
+    a side stream (autograd runs a backward on its forward's streams), then
+    ``reps`` calls of ``torch.autograd.grad`` captured in one CUDA graph on
+    that stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=1.0)
+        for _ in range(warmup):
+            torch.autograd.grad(out, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            torch.autograd.grad(out, leaves, do, retain_graph=True)
+    return _replay_ms(graph, reps)
 
 
 def host_time_ms(fn, reps=50, warmup=5) -> float:
@@ -239,30 +271,38 @@ def _bwd_tols(scales, dtype):
 
 def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
     """The backward kernel against ``attention_bwd_reference`` at the
-    training shape, a ragged one and the longest T, fp32 and bf16, with a
-    planted fault that must fail; gradients through ``fused_attention``;
-    returns (checks, timing row)."""
+    training shape, the route's edges (T = 1, 16, 64, 65), ragged shapes,
+    768 channels and the longest T, fp32 and bf16, with a planted fault that
+    must fail and a second call that must give the same bits; gradients
+    through ``fused_attention``. The training shape and ``LONG_TIMED`` are
+    timed back to back (``ms``), from a CUDA graph (``graph_ms``, and SDPA's
+    backward so as ``library_graph_ms``) and on the host (``host_ms``).
+    Returns (checks, the kernels line's row, the ``LONG_TIMED`` row)."""
     from climate2weather_tpu_torch.ops import attention
 
     checks, row = [], None
     timed = {}
-    for shape in (TRAIN_SHAPE, *LONG_SHAPES, LONG_TIMED):
+    for shape in (TRAIN_SHAPE, *LONG_SHAPES, *BWD_EDGE_SHAPES, *WIDE_SHAPES, LONG_TIMED):
         for dtype in ((torch.bfloat16,) if shape == LONG_TIMED else (torch.float32, torch.bfloat16)):
             b, t, c = shape
             qkv = torch.randn((b, t, 3 * c), generator=g, device=device).to(dtype)
             q, k, v = qkv.chunk(3, dim=-1)
             do = torch.randn((b, t, c), generator=g, device=device).to(dtype)
             got = attention.attention_bwd(q, k, v, do)
+            again = attention.attention_bwd(q, k, v, do)
             want = attention.attention_bwd_reference(q, k, v, do)
             torch.cuda.synchronize()
             errs, scales = _grads_err(got, want)
             tols = _bwd_tols(scales, dtype)
             fault, _ = _grads_err(_rowsum_dropped(q, k, v, do), want)
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
             rec = {"shape": list(shape), "dtype": str(dtype), "max_abs_err": errs, "tol": tols,
-                   "rowsum_dropped_err": fault}
+                   "rowsum_dropped_err": fault, "same_bits_twice": same}
             checks.append(rec)
             if any(e > tl for e, tl in zip(errs, tols)):
                 raise AssertionError(f"attention backward kernel disagrees: {rec}")
+            if not same:
+                raise AssertionError(f"attention backward gives other bits on a second call: {rec}")
             if fault[0] <= tols[0] or fault[1] <= tols[1]:
                 raise AssertionError(f"the backward check cannot see a dropped row sum: {rec}")
             if shape in (TRAIN_SHAPE, LONG_TIMED) and dtype == torch.bfloat16:
@@ -282,6 +322,12 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
                     "attention_bwd", "climate2weather_tpu_torch/csrc/attention_bwd.cu",
                     "climate2weather_tpu/ops/attention.py:89", max(errs), ms, plain_ms, library_ms,
                     nbytes, flops, shape)
+                # beside the back-to-back times, the device time alone (the
+                # wrapper and its launches from a CUDA graph; SDPA's backward
+                # alone) and the wrapper's host time per call
+                timed[shape].update(graph_ms=graph_time_ms(lambda: attention.attention_bwd(q, k, v, do)),
+                                    library_graph_ms=sdpa_bwd_graph_ms(lib_in, do),
+                                    host_ms=host_time_ms(lambda: attention.attention_bwd(q, k, v, do)))
     row = timed[TRAIN_SHAPE]
     # the repair: gradients reach q, k and v through fused_attention
     qkv = torch.randn((4, 64, 3 * 64), generator=g, device=device, requires_grad=True)
@@ -896,6 +942,9 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
         for name in attention.launch_counts:
             attention.launch_counts[name] = 0
         if cuda:
+            # torch keeps a cuBLAS workspace for every stream that ran cuBLAS
+            # (phase 2's graph timings) allocated until cleared: not training's
+            torch._C._cuda_clearCublasWorkspaces()
             torch.cuda.reset_peak_memory_stats(device)
         state1 = training_loop(run_dir, total_ndata=ndata, **kwargs)
         launches1 = dict(attention.launch_counts)
@@ -1249,6 +1298,9 @@ def main(argv=None) -> int:
                     help="phases 0 and 1, then phase 2's Winograd checks and timings, and stop "
                          "(a copy of this file run from another checkout's root times that "
                          "checkout's kernel by this method)")
+    ap.add_argument("--attention-bwd-only", action="store_true",
+                    help="phases 0 and 1, then phase 2's attention backward checks and timings, "
+                         "and stop (likewise for another checkout's backward)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only",
@@ -1264,11 +1316,15 @@ def main(argv=None) -> int:
     t_all = time.time()
     phase0_card()
     phase1_build()
-    if args.winograd_only:
+    if args.winograd_only or args.attention_bwd_only:
         t0 = time.time()
         g = torch.Generator(device=device).manual_seed(args.seed)
-        checks, wino_rows = phase2_winograd(device, g)
-        emit(2, t0, checks=checks, timing_winograd=wino_rows)
+        if args.winograd_only:
+            checks, wino_rows = phase2_winograd(device, g)
+            emit(2, t0, checks=checks, timing_winograd=wino_rows)
+        else:
+            checks, bwd_row, bwd_long = phase2_backward(device, g)
+            emit(2, t0, checks=checks, timing=[bwd_row], timing_t256=[bwd_long])
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
     rows = phase2_kernels(device, args.seed)

@@ -19,6 +19,7 @@ whenever a gradient is wanted.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,10 +32,12 @@ _POINTER, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     # q, k, v, o, batch, seq, ch, stride_b, stride_t, dtype, stream
     "attention_fwd": [_POINTER] * 4 + [_LL, _INT, _INT, _LL, _LL, _INT, _POINTER],
-    # q, k, v, dO, dQ, dK, dV, P scratch, dS scratch, batch, seq, ch,
-    # stride_b, stride_t, dtype, stream
-    "attention_bwd": [_POINTER] * 9 + [_LL, _INT, _INT, _LL, _LL, _INT, _POINTER],
+    # q, k, v, dO, dQ, dK, dV, scratch, batch, seq, ch, stride_b, stride_t,
+    # dtype, stream
+    "attention_bwd": [_POINTER] * 8 + [_LL, _INT, _INT, _LL, _LL, _INT, _POINTER],
 }
+# each kernel's (max_seq, max_ch), asked of its library once
+_limits: dict = {}
 
 
 def _softmax_probs(q32: torch.Tensor, k32: torch.Tensor) -> torch.Tensor:
@@ -82,6 +85,10 @@ def _library(name: str) -> ctypes.CDLL:
             fn_limit = getattr(lib, f"c2w_{name}_{limit}")
             fn_limit.argtypes = []
             fn_limit.restype = ctypes.c_int
+        _limits[name] = (getattr(lib, f"c2w_{name}_max_seq")(), getattr(lib, f"c2w_{name}_max_ch")())
+        if name == "attention_bwd":
+            lib.c2w_attention_bwd_scratch_bytes.argtypes = [_LL, _INT, _INT]
+            lib.c2w_attention_bwd_scratch_bytes.restype = _LL
     return lib
 
 
@@ -117,7 +124,7 @@ def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     if c % 8:
         raise ValueError(f"C must be a multiple of 8, got {c}")
     lib = _library(name)
-    max_t, max_c = getattr(lib, f"c2w_{name}_max_seq")(), getattr(lib, f"c2w_{name}_max_ch")()
+    max_t, max_c = _limits[name]
     if not 1 <= t <= max_t:
         raise ValueError(f"T={t} outside the {name} kernel's supported range 1..{max_t}")
     if c > max_c:
@@ -125,6 +132,25 @@ def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     if b < 1:
         raise ValueError("empty batch")
     return lib
+
+
+def _check_rows16(q: torch.Tensor, *others: torch.Tensor) -> None:
+    """Raise where the bf16 kernels' 16-byte row copies cannot go: every
+    tensor must start on 16 bytes, q's strides (which k and v share) must be
+    multiples of 8 elements."""
+    if q.dtype == torch.bfloat16 and (
+            any(x.data_ptr() % 16 for x in (q, *others)) or q.stride(0) % 8 or q.stride(1) % 8):
+        raise ValueError(
+            f"the bf16 kernels copy 16-byte rows: q, k, v (and dO) must start on 16 bytes and "
+            f"q's strides {q.stride()} be multiples of 8")
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch_bytes(b: int, t: int, code: int) -> int:
+    """Bytes of fp32 scratch the backward's route needs: the fp32 route's P
+    and dS ([2, B, T, T]), the bf16 route's row statistics ([3, B, T], where
+    T > 64)."""
+    return _library("attention_bwd").c2w_attention_bwd_scratch_bytes(b, t, code)
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -136,12 +162,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
     lib = _check_inputs("attention_fwd", q, k, v)
+    _check_rows16(q, k, v)
     b, t, c = q.shape
-    if q.dtype == torch.bfloat16 and (
-            any(x.data_ptr() % 16 for x in (q, k, v)) or q.stride(0) % 8 or q.stride(1) % 8):
-        raise ValueError(
-            f"the bf16 kernels copy 16-byte rows: q, k, v must start on 16 bytes and their "
-            f"strides {q.stride()} be multiples of 8")
     out = torch.empty((b, t, c), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -168,16 +190,19 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
     if do.shape != q.shape or do.device != q.device:
         raise ValueError(f"dO {tuple(do.shape)} {do.device} does not match q {tuple(q.shape)}")
     do = do.to(q.dtype).contiguous()
+    _check_rows16(q, k, v, do)
     b, t, c = q.shape
+    code = _DTYPE_CODES[q.dtype]
     dq, dk, dv = (torch.empty((b, t, c), dtype=q.dtype, device=q.device) for _ in range(3))
-    scratch = torch.empty((2, b, t, t), dtype=torch.float32, device=q.device)
+    nbytes = _bwd_scratch_bytes(b, t, code)
+    scratch = torch.empty((nbytes // 4,), dtype=torch.float32, device=q.device) if nbytes else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.c2w_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            b, t, c, q.stride(0), q.stride(1), _DTYPE_CODES[q.dtype], stream,
+            None if scratch is None else scratch.data_ptr(),
+            b, t, c, q.stride(0), q.stride(1), code, stream,
         )
     if err != 0:
         raise RuntimeError(f"attention_bwd launch failed: cudaError {err}")

@@ -115,6 +115,9 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     rows = torch.zeros((2, 16, 50), device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte"):
         port.fused_attention(*rows[..., :48].chunk(3, dim=-1))  # rows of 100 bytes
+    do = torch.zeros((2, 16, 16), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        port.attention_bwd(*rows[..., :48].chunk(3, dim=-1), do)  # the backward's too
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 32), (3, 16, 40), (2, 256, 32)])
@@ -261,3 +264,38 @@ def test_smoke_network_controls_move_the_attention_by_at_most_one_ulp(control):
     if control == "one_output_moved":
         moved = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
         assert int((moved != 0).sum()) == 1 and int(moved.max()) == 1
+
+
+def _bwd_inputs(device, b, tt, c, seed):
+    """q, k, v as the strided thirds of one bf16 [B, T, 3C] projection, and dO."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, tt, 3 * c), generator=g, device=device).to(torch.bfloat16)
+    do = torch.randn((b, tt, c), generator=g, device=device).to(torch.bfloat16)
+    return (*qkv.chunk(3, dim=-1), do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tt", [1, 16, 63, 64, 65, 200, 256, 1024])
+@pytest.mark.parametrize("c", [32, 40, 512, 768])
+def test_bf16_bwd_kernel_matches_plain_version_across_its_routes(cuda_device, tt, c):
+    """The bf16 backward (one kernel where T <= 64, three past it; one to six
+    channel slices) within one bf16 ulp of each output's scale of its plain
+    version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _bwd_inputs(cuda_device, 2, tt, c, 1000 * tt + c)
+    got = port.attention_bwd(q, k, v, do)
+    for gt, want in zip(got, port.attention_bwd_reference(q, k, v, do)):
+        scale = float(want.float().abs().max())
+        tol = 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 0.0
+        assert gt.dtype == torch.bfloat16 and gt.is_contiguous()
+        assert float((gt.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 64, 512), (4, 65, 768), (3, 200, 40), (2, 1024, 64)])
+def test_bf16_bwd_kernel_gives_the_same_bits_twice(cuda_device, shape):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v, do = _bwd_inputs(cuda_device, *shape, sum(shape))
+    first = port.attention_bwd(q, k, v, do)
+    second = port.attention_bwd(q, k, v, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
