@@ -10,7 +10,9 @@ Numbered phases, each printing one JSON line with its seconds:
 2. each kernel against its plain PyTorch version, with times of the kernel,
    the plain version and one PyTorch library call (``library_ms``) beside
    the least time the card could take (``bound_ms``): the attention forward
-   and backward at the main paths' shapes and at T = 200, 256 and 1024
+   and backward at the main paths' shapes (the forward also at the year
+   path's [128, 64, 512], with an attention that drops a key as the fault
+   its check must catch) and at T = 200, 256 and 1024
    (fp32 and bf16; both at C = 768; the forward timed at the training shape
    too, with its device time from a CUDA graph and its host time per call
    beside the back-to-back time; the backward also at T = 1 and 65, called
@@ -62,7 +64,19 @@ Numbered phases, each printing one JSON line with its seconds:
 7. the canonical training drive, ``python -m climate2weather_tpu_torch.train``
    with ``configs/tiny_unet.yml`` at 32 x 32 (attention over 256 tokens,
    forward and backward) from a file the port wrote, 4 steps: finite losses
-   and one step's attention launches against the plain versions.
+   and one step's attention launches against the plain versions;
+8. the year path, h5py unimportable: (8a) ``exp/downscaling.run`` on
+   ``exp/configs/001_clim-downscaling/year2014_meso128_winning.yml`` cut to
+   523 hours (above the long path's 512) and one sample, from files the port
+   wrote: the long path taken, a finite sample, A(x) = y, the resume file
+   written every 2 calls of 8 steps and removed, 6 attention launches per
+   UNet forward, with sampling, I/O and peak memory; (8b) the long
+   DPM-Solver++(2M) at 523 frames for 16 steps, crashed in its second call
+   and resumed from its file, against two uninterrupted runs; (8c)
+   ``sample_arrays`` on 4003 frames for 2 steps and the final denoise: a
+   bf16 trajectory, A(x) = y within bf16 rounding, peak memory and the
+   peak reckoned for 8737 frames; (8d) ``metrics run`` on 8a's directory:
+   finite scores.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -97,6 +111,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 MAIN_SHAPE = (96, 64, 512)  # windows per call x tokens x channels at level 4
 TRAIN_SHAPE = (32, 64, 512)  # microbatch x tokens x channels at level 4
+YEAR_SHAPE = (128, 64, 512)  # the year path's windows per call (batch_size 128) at level 4
 # T = 200 ragged, 128 (the old kernels' limit), 256 (tiny_unet at 32 x 32;
 # sda_unet_large's level 4 at 256 x 256), 1024 (a 32 x 32 attention level),
 # and a small ragged shape
@@ -345,16 +360,16 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
     return checks, row, timed[LONG_TIMED]
 
 
-def phase2_kernels(device: torch.device, seed: int) -> dict:
+def phase2_kernels(device: torch.device, seed: int) -> tuple:
     """Each kernel against its plain version; returns the timing rows by
-    kernel name."""
+    kernel name, and the forward's row at the year path's shape."""
     from climate2weather_tpu_torch.ops.attention import attention_reference, fused_attention
 
     t0 = time.time()
     g = torch.Generator(device=device).manual_seed(seed)
     checks, timed = [], {}
-    for shape in (MAIN_SHAPE, *LONG_SHAPES, *WIDE_SHAPES, TRAIN_SHAPE, LONG_TIMED):
-        for dtype in ((torch.bfloat16,) if shape in (TRAIN_SHAPE, LONG_TIMED)
+    for shape in (MAIN_SHAPE, *LONG_SHAPES, *WIDE_SHAPES, TRAIN_SHAPE, LONG_TIMED, YEAR_SHAPE):
+        for dtype in ((torch.bfloat16,) if shape in (TRAIN_SHAPE, LONG_TIMED, YEAR_SHAPE)
                       else (torch.float32, torch.bfloat16)):
             b, t, c = shape
             qkv = torch.randn((b, t, 3 * c), generator=g, device=device).to(dtype)
@@ -372,7 +387,12 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
                            "tol": tol, "ok": ok})
             if not ok:
                 raise AssertionError(f"attention kernel disagrees: {checks[-1]}")
-            if shape in (MAIN_SHAPE, TRAIN_SHAPE, LONG_TIMED) and dtype == torch.bfloat16:
+            if shape == YEAR_SHAPE:  # the limit must see an attention that drops a key
+                fault = float((_key_dropped(q, k, v).float() - want.float()).abs().max())
+                checks[-1]["key_dropped_err"] = fault
+                if fault <= tol:
+                    raise AssertionError(f"the forward check cannot see a dropped key: {checks[-1]}")
+            if shape in (MAIN_SHAPE, TRAIN_SHAPE, LONG_TIMED, YEAR_SHAPE) and dtype == torch.bfloat16:
                 s = c ** (-0.25)
                 qs, ks = (q * s).contiguous(), (k * s).contiguous()
                 vc = v.contiguous()
@@ -395,9 +415,9 @@ def phase2_kernels(device: torch.device, seed: int) -> dict:
     wino_checks, wino_rows = phase2_winograd(device, g)
     rows = {"attention_fwd": timed[MAIN_SHAPE], "attention_bwd": bwd_row, "winograd_conv3x3": wino_rows[0]}
     emit(2, t0, checks=checks + bwd_checks + wino_checks, timing=list(rows.values()),
-         timing_train_fwd=timed[TRAIN_SHAPE], timing_t256=[timed[LONG_TIMED], bwd_long],
-         timing_winograd=wino_rows[1:])
-    return rows
+         timing_train_fwd=timed[TRAIN_SHAPE], timing_year_fwd=timed[YEAR_SHAPE],
+         timing_t256=[timed[LONG_TIMED], bwd_long], timing_winograd=wino_rows[1:])
+    return rows, timed[YEAR_SHAPE]
 
 
 def _halo_unmasked(x, kernel, bias, vec, residual, pre, ddof=0):
@@ -826,11 +846,8 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
     expect = n_attn * forwards if device.type == "cuda" else 0
     window_evals = n_samples * evals * n_chunks * per_call
     A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
-    y = A(torch.from_numpy(gt))
-    consistency = float((A(torch.from_numpy(samples)) - y).abs().max())
+    consistency, tol = _consistency(A, [torch.from_numpy(samples)], A(torch.from_numpy(gt)))
     x_max = float(np.abs(samples).max())
-    # fp32 round-off of the FFT passes, relative to both fields' magnitudes
-    tol = 1e-4 * max(1.0, float(y.abs().max())) + 1e-6 * x_max
     result = {
         "samples_shape": list(samples.shape), "finite": bool(np.isfinite(samples).all()),
         "nan_flags": nan_flags.tolist(), "sample_abs_max": x_max,
@@ -1094,9 +1111,9 @@ PREDICT_RUNS = (
 PHYSICAL = {"psl": (101000.0, 800.0), "tas": (285.0, 5.0), "uas": (0.0, 4.0), "vas": (0.0, 4.0)}
 
 
-def write_predict_inputs(root: pathlib.Path, res=128, hours=49, seed=0) -> dict:
+def write_predict_inputs(root: pathlib.Path, res=128, hours=49, seed=0, start="2014-04-07T04") -> dict:
     """Phase 6's files, through the port's writers: a synthetic ``hours``-hour
-    grid of psl, tas, uas, vas from 2014-04-07T04, its quantile file, a
+    grid of psl, tas, uas, vas from ``start``, its quantile file, a
     training file normalized with them, and a coarse observation grid (the
     16x block means every 6 hours, tas biased by 1 K, as a climate model's
     would be)."""
@@ -1104,7 +1121,7 @@ def write_predict_inputs(root: pathlib.Path, res=128, hours=49, seed=0) -> dict:
     from climate2weather_tpu_torch.data.pipeline import compute_quantiles, merged_to_normed_h5
 
     gt, _ = synthetic_inputs(hours, res, res, len(PHYSICAL), 1, seed)
-    time_axis = np.datetime64("2014-04-07T04", "ns") + np.arange(hours) * np.timedelta64(1, "h")
+    time_axis = np.datetime64(start, "ns") + np.arange(hours) * np.timedelta64(1, "h")
     coords = {"time": time_axis, "rlat": np.linspace(-5.0, 5.0, res), "rlon": np.linspace(-5.0, 5.0, res)}
     ds = GridDataset({v: (gt[..., i] * sc + off).astype(np.float32)
                       for i, (v, (off, sc)) in enumerate(sorted(PHYSICAL.items()))},
@@ -1119,6 +1136,13 @@ def write_predict_inputs(root: pathlib.Path, res=128, hours=49, seed=0) -> dict:
     return paths
 
 
+def _attention_blocks(network_kwargs: dict) -> int:
+    """Attention launches per UNet forward: one per attention block, two
+    blocks (down and up) per residual block of an attention level."""
+    return 2 * sum(int(b) for i, b in enumerate(network_kwargs["hidden_blocks"])
+                   if i in network_kwargs.get("attention_levels", ()))
+
+
 def _expected_forwards(cfg: dict, L: int, window: int) -> int:
     """UNet forwards of one run: groups x network evaluations x window chunks."""
     n_win, chunk = L - window + 1, int(cfg.get("batch_size", 16))
@@ -1131,6 +1155,38 @@ def _expected_forwards(cfg: dict, L: int, window: int) -> int:
     return groups * evals * n_chunks
 
 
+def _normed(ds, cfg: dict, quantiles) -> np.ndarray:
+    """A grid read back from a run, normalized as the run normalized it:
+    [L, H, W, C] float32."""
+    from climate2weather_tpu_torch.data import pipeline
+
+    x = pipeline.normalize_ds(ds, quantiles, cfg["data_norm_mode"])
+    return pipeline.nchw_to_nhwc(pipeline.ds_to_sorted_np(x, sorted(cfg["data_vars"])))
+
+
+def _written_consistency(out_dir, samples, cfg: dict, quantiles) -> tuple:
+    """:func:`_consistency` of the written samples in normalized space, y
+    being the observation the run wrote."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
+
+    A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
+    y = torch.from_numpy(_normed(open_grid(str(out_dir / "observation.nc")), cfg, quantiles))
+    xs = [torch.from_numpy(_normed(smp, cfg, quantiles)) for smp in samples]
+    return _consistency(A, xs, y)
+
+
+def _consistency(A, xs, y, bf16=False) -> tuple:
+    """max |A(x) - y| over the samples ``xs`` and its limit: phase 4's (the
+    fp32 round-off of the FFT passes relative to both fields' magnitudes),
+    plus half a bf16 ulp of the largest value where the trajectory is bf16
+    (the last projection pass rounds every value)."""
+    err = max(float((A(x) - y).abs().max()) for x in xs)
+    x_max = max(float(x.abs().max()) for x in xs)
+    tol = 1e-4 * max(1.0, float(y.abs().max())) + 1e-6 * x_max
+    return err, tol + (bf16_ulp(x_max) / 2 if bf16 else 0.0)
+
+
 def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_override=None) -> dict:
     """``exp/downscaling.run`` (the ``predict`` entry point) from files the
     phase writes with the port's writers, with h5py made unimportable: the
@@ -1141,9 +1197,7 @@ def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_overri
     import shutil
     import tempfile
 
-    from climate2weather_tpu_torch.data import pipeline
     from climate2weather_tpu_torch.data.grid import open_grid
-    from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
     from climate2weather_tpu_torch.exp import downscaling
     from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
     from climate2weather_tpu_torch.ops.attention import launch_counts
@@ -1156,8 +1210,7 @@ def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_overri
         paths = write_predict_inputs(root, res, hours, seed)
         snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
         window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
-        nk = snap_cfg["network_kwargs"]
-        n_attn = 2 * sum(int(b) for i, b in enumerate(nk["hidden_blocks"]) if i in nk.get("attention_levels", ()))
+        n_attn = _attention_blocks(snap_cfg["network_kwargs"])
         for name, base, overrides in PREDICT_RUNS:
             cfg = yaml_load_file(PREDICT_CONFIGS / base)
             cfg.update(model_path=str(snapshot_dir), data_path=paths["data"],
@@ -1178,24 +1231,13 @@ def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_overri
             seconds = time.time() - t_run
             launches = launch_counts["attention_fwd"]
             expect = n_attn * _expected_forwards(cfg, hours, window) if device.type == "cuda" else 0
-            data_vars = sorted(cfg["data_vars"])
             samples = [open_grid(str(out_dir / f"gen_sample_{i:03d}.nc")) for i in range(int(cfg["num_samples"]))]
             finite = all(bool(np.isfinite(v).all()) for smp in samples for v in smp.data_vars.values())
             rec = {"run": name, "seconds": seconds, "attention_launches": launches,
                    "expected_launches": expect, "finite": finite,
                    "outputs": sorted(p.name for p in out_dir.iterdir())}
             if cfg.get("t0_project"):
-                def normed(ds):
-                    x = pipeline.ds_to_sorted_np(pipeline.normalize_ds(ds, paths["quantiles"],
-                                                                       cfg["data_norm_mode"]), data_vars)
-                    return torch.from_numpy(pipeline.nchw_to_nhwc(x))
-
-                A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
-                y = normed(open_grid(str(out_dir / "observation.nc")))
-                xs = [normed(smp) for smp in samples]
-                consistency = max(float((A(x) - y).abs().max()) for x in xs)
-                x_max = max(float(x.abs().max()) for x in xs)
-                tol = 1e-4 * max(1.0, float(y.abs().max())) + 1e-6 * x_max
+                consistency, tol = _written_consistency(out_dir, samples, cfg, paths["quantiles"])
                 rec.update(A_x_minus_y_max=consistency, A_tol=tol)
             records.append(rec)
             if not finite:
@@ -1291,6 +1333,283 @@ def phase7_tiny_training(device, seed=0, steps=4) -> dict:
     return result
 
 
+YEAR_CONFIG = REPO / "exp" / "configs" / "001_clim-downscaling" / "year2014_meso128_winning.yml"
+YEAR_HOURS = 523  # 6 * 87 + 1: above the long path's threshold of 512 frames
+BF16_HOURS = 4003  # above the 4000 frames where DPM-Solver++(2M)'s trajectory goes bf16
+FULL_YEAR_HOURS = 8737
+# trajectory-sized buffers live at the peak of a DPM-Solver++(2M) step on the
+# long path, counted from the code: the initial noise and the zero previous
+# x0 (held by the sampler's initial state), the state's x and previous x0,
+# and the step's eps and two outputs
+TRAJECTORY_BUFFERS = 7
+
+
+class Crash(Exception):
+    """Raised by phase 8b's scorer to stop a run as a killed process stops."""
+
+
+def _year_config(snapshot_dir, paths, hours, overrides=None) -> dict:
+    """``year2014_meso128_winning.yml`` on the phase's files, cut to
+    ``hours`` hours and one sample; ``overrides`` cut it further."""
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+
+    cfg = yaml_load_file(YEAR_CONFIG)
+    cfg.update(model_path=str(snapshot_dir), data_path=paths["data"], quantile_path=paths["quantiles"],
+               observation_path=paths["data"], spectral_calibrate=paths["train"], num_hours=hours,
+               num_samples=1, **(overrides or {}))
+    return cfg
+
+
+def _peak_reset(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(device):
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides) -> dict:
+    """``exp/downscaling.run`` on the year config cut to ``hours`` hours and
+    one sample, from files the port wrote, h5py unimportable: the long path
+    taken, a finite sample, A(x) = y at the observed frames, the resume file
+    written every ``sample_resume_every`` calls of 8 steps and removed, the
+    attention launches 6 per UNet forward; sampling, I/O and peak memory."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.diffusion import long_sampler
+    from climate2weather_tpu_torch.exp import downscaling
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    paths = write_predict_inputs(root, res, hours, seed, start="2014-01-01T00")
+    inputs_written_s = time.time() - t0
+    cfg = _year_config(snapshot_dir, paths, hours, overrides)
+    config_path = root / "year.yml"
+    yaml_dump_file(cfg, config_path)
+    snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    saves, real_save = [], long_sampler._save_carry
+
+    def counted_save(*args):
+        saves.append(args[2])  # the step index written
+        real_save(*args)
+
+    stats = {}
+    long_sampler._save_carry = counted_save
+    try:
+        _peak_reset(device)
+        for k in launch_counts:
+            launch_counts[k] = 0
+        t_run = time.time()
+        out_dir = downscaling.run(str(root / "out"), str(config_path), device=device, stats=stats)
+        peak = _peak(device)
+        run_s = time.time() - t_run
+        launches = launch_counts["attention_fwd"]
+    finally:
+        long_sampler._save_carry = real_save
+    forwards = _expected_forwards({**cfg, "ensemble_batch": 1}, hours, window)
+    per_call = min(hours - window + 1, int(cfg["batch_size"]))
+    steps, every = int(cfg["num_sampling_steps"]), int(cfg["sample_resume_every"])
+    calls = -(-steps // 8)
+    sample = open_grid(str(out_dir / "gen_sample_000.nc"))
+    consistency, tol = _written_consistency(out_dir, [sample], cfg, paths["quantiles"])
+    rec = {
+        "hours": hours, "res": res, "steps": steps, "long_path": stats["long_path"],
+        "traj_dtype": stats["traj_dtype"], "finite": all(bool(np.isfinite(v).all()) for v in sample.data_vars.values()),
+        "A_x_minus_y_max": consistency, "A_tol": tol,
+        "resume_saves_at_step": saves, "expected_saves": [8 * c for c in range(1, calls) if c % every == 0],
+        "left_in_dir": sorted(p.name for p in out_dir.iterdir()),
+        "attention_launches": launches, "unet_forwards": forwards,
+        "expected_launches": _attention_blocks(snap_cfg["network_kwargs"]) * forwards if device.type == "cuda" else 0,
+        "window_evals": forwards * per_call, "sampling_s": stats["sampling_s"],
+        "window_evals_per_s": forwards * per_call / stats["sampling_s"],
+        "input_s": stats["input_s"], "write_s": stats["write_s"], "io_s": stats["input_s"] + stats["write_s"],
+        "load_net_s": stats["load_net_s"], "run_s": run_s, "inputs_written_s": inputs_written_s,
+        "max_memory_allocated": peak,
+    }
+    emit("8a", t0, **rec)
+    if not rec["long_path"] or not rec["finite"]:
+        raise AssertionError(f"the year run did not take the long path or wrote non-finite values: {rec}")
+    if consistency > tol:
+        raise AssertionError(f"A(x) != y in the year sample: {rec}")
+    if saves != rec["expected_saves"] or any(n.startswith(".sample_resume") for n in rec["left_in_dir"]):
+        raise AssertionError(f"resume files not written as configured or left behind: {rec}")
+    if launches != rec["expected_launches"]:
+        raise AssertionError(f"attention launches {launches} != 6 per UNet forward: {rec}")
+    return {**rec, "out_dir": out_dir, "paths": paths, "cfg": cfg}
+
+
+def phase8b_resume(root, net, snap_cfg, cfg, gt, device, steps=16, seed=0) -> dict:
+    """``sample_dpmpp2m_long`` at the config's guidance and SDE eta on
+    ``gt``'s length for ``steps`` steps in calls of 8, a resume file after
+    every call: twice uninterrupted, then crashed in its second call and
+    resumed from the file. The resumed run must equal the uninterrupted one
+    bit for bit, or, where two uninterrupted runs already differ, lie within
+    their spread; the resumed run makes only the remaining calls."""
+    from climate2weather_tpu_torch.diffusion import long_sampler
+    from climate2weather_tpu_torch.diffusion.guidance import (
+        GaussianGuidance,
+        SpatioTemporalCoarsening,
+        per_channel,
+    )
+    from climate2weather_tpu_torch.diffusion.process import construct_process
+    from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+
+    t0 = time.time()
+    L, H, W, C = gt.shape
+    A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
+    guidance = GaussianGuidance(A=A, y=A(torch.from_numpy(gt).to(device)),
+                                std=per_channel(cfg["likelihood_std"], C, device),
+                                gamma=per_channel(cfg["likelihood_gamma"], C, device))
+    forwards, crash = [], {"at": None}
+
+    def eps_fn(windows, t):
+        if len(forwards) == crash["at"]:
+            raise Crash
+        forwards.append(t)
+        return net(windows, t)
+
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    score = WindowScoreFn(eps_fn, window // 2, chunk_size=int(cfg["batch_size"]))
+    chunks = -(-(L - window + 1) // min(L - window + 1, int(cfg["batch_size"])))
+    path = str(root / ".sample_resume_000.npz")
+
+    def sample(resume_path):
+        forwards.clear()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn((L, H, W, C), generator=gen, device=device)
+        out, nan = long_sampler.sample_dpmpp2m_long(
+            construct_process(**snap_cfg["pipeline_kwargs"]), score, x, guidance=guidance, steps=steps,
+            rng=gen, sde_eta=float(cfg["sde_eta"]), steps_per_call=8, resume_path=resume_path, resume_every=1)
+        return out, bool(nan)
+
+    first, nan1 = sample(None)
+    second, nan2 = sample(None)
+    crash["at"] = 8 * chunks  # the first network call of the second call
+    try:
+        sample(path)
+        raise AssertionError("the crashing run did not crash")
+    except Crash:
+        pass
+    with np.load(path) as f:
+        saved_step = int(f["step"])
+    crash["at"] = None
+    resumed, nan3 = sample(path)
+    resumed_forwards = len(forwards)
+    spread = float((first.float() - second.float()).abs().max())
+    err = float((resumed.float() - first.float()).abs().max())
+    rec = {"L": L, "steps": steps, "window_chunks": chunks, "saved_step": saved_step,
+           "resumed_forwards": resumed_forwards, "expected_forwards": (steps - 8) * chunks,
+           "uninterrupted_equal": bool(torch.equal(first, second)), "uninterrupted_max_abs_diff": spread,
+           "resumed_equal": bool(torch.equal(resumed, first)), "resumed_max_abs_diff": err,
+           "finite": not (nan1 or nan2 or nan3), "file_left": os.path.exists(path)}
+    emit("8b", t0, **rec)
+    if not rec["finite"] or saved_step != 8 or rec["file_left"]:
+        raise AssertionError(f"the resume file was not written after the first call or not removed: {rec}")
+    if resumed_forwards != rec["expected_forwards"]:
+        raise AssertionError(f"the resumed run did not make only the remaining calls: {rec}")
+    if not rec["resumed_equal"] and (rec["uninterrupted_equal"] or err > spread):
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {rec}")
+    return rec
+
+
+def phase8c_bf16(net, snap_cfg, cfg, gt, calib, device) -> dict:
+    """``sample_arrays`` on a trajectory above 4000 frames at the config's
+    settings for 2 steps and the final denoise: the trajectory in bf16, a
+    finite sample, A(x) = y within bf16 rounding after the chunked
+    calibration and projection; peak memory, and the peak reckoned for a
+    year from it."""
+    from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
+    from climate2weather_tpu_torch.exp.downscaling import sample_arrays
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    L, H, W, C = gt.shape
+    cfg = {**cfg, "num_sampling_steps": 2, "num_hours": L}
+    stats = {}
+    _peak_reset(device)
+    for k in launch_counts:
+        launch_counts[k] = 0
+    t_sample = time.time()
+    samples, nan = sample_arrays(net, snap_cfg, cfg, gt, calib_frames=calib, device=device, stats=stats)
+    peak = _peak(device)
+    sampling_s = time.time() - t_sample
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    forwards = _expected_forwards({**cfg, "ensemble_batch": 1}, L, window)
+    A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
+    consistency, tol = _consistency(A, [torch.from_numpy(samples[0])], A(torch.from_numpy(gt)), bf16=True)
+    frame_bytes = 2 * H * W * C
+    rec = {"L": L, "long_path": stats["long_path"], "traj_dtype": stats["traj_dtype"],
+           "finite": bool(np.isfinite(samples).all()) and not nan.any(),
+           "A_x_minus_y_max": consistency, "A_tol": tol, "sampling_s": sampling_s,
+           "attention_launches": launch_counts["attention_fwd"],
+           "expected_launches": _attention_blocks(snap_cfg["network_kwargs"]) * forwards
+           if device.type == "cuda" else 0,
+           "max_memory_allocated": peak,
+           "reckoned_peak_full_year": None if peak is None else
+           peak + TRAJECTORY_BUFFERS * frame_bytes * (FULL_YEAR_HOURS - L)}
+    emit("8c", t0, **rec)
+    if rec["traj_dtype"] != "torch.bfloat16" or not rec["long_path"] or not rec["finite"]:
+        raise AssertionError(f"the trajectory above 4000 frames is not a finite bf16 long-path run: {rec}")
+    if consistency > tol:
+        raise AssertionError(f"A(x) != y beyond bf16 rounding: {rec}")
+    if rec["attention_launches"] != rec["expected_launches"]:
+        raise AssertionError(f"attention launches {rec['attention_launches']} != 6 per UNet forward: {rec}")
+    return rec
+
+
+def phase8d_metrics(out_dir) -> dict:
+    """``metrics run`` on 8a's directory (h5py unimportable): every score
+    finite."""
+    from climate2weather_tpu_torch.exp import metrics
+
+    t0 = time.time()
+    scores = metrics.run(str(out_dir))
+    values = [np.asarray(v) for kind, by_var in scores.items() if kind != "protocol"
+              for entries in by_var.values() for v in entries.values()]
+    rec = {"scores": len(values), "finite": all(bool(np.isfinite(v).all()) for v in values),
+           "protocol": scores["protocol"], "metrics_s": time.time() - t0}
+    emit("8d", t0, **rec)
+    if not values or not rec["finite"]:
+        raise AssertionError(f"metrics of the year run missing or not finite: {rec}")
+    return rec
+
+
+def phase8_year(snapshot_dir, device, res=128, hours=YEAR_HOURS, bf16_hours=BF16_HOURS, seed=0,
+                overrides=None, resume_steps=16) -> dict:
+    """The year path, 8a-8d (see the module docstring), in one scratch
+    directory; ``overrides`` cut the year config further. Returns the
+    attention launches of 8a's run and each part's record."""
+    import shutil
+    import tempfile
+
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.exp.downscaling import load_net
+
+    sys.modules["h5py"] = None  # the port reads and writes HDF5 without it
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-year-"))
+    try:
+        a = phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides)
+        gt = _normed(open_grid(str(a["out_dir"] / "ground_truth.nc")), a["cfg"], a["paths"]["quantiles"])
+        net, snap_cfg = load_net(str(snapshot_dir), device)
+        b = phase8b_resume(root, net, snap_cfg, a["cfg"], gt, device, steps=resume_steps, seed=seed)
+        # a longer trajectory: the year's hours there and back again
+        reps = -(-bf16_hours // hours)
+        long_gt = np.concatenate([gt if i % 2 == 0 else gt[::-1] for i in range(reps)])[:bf16_hours]
+        c = phase8c_bf16(net, snap_cfg, a["cfg"], np.ascontiguousarray(long_gt), a["paths"]["train"], device)
+        del net
+        d = phase8d_metrics(a["out_dir"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a = {k: v for k, v in a.items() if k not in ("out_dir", "paths", "cfg")}
+    return {"launches": a["attention_launches"], "8a": a, "8b": b, "8c": c, "8d": d}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1327,17 +1646,23 @@ def main(argv=None) -> int:
             emit(2, t0, checks=checks, timing=[bwd_row], timing_t256=[bwd_long])
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
-    rows = phase2_kernels(device, args.seed)
+    rows, year_fwd = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
     main_path = phase4_slice(SNAPSHOT, CONFIG, device, seed=args.seed)
     training = phase5_training(device, seed=args.seed)
     phase6_predict(SNAPSHOT, device, seed=args.seed)
     phase7_tiny_training(device, seed=args.seed)
-    # each kernel's launches on its own path: sampling for the forward,
-    # training for the backward, the ModResidualBlock composition for the
-    # Winograd conv
+    t8 = time.time()
+    year = phase8_year(SNAPSHOT, device, seed=args.seed)
+    emit(8, t8, launches=year["launches"])
+    # each kernel's launches on its own path: sampling for the forward (and
+    # the year path's, at its own shape), training for the backward, the
+    # ModResidualBlock composition for the Winograd conv
     rows["attention_fwd"]["launches"] = main_path["launches"]["attention_fwd"]
+    rows["attention_fwd"]["year_path"] = {"launches": year["launches"], **{
+        k: year_fwd[k] for k in ("shape", "max_abs_err", "ms", "graph_ms", "host_ms", "plain_ms", "bound_ms",
+                                 "library_ms", "library_graph_ms")}}
     rows["attention_bwd"]["launches"] = training["launches"]["attention_bwd"]
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)

@@ -5,7 +5,8 @@ Each sample's radial-annulus Fourier amplitudes outside the observation
 square are rescaled to the training climatology's annulus power; phases and
 the observed band are untouched. The climatology comes from training frames
 given as an array or as the path of a training HDF5 file (read through
-``io/hdf5.py``).
+``io/hdf5.py``). :func:`postprocess_long` runs the calibration and the t = 0
+projection over a long trajectory in time chunks (the year path).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import numpy as np
 import torch
 
+from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
 from climate2weather_tpu_torch.io import hdf5
 
 
@@ -92,3 +94,30 @@ def calibrate_trajectory(x: torch.Tensor, target, s_step: int, max_gain: float =
     gain = torch.where(outside[:, :, None], per_bin.movedim(-3, -1), 1.0)
     out = torch.fft.ifft2(torch.fft.ifftshift(Fs * gain, dim=(-3, -2)), dim=(-3, -2)).real
     return out.to(x.dtype)
+
+
+def postprocess_long(x: torch.Tensor, calib_target=None, s_step: int = 16, observation=None,
+                     t_step: int = 6, method: str = "spectral", iters: int = 3,
+                     chunk: int = 512) -> torch.Tensor:
+    """The t = 0 post-processing of a long trajectory ``x`` [L, H, W, C], in
+    the short path's order: calibration, then the projection onto
+    A(x) = ``observation`` [Lo, h, w, C] (skipped when None). Both act per
+    frame, so they run in time chunks of ``chunk`` frames: the calibration
+    on every frame, the projection only on the observed frames ``::t_step``
+    with a ``t_step = 1`` operator, which equals projecting the whole
+    trajectory. Each chunk is computed in fp32 and cast back to ``x``'s
+    dtype; ``x`` is overwritten and returned."""
+    L = x.shape[0]
+    if calib_target is not None:
+        for i in range(0, L, chunk):
+            x[i : i + chunk] = calibrate_trajectory(x[i : i + chunk], calib_target, s_step)
+    if observation is not None and method:
+        A1 = SpatioTemporalCoarsening(s_step=s_step, t_step=1)
+        idx = torch.arange(0, L, t_step, device=x.device)
+        if len(idx) != observation.shape[0]:
+            raise ValueError(f"observation has {observation.shape[0]} frames but the trajectory "
+                             f"observes {len(idx)} (L={L}, t_step={t_step})")
+        for j in range(0, len(idx), chunk):
+            sel = idx[j : j + chunk]
+            x[sel] = A1.project(x[sel], observation[j : j + chunk], iters=iters, method=method)
+    return x

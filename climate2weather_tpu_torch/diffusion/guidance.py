@@ -51,15 +51,17 @@ class SpatioTemporalCoarsening:
         out[..., :: self.t_step, :, :, :] = u[..., : self.out_times(out_len), :, :, :]
         return out
 
-    def adjoint(self, v: torch.Tensor, out_len: int) -> torch.Tensor:
+    def adjoint_spatial(self, v: torch.Tensor) -> torch.Tensor:
+        """The spatial part of :meth:`adjoint`: [..., h, w, C] -> [..., H, W, C]."""
         s = self.s_step
-        u = v.repeat_interleave(s, dim=-3).repeat_interleave(s, dim=-2) / (s * s)
-        return self._scatter_times(u, out_len)
+        return v.repeat_interleave(s, dim=-3).repeat_interleave(s, dim=-2) / (s * s)
 
-    def prolong(self, v: torch.Tensor, out_len: int, method: str = "spectral") -> torch.Tensor:
-        """Band-limited prolongation of the coarse residual with the adjoint's
-        1/s^2 gain: the residual's spectrum zero-padded onto the fine grid.
-        Only ``spectral`` is ported; ``bilinear`` raises."""
+    def adjoint(self, v: torch.Tensor, out_len: int) -> torch.Tensor:
+        return self._scatter_times(self.adjoint_spatial(v), out_len)
+
+    def prolong_spatial(self, v: torch.Tensor, method: str = "spectral") -> torch.Tensor:
+        """The spatial part of :meth:`prolong`, in fp32: [..., h, w, C] ->
+        [..., H, W, C]."""
         if method != "spectral":
             raise NotImplementedError(f"prolong method {method!r} is not ported (spectral only)")
         *_, h, w, C = v.shape
@@ -68,7 +70,13 @@ class SpatioTemporalCoarsening:
         pad = spec.new_zeros((*v.shape[:-3], h * s, w * s, C))
         y0, x0 = (h * s - h) // 2, (w * s - w) // 2
         pad[..., y0 : y0 + h, x0 : x0 + w, :] = spec
-        return self._scatter_times(_ifft2_unshifted(pad), out_len).to(v.dtype)
+        return _ifft2_unshifted(pad)
+
+    def prolong(self, v: torch.Tensor, out_len: int, method: str = "spectral") -> torch.Tensor:
+        """Band-limited prolongation of the coarse residual with the adjoint's
+        1/s^2 gain: the residual's spectrum zero-padded onto the fine grid.
+        Only ``spectral`` is ported; ``bilinear`` raises."""
+        return self._scatter_times(self.prolong_spatial(v, method), out_len).to(v.dtype)
 
     def project(self, x: torch.Tensor, y: torch.Tensor, iters: int = 3,
                 method: str = "spectral") -> torch.Tensor:

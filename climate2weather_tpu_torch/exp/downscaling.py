@@ -1,5 +1,5 @@
-"""Guided short-window downscaling (port of climate2weather_tpu/exp/downscaling.py
-``run`` and the short-trajectory branch of ``_run_impl``).
+"""Guided downscaling (port of climate2weather_tpu/exp/downscaling.py ``run``
+and ``_run_impl``, short and long trajectories).
 
 :func:`run` is the ``predict`` entry point: it reads a YAML config, applies
 overrides, makes the numbered save directory with ``config_freeze.yaml``,
@@ -17,10 +17,19 @@ observation (``observation_path`` unset), the coarsened ground truth
 DPM-Solver++(2M) under detached Gaussian guidance (or none, with
 ``guidance_off``), then the climatological calibration and the t=0
 projection. A caller downscaling several trajectories loads the net once and
-calls :func:`sample_arrays` for each.
+calls :func:`sample_arrays` for each; :func:`iter_samples` yields the groups
+one by one, and :func:`run` writes each sample as soon as it is done.
 
-Not ported, and refused before any sampling: the long-trajectory and
-host-streaming samplers, exact-gradient guidance and DPM-Solver++(3M).
+Trajectories longer than ``long_trajectory_threshold`` (512 frames) take the
+long path, as in JAX: one sample at a time through
+``diffusion/long_sampler.py`` (``ensemble_batch`` is ignored there), in
+calls of 8 steps with a resume file ``.sample_resume_NNN.npz`` in the save
+directory every ``sample_resume_every`` calls, DPM-Solver++(2M)'s trajectory
+in bf16 above 4000 frames, and the calibration and projection run in time
+chunks on the card (``calibrate.postprocess_long``) before the host copy.
+
+Not ported, and refused before any sampling: the host-streaming sampler,
+exact-gradient guidance and DPM-Solver++(3M).
 """
 
 from __future__ import annotations
@@ -39,12 +48,14 @@ from climate2weather_tpu_torch.data import pipeline as data_pipeline
 from climate2weather_tpu_torch.diffusion.calibrate import (
     calibrate_trajectory,
     climatological_annulus_psd,
+    postprocess_long,
 )
 from climate2weather_tpu_torch.diffusion.guidance import (
     GaussianGuidance,
     SpatioTemporalCoarsening,
     per_channel,
 )
+from climate2weather_tpu_torch.diffusion.long_sampler import sample_dpmpp2m_long, sample_guided_long
 from climate2weather_tpu_torch.diffusion.process import construct_process
 from climate2weather_tpu_torch.diffusion.sampler import sample, sample_dpmpp2m
 from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
@@ -55,6 +66,10 @@ from climate2weather_tpu_torch.utils.seeding import derive_seed
 
 _T0_METHODS = ("", "spectral", "block")
 _SAMPLERS = ("pc", "dpmpp2m")
+# the long path: steps per sampler call, and the length above which
+# DPM-Solver++(2M) keeps its trajectory buffers in bf16 (JAX _run_impl)
+_STEPS_PER_CALL = 8
+_BF16_TRAJECTORY_ABOVE = 4000
 
 
 def _check_config(cfg: dict, L: int, calib_frames, observation_given: bool = False) -> None:
@@ -72,8 +87,8 @@ def _check_config(cfg: dict, L: int, calib_frames, observation_given: bool = Fal
         raise ValueError(f"sde_eta applies to sampler_kind dpmpp2m only (got {kind!r})")
     if cfg.get("use_exact_grad", False):
         raise NotImplementedError("use_exact_grad is not ported")
-    if cfg.get("host_streaming", False) or L > int(cfg.get("long_trajectory_threshold", 512)):
-        raise NotImplementedError("the long-trajectory and host-streaming samplers are not ported")
+    if cfg.get("host_streaming", False):
+        raise NotImplementedError("the host-streaming sampler is not ported (the long-trajectory one is)")
     if str(cfg.get("t0_project", "") or "") not in _T0_METHODS:
         raise ValueError(f"t0_project must be one of {_T0_METHODS}, got {cfg['t0_project']!r}")
     if bool(cfg.get("spectral_calibrate")) != (calib_frames is not None):
@@ -104,6 +119,7 @@ def run_arrays(
     observation=None,
     noise: Optional[np.ndarray] = None,
     z: Optional[np.ndarray] = None,
+    stats: Optional[dict] = None,
 ):
     """Downscale one trajectory: returns ``(samples, nan_flags)``, float32
     ``[num_samples, L, H, W, C]`` and bool ``[num_samples]`` numpy arrays.
@@ -116,18 +132,18 @@ def run_arrays(
     noise from a generator seeded with ``derive_seed(seed, "sample", sid)``;
     tests inject both instead through ``noise`` ``[num_samples, L, H, W, C]``
     and ``z`` ``[num_samples, draws, L, H, W, C]`` (one draw per step for
-    DPM-Solver++(2M) with ``sde_eta > 0``, one per corrector step for PC).
+    DPM-Solver++(2M) with ``sde_eta > 0``, one per corrector step for PC;
+    on the long path each frame chunk takes its frames of the draw).
     The run is on the card unless ``device="cpu"``; ``compute_dtype`` is the
-    network's (bf16 as in JAX).
+    network's (bf16 as in JAX). ``stats`` as for :func:`iter_samples`.
     """
     # before the snapshot load
     _check_config(cfg, len(ground_truth_lhwc), calib_frames, observation is not None)
     net, snap_config = load_net(snapshot_dir, device, compute_dtype)
     return sample_arrays(net, snap_config, cfg, ground_truth_lhwc, calib_frames, device,
-                         observation=observation, noise=noise, z=z)
+                         observation=observation, noise=noise, z=z, stats=stats)
 
 
-@torch.no_grad()
 def sample_arrays(
     net: torch.nn.Module,
     snap_config: dict,
@@ -139,8 +155,43 @@ def sample_arrays(
     observation=None,
     noise: Optional[np.ndarray] = None,
     z: Optional[np.ndarray] = None,
+    resume_dir: Optional[str] = None,
+    stats: Optional[dict] = None,
 ):
-    """:func:`run_arrays` with the net already loaded by :func:`load_net`."""
+    """:func:`run_arrays` with the net already loaded by :func:`load_net`;
+    ``resume_dir`` and ``stats`` as for :func:`iter_samples`."""
+    L, H, W, C = np.shape(ground_truth_lhwc)
+    num_samples = int(cfg.get("num_samples", 1))
+    samples = np.empty((num_samples, L, H, W, C), np.float32)
+    nan_flags = np.empty((num_samples,), bool)
+    for sids, out, flags in iter_samples(net, snap_config, cfg, ground_truth_lhwc, calib_frames, device,
+                                         observation=observation, noise=noise, z=z,
+                                         resume_dir=resume_dir, stats=stats):
+        samples[sids], nan_flags[sids] = out, flags
+    return samples, nan_flags
+
+
+@torch.no_grad()
+def iter_samples(
+    net: torch.nn.Module,
+    snap_config: dict,
+    cfg: dict,
+    ground_truth_lhwc,
+    calib_frames=None,
+    device="cuda",
+    *,
+    observation=None,
+    noise: Optional[np.ndarray] = None,
+    z: Optional[np.ndarray] = None,
+    resume_dir: Optional[str] = None,
+    stats: Optional[dict] = None,
+):
+    """Yield ``(sample ids, samples, nan_flags)`` for each group as it is
+    done: float32 ``[n, L, H, W, C]`` and bool ``[n]`` numpy arrays,
+    post-processed. On the long path a group is one sample, and with
+    ``sample_resume_every > 0`` in ``cfg`` its resume file lives in
+    ``resume_dir``. ``stats``, a dict, gets ``long_path`` and
+    ``traj_dtype``."""
     dev = resolve_device(device)
     set_reference_numerics()
     gt = torch.as_tensor(np.asarray(ground_truth_lhwc, np.float32), device=dev)
@@ -153,6 +204,11 @@ def sample_arrays(
     seed = int(cfg.get("seed", 0))
     markov_order = int(snap_config["dataset_kwargs"]["train"]["window"]) // 2
     process = construct_process(**snap_config["pipeline_kwargs"])
+    use_long = L > int(cfg.get("long_trajectory_threshold", 512))
+    kind = cfg.get("sampler_kind", "pc")
+    traj_dtype = torch.bfloat16 if use_long and kind == "dpmpp2m" and L > _BF16_TRAJECTORY_ABOVE else None
+    if stats is not None:
+        stats.update(long_path=use_long, traj_dtype=str(traj_dtype or torch.float32))
 
     A = SpatioTemporalCoarsening(s_step=s_step, t_step=t_step)
     obs_path = cfg.get("observation_path")
@@ -168,6 +224,7 @@ def sample_arrays(
                                        device=dev)
 
     score = WindowScoreFn(net, markov_order, chunk_size=int(cfg.get("batch_size", 16)))
+    guidance = None
     if y is not None and not cfg.get("guidance_off", False):
         guidance = GaussianGuidance(
             A=A, y=y,
@@ -177,34 +234,54 @@ def sample_arrays(
             anneal=float(cfg.get("guidance_anneal", 0.0)),
         )
 
-        def score_fn(x, t):
-            return guidance.guided_eps(score, process, x, t)
-    else:
-        score_fn = score
+    def score_fn(x, t):
+        return score(x, t) if guidance is None else guidance.guided_eps(score, process, x, t)
 
-    kind = cfg.get("sampler_kind", "pc")
+    denoise_final = bool(cfg.get("denoise_final", False))
+    resume_every = int(cfg.get("sample_resume_every", 0))
     if kind == "pc":
         corrections = int(cfg.get("num_corrections", 2))
         n_draws = steps * corrections
+        pc = dict(steps=steps, corrections=corrections, tau=float(cfg.get("correction_tau", 0.5)),
+                  corrector_variance_exact=bool(cfg.get("corrector_variance_exact", False)),
+                  denoise_final=denoise_final)
 
-        def run_sampler(x_init, gens, zs):
-            return sample(process, score_fn, x_init, steps=steps, corrections=corrections,
-                          tau=float(cfg.get("correction_tau", 0.5)),
-                          corrector_variance_exact=bool(cfg.get("corrector_variance_exact", False)),
-                          rng=gens, z=zs, denoise_final=bool(cfg.get("denoise_final", False)),
-                          batch_dims=1)
+        def run_sampler(x_init, gens, zs, sid):
+            if use_long:
+                return sample_guided_long(process, score, x_init, guidance=guidance, rng=gens, z=zs,
+                                          **pc, **long_kw(sid))
+            return sample(process, score_fn, x_init, rng=gens, z=zs, batch_dims=1, **pc)
     else:
         sde_eta = float(cfg.get("sde_eta", 0.0))
         n_draws = steps if sde_eta > 0 else 0
 
-        def run_sampler(x_init, gens, zs):
+        def run_sampler(x_init, gens, zs, sid):
+            if use_long:
+                return sample_dpmpp2m_long(process, score, x_init, guidance=guidance, steps=steps,
+                                           rng=gens, z=zs, traj_dtype=traj_dtype,
+                                           denoise_final=denoise_final, sde_eta=sde_eta, **long_kw(sid))
             return sample_dpmpp2m(process, score_fn, x_init, steps=steps, rng=gens, z=zs,
-                                  denoise_final=bool(cfg.get("denoise_final", False)),
-                                  sde_eta=sde_eta, batch_dims=1)
+                                  denoise_final=denoise_final, sde_eta=sde_eta, batch_dims=1)
 
-    eb = max(1, int(cfg.get("ensemble_batch", 1)))
-    samples = np.empty((num_samples, L, H, W, C), np.float32)
-    nan_flags = np.empty((num_samples,), bool)
+    def long_kw(sid):
+        kw = dict(steps_per_call=_STEPS_PER_CALL, verbose=True)
+        if resume_dir is not None and resume_every > 0:
+            kw.update(resume_path=os.path.join(resume_dir, f".sample_resume_{sid:03d}.npz"),
+                      resume_every=resume_every)
+        return kw
+
+    def postprocess(out):
+        if use_long:
+            return postprocess_long(out, calib_target, s_step, y if t0_project else None, t_step,
+                                    t0_project, int(cfg.get("t0_project_iters", 3)))
+        if calib_target is not None:
+            out = calibrate_trajectory(out, calib_target, s_step)
+        if y is not None and t0_project:
+            out = A.project(out, y, iters=int(cfg.get("t0_project_iters", 3)), method=t0_project)
+        return out
+
+    # the long path runs one sample at a time, as in JAX
+    eb = 1 if use_long else max(1, int(cfg.get("ensemble_batch", 1)))
     for start in range(0, num_samples, eb):
         sids = list(range(start, min(start + eb, num_samples)))
         if noise is not None:
@@ -220,14 +297,15 @@ def sample_arrays(
         if z is not None and n_draws:
             zg = np.asarray(z[sids], np.float32)  # [members, draws, L, H, W, C]
             zs = [torch.as_tensor(zg[:, i], device=dev) for i in range(n_draws)]
-        out, nan_flag = run_sampler(x_init, gens, zs)
-        if calib_target is not None:
-            out = calibrate_trajectory(out, calib_target, s_step)
-        if y is not None and t0_project:
-            out = A.project(out, y, iters=int(cfg.get("t0_project_iters", 3)), method=t0_project)
-        samples[sids] = out.float().cpu().numpy()
-        nan_flags[sids] = nan_flag.cpu().numpy()
-    return samples, nan_flags
+        if use_long:  # one sample, without the group dimension
+            x_init = x_init[0].to(traj_dtype or x_init.dtype)  # a bf16 run keeps no fp32 draw
+            out, nan_flag = run_sampler(x_init, gens[0] if gens else None,
+                                        [zi[0] for zi in zs] if zs else None, sids[0])
+            out, nan_flag = postprocess(out)[None], nan_flag[None]
+        else:
+            out, nan_flag = run_sampler(x_init, gens, zs, sids[0])
+            out = postprocess(out)
+        yield sids, out.float().cpu().numpy(), nan_flag.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +313,17 @@ def sample_arrays(
 
 
 def run(save_path: str, config_path: str, device="cuda", *, compute_dtype: torch.dtype = torch.bfloat16,
-        noise: Optional[np.ndarray] = None, z: Optional[np.ndarray] = None, **kwargs) -> pathlib.Path:
+        noise: Optional[np.ndarray] = None, z: Optional[np.ndarray] = None,
+        stats: Optional[dict] = None, **kwargs) -> pathlib.Path:
     """Load a YAML experiment config, apply the overrides ``kwargs`` (None
     values are ignored), create the numbered save directory
     ``<save_path>/NNN_<config stem>`` with ``config_freeze.yaml``, and run;
     returns the directory. ``device``, ``compute_dtype``, ``noise`` and
-    ``z`` as for :func:`run_arrays`."""
+    ``z`` as for :func:`run_arrays`. ``stats``, a dict, gets the seconds of
+    the run's parts on the host clock (``input_s``: reading the inputs and
+    writing ``ground_truth.nc`` and ``observation.nc``; ``load_net_s``;
+    ``sampling_s``, to each group's host copy; ``write_s``: the samples'
+    files) and :func:`iter_samples`' keys."""
     config_path = pathlib.Path(config_path)
     save_path = pathlib.Path(save_path)
     subdir_i = len([s for s in save_path.iterdir() if s.is_dir()]) + 1 if save_path.exists() else 1
@@ -258,7 +341,8 @@ def run(save_path: str, config_path: str, device="cuda", *, compute_dtype: torch
         config[k] = v
     save_path.mkdir(parents=True, exist_ok=False)
     yaml_dump_file(config, save_path / "config_freeze.yaml")
-    _run_impl(save_path, config, device, compute_dtype=compute_dtype, noise=noise, z=z)
+    _run_impl(save_path, config, device, compute_dtype=compute_dtype, noise=noise, z=z,
+              stats={} if stats is None else stats)
     print("Done. \n")
     return save_path
 
@@ -266,7 +350,7 @@ def run(save_path: str, config_path: str, device="cuda", *, compute_dtype: torch
 _REQUIRED = ("model_path", "data_path", "quantile_path", "start_time", "num_hours", "data_norm_mode")
 
 
-def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, noise, z) -> pathlib.Path:
+def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, noise, z, stats) -> pathlib.Path:
     missing = [k for k in _REQUIRED if k not in cfg]
     if missing:
         raise TypeError(f"config lacks {missing}")
@@ -279,6 +363,7 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
     print(f"STARTING DOWNSCALING AT {datetime.now().strftime('%Y-%m-%d_%H%M%S')} >>>")
     print(f"Saving results to {save_path}")
 
+    t_input = time.time()
     unnormed = data_pipeline.load_processed(data_path, data_vars, start_time, num_hours)
     L = len(unnormed.time)
     # every refusal before any output beyond config_freeze.yaml, and before sampling
@@ -306,23 +391,29 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
     if obs_path is not None and cfg.get("guidance_off", False):
         print("Likelihood guidance OFF (observation kept for the t=0 projection).")
 
+    t_net = time.time()
     net, snap_config = load_net(cfg["model_path"], dev, compute_dtype)
     window = int(snap_config["dataset_kwargs"]["train"]["window"])
     print(f"Loaded score network from {cfg['model_path']} (window {window}, order {window // 2})")
     print("Starting sampling...")
-    t0 = time.time()
-    samples, nan_flags = sample_arrays(net, snap_config, cfg, gt, calib, dev,
-                                       observation=observation, noise=noise, z=z)
-    total = time.time() - t0
-    print(f"Total sampling time: {total:.2f} s = {total / 60:.3f} min = {total / 3600:.4f} h")
-    for sid, (g, is_nan) in enumerate(zip(samples, nan_flags)):
-        if is_nan:  # write the finite samples first, then fail loudly
-            continue
-        sample_ds = data_pipeline.np_to_ds(data_pipeline.nhwc_to_nchw(g), reference_ds=cosmo,
-                                           data_vars=data_vars)
-        sample_ds = data_pipeline.unnormalize_ds(sample_ds, quantile_path, norm_mode)
-        sample_ds.to_file(str(save_path / f"gen_sample_{sid:03d}.nc"))
-    if nan_flags.any():
-        raise FloatingPointError(f"NaN detected in sample(s) {np.nonzero(nan_flags)[0].tolist()}")
+    t_group = time.time()
+    stats.update(input_s=t_net - t_input, load_net_s=t_group - t_net, sampling_s=0.0, write_s=0.0)
+    for sids, gens, nan_flags in iter_samples(net, snap_config, cfg, gt, calib, dev, observation=observation,
+                                              noise=noise, z=z, resume_dir=str(save_path), stats=stats):
+        t_write = time.time()
+        stats["sampling_s"] += t_write - t_group
+        total = t_write - t_group
+        print(f"Total sampling time: {total:.2f} s = {total / 60:.3f} min = {total / 3600:.4f} h")
+        for sid, g, is_nan in zip(sids, gens, nan_flags):
+            if is_nan:  # write the group's finite samples first, then fail loudly
+                continue
+            sample_ds = data_pipeline.np_to_ds(data_pipeline.nhwc_to_nchw(g), reference_ds=cosmo,
+                                               data_vars=data_vars)
+            sample_ds = data_pipeline.unnormalize_ds(sample_ds, quantile_path, norm_mode)
+            sample_ds.to_file(str(save_path / f"gen_sample_{sid:03d}.nc"))
+        t_group = time.time()
+        stats["write_s"] += t_group - t_write
+        if nan_flags.any():
+            raise FloatingPointError(f"NaN detected in sample(s) {[s for s, n in zip(sids, nan_flags) if n]}")
     print(f"Saved results to {save_path}")
     return save_path

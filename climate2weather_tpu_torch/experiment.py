@@ -1,11 +1,16 @@
-"""Experiment command line of the port (the ``predict`` command of the JAX
-package's ``experiment.py``):
+"""Experiment command line of the port (the ``predict`` and ``metrics``
+commands of the JAX package's ``experiment.py``):
 
     python -m climate2weather_tpu_torch.experiment predict \\
         --save-path OUT --config-path CONFIG.yml [--num-samples N] ... [--device cpu]
+    python -m climate2weather_tpu_torch.experiment metrics run EXP_DIR [--time-stride N]
+    python -m climate2weather_tpu_torch.experiment metrics load EXP_DIR
 
-runs :func:`climate2weather_tpu_torch.exp.downscaling.run` with the flags
-given as overrides of the config. It runs on the card unless ``--device cpu``.
+``predict`` runs :func:`climate2weather_tpu_torch.exp.downscaling.run` with the
+flags given as overrides of the config, on the card unless ``--device cpu``.
+``metrics run`` scores an experiment directory on the host
+(:func:`climate2weather_tpu_torch.exp.metrics.run`), ``metrics load`` prints
+the scores it saved.
 """
 
 from __future__ import annotations
@@ -42,6 +47,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int)
     p.add_argument("--observation-path")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    m = sub.add_parser("metrics", help="score an experiment directory (exp/metrics)")
+    msub = m.add_subparsers(dest="metrics_command", required=True)
+    r = msub.add_parser("run", help="compute the scores and pickle them under EXP_DIR/metrics/run")
+    r.add_argument("exp_dir")
+    r.add_argument("--time-stride", type=int, default=1,
+                   help="score every Nth observed frame (the year-scale protocol; recorded in the pickle)")
+    ld = msub.add_parser("load", help="print the scores of an earlier metrics run")
+    ld.add_argument("exp_dir")
     return ap
 
 
@@ -53,6 +66,13 @@ def main(argv=None) -> int:
 
         save_path, config_path, device = args.pop("save_path"), args.pop("config_path"), args.pop("device")
         downscaling.run(save_path, config_path, device=device, **args)
+    else:
+        from climate2weather_tpu_torch.exp import metrics
+
+        if args["metrics_command"] == "run":
+            metrics.run(args["exp_dir"], time_stride=args["time_stride"])
+        else:
+            metrics.load(args["exp_dir"])
     return 0
 
 

@@ -161,11 +161,87 @@ def test_run_arrays_draws_its_own_noise_reproducibly(setup):
     close(c, a, rtol=1e-5, atol=1e-5)
 
 
+def _jax_long_branch(snap, cfg, gt, h5):
+    """The long branch of JAX ``_run_impl`` for each sample: its noise and
+    key, ``sample_dpmpp2m_long`` in calls of 8 steps, ``postprocess_long_nchw``.
+    Returns the samples [S, L, H, W, C], the noise NHWC and the SDE draws of
+    each step (one frame chunk: 256 frames cover L), for the port."""
+    from climate2weather_tpu.diffusion.calibrate import climatological_annulus_psd, postprocess_long_nchw
+    from climate2weather_tpu.diffusion.guidance import GaussianGuidance, SpatioTemporalCoarsening, per_channel
+    from climate2weather_tpu.diffusion.long_sampler import sample_dpmpp2m_long
+    from climate2weather_tpu.diffusion.process import VPCosineProcess
+    from climate2weather_tpu.diffusion.window import make_batched_eps_fn
+    from climate2weather_tpu.models.score_net import build_score_unet
+    from climate2weather_tpu.training.checkpoint import load_snapshot
+    from climate2weather_tpu.utils.seeding import derive_seed
+
+    params, snap_cfg = load_snapshot(snap)
+    net = build_score_unet(snap_cfg["network_kwargs"], dtype=jnp.float32, use_pallas_attention=False)
+    L, H, W, C = gt.shape
+    A = SpatioTemporalCoarsening(s_step=cfg["s_step"], t_step=cfg["t_step"])
+    observation = A(jnp.asarray(gt))
+    guidance = GaussianGuidance(A=A, y=observation, std=per_channel(cfg["likelihood_std"], C),
+                                gamma=per_channel(cfg["likelihood_gamma"], C))
+    target = jnp.asarray(climatological_annulus_psd(h5, s_step=cfg["s_step"]))
+    steps = cfg["num_sampling_steps"]
+    outs, noises, zs = [], [], []
+    for sid in range(cfg["num_samples"]):
+        nk, key = jax.random.split(jax.random.PRNGKey(derive_seed(cfg["seed"], "sample", sid)))
+        noise = jax.random.normal(nk, (L, C, H, W), jnp.float32)
+        # noise and key before the sampler donates them with its carry
+        noises.append(np.moveaxis(np.asarray(noise), 1, 3))
+        z, zkey_seq = [], key
+        for _ in range(steps):
+            zkey_seq, zkey = jax.random.split(zkey_seq)
+            z.append(np.moveaxis(np.asarray(jax.random.normal(jax.random.fold_in(zkey, 0), (L, C, H, W))), 1, 3))
+        zs.append(np.stack(z))
+        out, nan = sample_dpmpp2m_long(
+            VPCosineProcess(), make_batched_eps_fn(net.apply), params, noise,
+            markov_order=int(snap_cfg["dataset_kwargs"]["train"]["window"]) // 2,
+            chunk_size=cfg["batch_size"], guidance=guidance, steps=steps, rng=key, steps_per_call=8,
+            denoise_final=cfg["denoise_final"], sde_eta=cfg["sde_eta"])
+        assert not bool(nan)
+        out = postprocess_long_nchw(out, calib_target=target, s_step=cfg["s_step"], observation=observation,
+                                    t_step=cfg["t_step"], method=cfg["t0_project"],
+                                    iters=cfg["t0_project_iters"])
+        outs.append(np.moveaxis(np.asarray(out), 1, 3))
+    return np.stack(outs), np.stack(noises), np.stack(zs)
+
+
+def test_run_arrays_long_path_matches_jax(setup):
+    """Above ``long_trajectory_threshold`` (lowered to 8 for 13 frames) the
+    long path, against JAX's long branch with its noise injected: 2e-4 of
+    the output's scale, as the short slice."""
+    snap, gt, frames, h5 = setup
+    cfg = _config(likelihood_gamma=1e-2, long_trajectory_threshold=8, ensemble_batch=1)
+    want, noises, zs = _jax_long_branch(snap, cfg, gt, h5)
+    stats = {}
+    got, got_nan = run_arrays(snap, cfg, gt, calib_frames=frames, device="cpu",
+                              compute_dtype=torch.float32, noise=noises, z=zs, stats=stats)
+    assert stats == {"long_path": True, "traj_dtype": "torch.float32"}
+    assert got.shape == (2, L, H, W, C) and not got_nan.any()
+    close(got, want, atol=2e-4 * float(np.abs(want).max()))
+
+
+def test_long_path_ignores_ensemble_batch(setup):
+    """The long path samples one trajectory at a time, as in JAX: each
+    sample draws its own noise, whatever ``ensemble_batch`` says."""
+    snap, gt, frames, _ = setup
+    cfg = _config(num_sampling_steps=3, num_samples=3, long_trajectory_threshold=8)
+    one, _ = run_arrays(snap, {**cfg, "ensemble_batch": 1}, gt, calib_frames=frames, device="cpu",
+                        compute_dtype=torch.float32)
+    three, nan = run_arrays(snap, {**cfg, "ensemble_batch": 3}, gt, calib_frames=frames, device="cpu",
+                            compute_dtype=torch.float32)
+    assert np.isfinite(three).all() and not nan.any()
+    np.testing.assert_array_equal(one, three)
+    assert not np.allclose(three[0], three[1])
+
+
 @pytest.mark.parametrize("override,error", [
     ({"sampler_kind": "dpmpp3m"}, NotImplementedError),
     ({"use_exact_grad": True}, NotImplementedError),
     ({"host_streaming": True}, NotImplementedError),
-    ({"long_trajectory_threshold": 4}, NotImplementedError),
+    ({"long_trajectory_threshold": 4, "use_exact_grad": True}, NotImplementedError),
     ({"observation_path": "/elsewhere.nc"}, NotImplementedError),
     ({"t0_project": "bilinear"}, ValueError),
     ({"spectral_calibrate": ""}, ValueError),

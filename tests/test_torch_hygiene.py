@@ -2,13 +2,13 @@
 library, torch and numpy, and the smoke's phases run end to end.
 
 A subprocess blocks the import of jax, flax, optax, msgpack, yaml, h5py,
-click, netCDF4, xarray, ml_dtypes, ninja, matplotlib, PIL and
+scipy, click, netCDF4, xarray, ml_dtypes, ninja, matplotlib, PIL and
 climate2weather_tpu, imports
 the port and ``chip_smoke``, and runs the smoke's phase-3 and phase-4
 functions on the CPU with a tiny snapshot, its phase-5 training at a tiny
-size, or its phase-6 ``predict`` from files (written and read through
-``io/hdf5.py``), its phase-7 training drive and a Winograd call (the kernel
-phases need the card).
+size, its phase-6 ``predict`` from files (written and read through
+``io/hdf5.py``), its phase-7 training drive and a Winograd call, or its
+phase-8 year path at a tiny size (the kernel phases need the card).
 """
 
 import json
@@ -25,7 +25,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CHILD = r"""
 import importlib.abc, json, pathlib, pkgutil, sys
 
-BLOCKED = {"jax", "flax", "optax", "msgpack", "yaml", "h5py", "click", "netCDF4", "xarray",
+BLOCKED = {"jax", "flax", "optax", "msgpack", "yaml", "h5py", "scipy", "click", "netCDF4", "xarray",
            "ml_dtypes", "ninja", "matplotlib", "PIL", "climate2weather_tpu"}
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -65,6 +65,13 @@ elif mode == "predict":
     out = {"p6": p6["runs"], "p7_losses": p7["losses"], "p7_checked": len(p7["per_launch"]),
            "wino_shape": list(wino.shape), "wino_finite": bool(torch.isfinite(wino).all()),
            "wino_launches": winograd.launch_counts["winograd_conv3x3"]}
+elif mode == "year":
+    # the year config above a threshold lowered to 16 frames: 31 hours at
+    # 32 x 32, 24 steps (3 calls of 8, a resume file after the second), the
+    # resume at 31 frames and the bf16 trajectory at 4003
+    p8 = chip_smoke.phase8_year(snap, cpu, res=32, hours=31,
+                                overrides={"long_trajectory_threshold": 16, "num_sampling_steps": 24})
+    out = {"p8": {k: p8[k] for k in ("8a", "8b", "8c", "8d")}}
 else:
     p5 = chip_smoke.phase5_training(cpu, model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
                                     res=16, frames=40, compute_dtype=torch.float32)
@@ -141,6 +148,34 @@ def test_predict_hdf5_and_winograd_need_only_stdlib_torch_numpy(tmp_path):
         assert runs[name]["A_x_minus_y_max"] <= runs[name]["A_tol"]
     assert len(out["p7_losses"]) == 2 and out["p7_checked"] == 8
     assert out["wino_shape"] == [2, 8, 8, 16] and out["wino_finite"] and out["wino_launches"] == 0
+
+
+def test_year_path_and_metrics_need_only_stdlib_torch_numpy(tmp_path):
+    """Phase 8 on the CPU with the tiny snapshot, with h5py, scipy and the
+    rest unimportable: ``predict`` on the year config takes the long path,
+    writes and removes its resume file, and keeps A(x) = y; a crashed run
+    resumes to the uninterrupted one's bits; 4003 frames run in bf16; the
+    metrics of the written run are finite."""
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "year", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for name in ("diffusion.long_sampler", "exp.metrics", "exp.exputil"):
+        assert f"climate2weather_tpu_torch.{name}" in out["modules"]
+    a, b, c, d = (out["p8"][k] for k in ("8a", "8b", "8c", "8d"))
+    assert a["long_path"] and a["finite"] and a["A_x_minus_y_max"] <= a["A_tol"]
+    assert a["resume_saves_at_step"] == [16] and ".sample_resume_000.npz" not in a["left_in_dir"]
+    assert a["unet_forwards"] == 25 and a["attention_launches"] == 0  # 24 steps + the final denoise
+    assert b["resumed_equal"] and b["uninterrupted_equal"] and b["saved_step"] == 8
+    assert b["resumed_forwards"] == b["expected_forwards"] == 8
+    assert c["traj_dtype"] == "torch.bfloat16" and c["finite"] and c["A_x_minus_y_max"] <= c["A_tol"]
+    assert d["finite"] and d["scores"] == 32 and d["protocol"] == {"time_stride": 1, "num_times": 6}
 
 
 def test_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -96,6 +96,17 @@ def _jax_draws(cfg):
     noises, zs = [], []
     for sid in range(int(cfg["num_samples"])):
         nk, sk = jax.random.split(jax.random.PRNGKey(derive_seed(int(cfg["seed"]), "sample", sid)))
+        if L > int(cfg.get("long_trajectory_threshold", 512)):
+            # the long path: NCHW noise, and each step's z drawn per frame
+            # chunk with fold_in (one chunk of 256 frames covers L)
+            noises.append(np.moveaxis(np.asarray(jax.random.normal(nk, (L, C, HW, HW), jnp.float32)), 1, 3))
+            z = []
+            for _ in range(n_draws):
+                sk, zkey = jax.random.split(sk)
+                z.append(np.moveaxis(np.asarray(jax.random.normal(jax.random.fold_in(zkey, 0), (L, C, HW, HW))),
+                                     1, 3))
+            zs.append(np.stack(z) if z else np.zeros((0, L, HW, HW, C), np.float32))
+            continue
         noises.append(np.asarray(jax.random.normal(nk, (L, HW, HW, C), jnp.float32)))
         zs.append(jax_split_normals(sk, n_draws, (L, HW, HW, C)) if n_draws else
                   np.zeros((0, L, HW, HW, C), np.float32))
@@ -133,6 +144,11 @@ CASES = {
                                                    observation_path=None)),
     "guidance_off": ("s16_t6_spectral.yml", dict(num_samples=1, ensemble_batch=1, num_sampling_steps=16,
                                                  guidance_off=True)),
+    # the year path above a lowered threshold: one sample at a time whatever
+    # ensemble_batch says, a resume file written and removed, calibration and
+    # projection in time chunks
+    "long": ("s16_t6_spectral.yml", dict(num_samples=2, ensemble_batch=2, num_sampling_steps=16,
+                                         long_trajectory_threshold=8, sample_resume_every=1)),
 }
 
 
@@ -210,7 +226,8 @@ def test_experiment_cli_runs_predict(inputs, tmp_path):
 def test_run_refuses_unported_settings_before_sampling(inputs, tmp_path):
     tmp, snap, paths = inputs
     for name, over in (("dpmpp3m", {"sampler_kind": "dpmpp3m"}), ("exact", {"use_exact_grad": True}),
-                       ("long", {"long_trajectory_threshold": 4}), ("stream", {"host_streaming": True})):
+                       ("long", {"long_trajectory_threshold": 4, "use_exact_grad": True}),
+                       ("stream", {"host_streaming": True})):
         config_path, _ = _config(tmp_path, snap, paths, name, "s16_t6_spectral.yml", **over)
         with pytest.raises(NotImplementedError):
             downscaling.run(str(tmp_path / name), str(config_path), device="cpu")
