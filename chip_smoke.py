@@ -18,8 +18,8 @@ Numbered phases, each printing one JSON line with its seconds:
    beside the back-to-back time; the backward also at T = 1 and 65, called
    twice for the same bits, with a planted fault, dS without its row-sum
    term, that the check must catch, gradients reaching q, k and v, and its
-   timed rows with their graph and host times and SDPA's backward from a
-   graph); the
+   timed rows, the exact-guidance shape [96, 64, 512] among them, with their
+   graph and host times and SDPA's backward from a graph); the
    Winograd conv at the 72.1M UNet's level-0 and level-4 block shapes in
    bf16 with each ``pre``, ``vec`` and a residual, at a ragged bf16 shape
    (C = 40, O = 20) and one fp32 shape (each with a planted fault, the top
@@ -76,7 +76,25 @@ Numbered phases, each printing one JSON line with its seconds:
    ``sample_arrays`` on 4003 frames for 2 steps and the final denoise: a
    bf16 trajectory, A(x) = y within bf16 rounding, peak memory and the
    peak reckoned for 8737 frames; (8d) ``metrics run`` on 8a's directory:
-   finite scores.
+   finite scores;
+9. the other sampler and guidance modes, h5py unimportable: (9a)
+   ``run_arrays`` at ``s16_t6_spectral.yml`` with ``use_exact_grad: true``,
+   3 samples in one group (96 windows a chunk), 8 steps: finite, A(x) = y,
+   the forward launches of both passes and the backward's, each backward
+   launch of the first evaluation against the plain version, sampling time,
+   window-evals/s and peak memory; then the exact gradient at full width in
+   fp32 against a central difference of log p along a random direction,
+   with the limit from the central difference's own spread, and a planted
+   fault (the overwritten windows' cotangent counted twice) that must
+   exceed it; (9b) ``exp/downscaling.run`` from files with
+   ``sampler_kind: dpmpp3m`` (16 steps) and ``guidance_prolong: bilinear``
+   (8 steps), checked as phase 6; (9c) the year config at 523 frames:
+   DPM-Solver++(3M) crashed in its second call and resumed, bit for bit,
+   then exact guidance for 2 steps and the final denoise at chunks of 128
+   windows; (9d) ``experiment hparam-sweep`` with 2 trials (8 steps): two
+   numbered directories of finite samples; (9e) ``exp/fidelity.run`` with
+   ``skip_figures`` (3 guided, 8 unconditional samples, 8 steps):
+   ``FIDELITY.md`` and finite scores.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -289,16 +307,17 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
     training shape, the route's edges (T = 1, 16, 64, 65), ragged shapes,
     768 channels and the longest T, fp32 and bf16, with a planted fault that
     must fail and a second call that must give the same bits; gradients
-    through ``fused_attention``. The training shape and ``LONG_TIMED`` are
-    timed back to back (``ms``), from a CUDA graph (``graph_ms``, and SDPA's
-    backward so as ``library_graph_ms``) and on the host (``host_ms``).
-    Returns (checks, the kernels line's row, the ``LONG_TIMED`` row)."""
+    through ``fused_attention``. The training shape, ``LONG_TIMED`` and the
+    exact-guidance shape ``MAIN_SHAPE`` are timed back to back (``ms``), from
+    a CUDA graph (``graph_ms``, and SDPA's backward so as
+    ``library_graph_ms``) and on the host (``host_ms``). Returns (checks, the
+    kernels line's row, the ``LONG_TIMED`` row, the ``MAIN_SHAPE`` row)."""
     from climate2weather_tpu_torch.ops import attention
 
     checks, row = [], None
     timed = {}
-    for shape in (TRAIN_SHAPE, *LONG_SHAPES, *BWD_EDGE_SHAPES, *WIDE_SHAPES, LONG_TIMED):
-        for dtype in ((torch.bfloat16,) if shape == LONG_TIMED else (torch.float32, torch.bfloat16)):
+    for shape in (TRAIN_SHAPE, *LONG_SHAPES, *BWD_EDGE_SHAPES, *WIDE_SHAPES, LONG_TIMED, MAIN_SHAPE):
+        for dtype in ((torch.bfloat16,) if shape in (LONG_TIMED, MAIN_SHAPE) else (torch.float32, torch.bfloat16)):
             b, t, c = shape
             qkv = torch.randn((b, t, 3 * c), generator=g, device=device).to(dtype)
             q, k, v = qkv.chunk(3, dim=-1)
@@ -320,7 +339,7 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
                 raise AssertionError(f"attention backward gives other bits on a second call: {rec}")
             if fault[0] <= tols[0] or fault[1] <= tols[1]:
                 raise AssertionError(f"the backward check cannot see a dropped row sum: {rec}")
-            if shape in (TRAIN_SHAPE, LONG_TIMED) and dtype == torch.bfloat16:
+            if shape in (TRAIN_SHAPE, LONG_TIMED, MAIN_SHAPE) and dtype == torch.bfloat16:
                 s = c ** (-0.25)
                 lib_in = [x.detach().clone().requires_grad_(True)
                           for x in ((q * s).contiguous(), (k * s).contiguous(), v.contiguous())]
@@ -357,7 +376,7 @@ def phase2_backward(device: torch.device, g: torch.Generator) -> tuple:
     if grad_err is None or grad_check["launched"] != 1 or grad_err > grad_check["tol"]:
         raise AssertionError(f"gradients do not reach q, k, v through the kernel: {grad_check}")
     checks.append({"fused_attention_grad": grad_check})
-    return checks, row, timed[LONG_TIMED]
+    return checks, row, timed[LONG_TIMED], timed[MAIN_SHAPE]
 
 
 def phase2_kernels(device: torch.device, seed: int) -> tuple:
@@ -411,13 +430,14 @@ def phase2_kernels(device: torch.device, seed: int) -> tuple:
                 timed[shape].update(graph_ms=graph_time_ms(lambda: fused_attention(q, k, v)),
                                     library_graph_ms=graph_time_ms(sdpa),
                                     host_ms=host_time_ms(lambda: fused_attention(q, k, v)))
-    bwd_checks, bwd_row, bwd_long = phase2_backward(device, g)
+    bwd_checks, bwd_row, bwd_long, bwd_exact = phase2_backward(device, g)
     wino_checks, wino_rows = phase2_winograd(device, g)
     rows = {"attention_fwd": timed[MAIN_SHAPE], "attention_bwd": bwd_row, "winograd_conv3x3": wino_rows[0]}
     emit(2, t0, checks=checks + bwd_checks + wino_checks, timing=list(rows.values()),
          timing_train_fwd=timed[TRAIN_SHAPE], timing_year_fwd=timed[YEAR_SHAPE],
-         timing_t256=[timed[LONG_TIMED], bwd_long], timing_winograd=wino_rows[1:])
-    return rows, timed[YEAR_SHAPE]
+         timing_t256=[timed[LONG_TIMED], bwd_long], timing_exact_bwd=bwd_exact,
+         timing_winograd=wino_rows[1:])
+    return rows, timed[YEAR_SHAPE], bwd_exact
 
 
 def _halo_unmasked(x, kernel, bias, vec, residual, pre, ddof=0):
@@ -1187,65 +1207,72 @@ def _consistency(A, xs, y, bf16=False) -> tuple:
     return err, tol + (bf16_ulp(x_max) / 2 if bf16 else 0.0)
 
 
-def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_override=None) -> dict:
-    """``exp/downscaling.run`` (the ``predict`` entry point) from files the
-    phase writes with the port's writers, with h5py made unimportable: the
-    runs of ``PREDICT_RUNS``. Each output ``.nc`` is read back with the
-    port's reader and checked finite; where the config projects, A(x) = y
-    holds in normalized space under phase 4's tolerance; the attention
-    launches are 6 per UNet forward on the card."""
-    import shutil
-    import tempfile
-
+def _predict_runs(root, paths, snapshot_dir, device, runs, hours, steps_override=None) -> list:
+    """``exp/downscaling.run`` on each ``(name, config, overrides)`` of
+    ``runs`` from the files ``paths``: each output ``.nc`` read back with the
+    port's reader and checked finite; where the config projects, A(x) = y in
+    normalized space under phase 4's tolerance; the attention launches 6 per
+    UNet forward on the card. Returns one record per run."""
     from climate2weather_tpu_torch.data.grid import open_grid
     from climate2weather_tpu_torch.exp import downscaling
     from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
     from climate2weather_tpu_torch.ops.attention import launch_counts
 
+    snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    n_attn = _attention_blocks(snap_cfg["network_kwargs"])
+    records = []
+    for name, base, overrides in runs:
+        cfg = yaml_load_file(PREDICT_CONFIGS / base)
+        cfg.update(model_path=str(snapshot_dir), data_path=paths["data"],
+                   quantile_path=paths["quantiles"], observation_path=paths["data"])
+        if cfg.get("spectral_calibrate"):
+            cfg["spectral_calibrate"] = paths["train"]
+        cfg.update({k: paths[v] if k == "observation_path" else v for k, v in overrides.items()})
+        if steps_override:
+            cfg["num_sampling_steps"] = min(int(cfg["num_sampling_steps"]), steps_override)
+        config_path = root / f"{name}.yml"
+        yaml_dump_file(cfg, config_path)
+        for k in launch_counts:
+            launch_counts[k] = 0
+        t_run = time.time()
+        out_dir = downscaling.run(str(root / "out"), str(config_path), device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.time() - t_run
+        launches = launch_counts["attention_fwd"]
+        expect = n_attn * _expected_forwards(cfg, hours, window) if device.type == "cuda" else 0
+        samples = [open_grid(str(out_dir / f"gen_sample_{i:03d}.nc")) for i in range(int(cfg["num_samples"]))]
+        finite = all(bool(np.isfinite(v).all()) for smp in samples for v in smp.data_vars.values())
+        rec = {"run": name, "seconds": seconds, "attention_launches": launches,
+               "expected_launches": expect, "finite": finite,
+               "outputs": sorted(p.name for p in out_dir.iterdir())}
+        if cfg.get("t0_project"):
+            consistency, tol = _written_consistency(out_dir, samples, cfg, paths["quantiles"])
+            rec.update(A_x_minus_y_max=consistency, A_tol=tol)
+        records.append(rec)
+        if not finite:
+            raise AssertionError(f"predict wrote non-finite samples: {rec}")
+        if "A_tol" in rec and rec["A_x_minus_y_max"] > rec["A_tol"]:
+            raise AssertionError(f"A(x) != y in the written samples: {rec}")
+        if launches != expect:
+            raise AssertionError(f"attention launches {launches} != 6 per UNet forward = {expect}: {rec}")
+    return records
+
+
+def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_override=None) -> dict:
+    """``exp/downscaling.run`` (the ``predict`` entry point) from files the
+    phase writes with the port's writers, with h5py made unimportable: the
+    runs of ``PREDICT_RUNS``, checked by :func:`_predict_runs`."""
+    import shutil
+    import tempfile
+
     t0 = time.time()
     sys.modules["h5py"] = None  # the port reads and writes HDF5 without it
     root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-predict-"))
-    records = []
     try:
         paths = write_predict_inputs(root, res, hours, seed)
-        snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
-        window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
-        n_attn = _attention_blocks(snap_cfg["network_kwargs"])
-        for name, base, overrides in PREDICT_RUNS:
-            cfg = yaml_load_file(PREDICT_CONFIGS / base)
-            cfg.update(model_path=str(snapshot_dir), data_path=paths["data"],
-                       quantile_path=paths["quantiles"], observation_path=paths["data"])
-            if cfg.get("spectral_calibrate"):
-                cfg["spectral_calibrate"] = paths["train"]
-            cfg.update({k: paths[v] if k == "observation_path" else v for k, v in overrides.items()})
-            if steps_override:
-                cfg["num_sampling_steps"] = min(int(cfg["num_sampling_steps"]), steps_override)
-            config_path = root / f"{name}.yml"
-            yaml_dump_file(cfg, config_path)
-            for k in launch_counts:
-                launch_counts[k] = 0
-            t_run = time.time()
-            out_dir = downscaling.run(str(root / "out"), str(config_path), device=device)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            seconds = time.time() - t_run
-            launches = launch_counts["attention_fwd"]
-            expect = n_attn * _expected_forwards(cfg, hours, window) if device.type == "cuda" else 0
-            samples = [open_grid(str(out_dir / f"gen_sample_{i:03d}.nc")) for i in range(int(cfg["num_samples"]))]
-            finite = all(bool(np.isfinite(v).all()) for smp in samples for v in smp.data_vars.values())
-            rec = {"run": name, "seconds": seconds, "attention_launches": launches,
-                   "expected_launches": expect, "finite": finite,
-                   "outputs": sorted(p.name for p in out_dir.iterdir())}
-            if cfg.get("t0_project"):
-                consistency, tol = _written_consistency(out_dir, samples, cfg, paths["quantiles"])
-                rec.update(A_x_minus_y_max=consistency, A_tol=tol)
-            records.append(rec)
-            if not finite:
-                raise AssertionError(f"predict wrote non-finite samples: {rec}")
-            if "A_tol" in rec and rec["A_x_minus_y_max"] > rec["A_tol"]:
-                raise AssertionError(f"A(x) != y in the written samples: {rec}")
-            if launches != expect:
-                raise AssertionError(f"attention launches {launches} != 6 per UNet forward = {expect}: {rec}")
+        records = _predict_runs(root, paths, snapshot_dir, device, PREDICT_RUNS, hours, steps_override)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit(6, t0, runs=records)
@@ -1444,13 +1471,14 @@ def phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides) -> 
     return {**rec, "out_dir": out_dir, "paths": paths, "cfg": cfg}
 
 
-def phase8b_resume(root, net, snap_cfg, cfg, gt, device, steps=16, seed=0) -> dict:
-    """``sample_dpmpp2m_long`` at the config's guidance and SDE eta on
-    ``gt``'s length for ``steps`` steps in calls of 8, a resume file after
-    every call: twice uninterrupted, then crashed in its second call and
-    resumed from the file. The resumed run must equal the uninterrupted one
-    bit for bit, or, where two uninterrupted runs already differ, lie within
-    their spread; the resumed run makes only the remaining calls."""
+def phase8b_resume(root, net, snap_cfg, cfg, gt, device, steps=16, seed=0, order=2, label="8b") -> dict:
+    """``sample_dpmpp2m_long`` at the config's guidance and SDE eta (at
+    ``order=3``, DPM-Solver++(3M), without the SDE form) on ``gt``'s length
+    for ``steps`` steps in calls of 8, a resume file after every call: twice
+    uninterrupted, then crashed in its second call and resumed from the
+    file. The resumed run must equal the uninterrupted one bit for bit, or,
+    where two uninterrupted runs already differ, lie within their spread; the
+    resumed run makes only the remaining calls."""
     from climate2weather_tpu_torch.diffusion import long_sampler
     from climate2weather_tpu_torch.diffusion.guidance import (
         GaussianGuidance,
@@ -1485,7 +1513,8 @@ def phase8b_resume(root, net, snap_cfg, cfg, gt, device, steps=16, seed=0) -> di
         x = torch.randn((L, H, W, C), generator=gen, device=device)
         out, nan = long_sampler.sample_dpmpp2m_long(
             construct_process(**snap_cfg["pipeline_kwargs"]), score, x, guidance=guidance, steps=steps,
-            rng=gen, sde_eta=float(cfg["sde_eta"]), steps_per_call=8, resume_path=resume_path, resume_every=1)
+            rng=gen, sde_eta=float(cfg["sde_eta"]) if order == 2 else 0.0, order=order, steps_per_call=8,
+            resume_path=resume_path, resume_every=1)
         return out, bool(nan)
 
     first, nan1 = sample(None)
@@ -1498,19 +1527,22 @@ def phase8b_resume(root, net, snap_cfg, cfg, gt, device, steps=16, seed=0) -> di
         pass
     with np.load(path) as f:
         saved_step = int(f["step"])
+        carry = sorted(str(name) for name in f["names"])
     crash["at"] = None
     resumed, nan3 = sample(path)
     resumed_forwards = len(forwards)
     spread = float((first.float() - second.float()).abs().max())
     err = float((resumed.float() - first.float()).abs().max())
-    rec = {"L": L, "steps": steps, "window_chunks": chunks, "saved_step": saved_step,
+    rec = {"L": L, "order": order, "steps": steps, "window_chunks": chunks, "saved_step": saved_step,
            "resumed_forwards": resumed_forwards, "expected_forwards": (steps - 8) * chunks,
            "uninterrupted_equal": bool(torch.equal(first, second)), "uninterrupted_max_abs_diff": spread,
            "resumed_equal": bool(torch.equal(resumed, first)), "resumed_max_abs_diff": err,
-           "finite": not (nan1 or nan2 or nan3), "file_left": os.path.exists(path)}
-    emit("8b", t0, **rec)
+           "finite": not (nan1 or nan2 or nan3), "file_left": os.path.exists(path), "carry": carry}
+    emit(label, t0, **rec)
     if not rec["finite"] or saved_step != 8 or rec["file_left"]:
         raise AssertionError(f"the resume file was not written after the first call or not removed: {rec}")
+    if order == 3 and not {"prev2_x0", "prev2_h"} <= set(carry):
+        raise AssertionError(f"the order-3 resume file lacks the second-previous carry: {rec}")
     if resumed_forwards != rec["expected_forwards"]:
         raise AssertionError(f"the resumed run did not make only the remaining calls: {rec}")
     if not rec["resumed_equal"] and (rec["uninterrupted_equal"] or err > spread):
@@ -1610,6 +1642,331 @@ def phase8_year(snapshot_dir, device, res=128, hours=YEAR_HOURS, bf16_hours=BF16
     return {"launches": a["attention_launches"], "8a": a, "8b": b, "8c": c, "8d": d}
 
 
+# phase 9: exact-gradient guidance, DPM-Solver++(3M), the bilinear
+# prolongation, the likelihood sweep and the fidelity harness
+EXACT_STEPS = 8
+# the gradient check's trajectory: 22 frames are 10 windows of 13, in chunks
+# of 8 ([0, 8) and [2, 10)); window 6, centred on the observed frame 12, is
+# written by both, so a doubly counted overwrite shows in the gradient
+GRAD_FRAMES, GRAD_CHUNK, GRAD_T = 22, 8, 0.5
+GRAD_STEPS = (0.04, 0.02, 0.01)  # central-difference steps along v, largest first
+PREDICT9_RUNS = (
+    ("dpmpp3m", "s16_t6_spectral.yml",
+     {"num_samples": 3, "sampler_kind": "dpmpp3m", "sde_eta": 0.0, "num_sampling_steps": 16}),
+    ("bilinear", "s16_t6_spectral.yml",
+     {"num_samples": 3, "guidance_prolong": "bilinear", "num_sampling_steps": 8}),
+)
+
+
+def _exact_launches(n_attn, evals, chunks, windows_per_chunk, device) -> tuple:
+    """Expected (forward, backward) attention launches of exact guidance:
+    per evaluation and window chunk one forward with no graph, then per
+    sub-batch of the VJP one forward under grad and one backward."""
+    from climate2weather_tpu_torch.diffusion import window
+
+    if device.type != "cuda":
+        return 0, 0
+    subs = -(-windows_per_chunk // window.VJP_WINDOWS)
+    return n_attn * evals * chunks * (1 + subs), n_attn * evals * chunks * subs
+
+
+def phase9a_exact(snapshot_dir, device, L=49, res=128, n_train=64, seed=0, overrides=None) -> dict:
+    """``run_arrays`` (as its two steps ``load_net`` and ``sample_arrays``)
+    at ``s16_t6_spectral.yml`` with ``use_exact_grad: true``, 3 samples in
+    one group and ``EXACT_STEPS`` steps: finite samples, A(x) = y, the
+    attention launches of both passes, and every backward launch of the
+    first evaluation against the plain version within phase 5's limit."""
+    from climate2weather_tpu_torch.exp.downscaling import load_net, sample_arrays
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+    from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
+    from climate2weather_tpu_torch.ops import attention
+
+    t0 = time.time()
+    cfg = yaml_load_file(CONFIG)
+    cfg.update({"num_samples": 3, "use_exact_grad": True, "num_sampling_steps": EXACT_STEPS, **(overrides or {})})
+    snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+    C = int(snap_cfg["dataset_kwargs"]["train"]["num_features"])
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    n_attn = _attention_blocks(snap_cfg["network_kwargs"])
+    gt, train = synthetic_inputs(L, res, res, C, n_train, seed)
+    net, snap_cfg = load_net(str(snapshot_dir), device)
+    n_win = L - window + 1
+    per_call = min(n_win, int(cfg["batch_size"]))
+    chunks = -(-n_win // per_call)
+    members = min(int(cfg["num_samples"]), int(cfg["ensemble_batch"]))
+    evals = int(cfg["num_sampling_steps"]) + int(bool(cfg.get("denoise_final", False)))
+    want_fwd, want_bwd = _exact_launches(n_attn, evals, chunks, members * per_call, device)
+    plain_bwd, bwd_calls = attention.attention_bwd, []
+    first_eval = want_bwd // evals
+
+    def recorded_bwd(q, k, v, do):
+        out = plain_bwd(q, k, v, do)
+        if len(bwd_calls) < first_eval:
+            bwd_calls.append((q, k, v, do.detach(), out))
+        return out
+
+    for k in attention.launch_counts:
+        attention.launch_counts[k] = 0
+    _peak_reset(device)
+    attention.attention_bwd = recorded_bwd
+    try:
+        t_sample = time.time()
+        samples, nan_flags = sample_arrays(net, snap_cfg, cfg, gt, calib_frames=train, device=device)
+        sampling_s = time.time() - t_sample  # sample_arrays ends in a copy to the host
+    finally:
+        attention.attention_bwd = plain_bwd
+    peak = _peak(device)
+    launches = dict(attention.launch_counts)
+    per_launch = []
+    with torch.no_grad():
+        for q, k, v, do, got in bwd_calls:
+            want = attention.attention_bwd_reference(q, k, v, do)
+            errs, scales = _grads_err(got, want)
+            fault, _ = _grads_err(_rowsum_dropped(q, k, v, do), want)
+            per_launch.append({"shape": list(q.shape), "max_abs_err": errs, "tol": _bwd_tols(scales, q.dtype),
+                               "rowsum_dropped_err": fault[:2]})
+    A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
+    consistency, tol = _consistency(A, [torch.from_numpy(samples)], A(torch.from_numpy(gt)))
+    window_evals = members * evals * chunks * per_call
+    rec = {"samples_shape": list(samples.shape), "finite": bool(np.isfinite(samples).all()) and not nan_flags.any(),
+           "A_x_minus_y_max": consistency, "A_tol": tol, "steps": int(cfg["num_sampling_steps"]),
+           "attention_launches": launches, "expected_launches": {"attention_fwd": want_fwd,
+                                                                 "attention_bwd": want_bwd},
+           "bwd_checked": len(per_launch), "bwd_per_launch": per_launch, "sampling_s": sampling_s,
+           "window_evals": window_evals, "window_evals_per_s": window_evals / sampling_s,
+           "max_memory_allocated": peak}
+    emit("9a", t0, **rec)
+    if not rec["finite"]:
+        raise AssertionError(f"exact guidance gave non-finite samples: {rec}")
+    if consistency > tol:
+        raise AssertionError(f"A(x) != y after exact guidance: {rec}")
+    if launches.get("attention_fwd", 0) != want_fwd or launches.get("attention_bwd", 0) != want_bwd:
+        raise AssertionError(f"attention launches {launches} != {rec['expected_launches']}")
+    if len(per_launch) != first_eval:
+        raise AssertionError(f"{len(per_launch)} backward launches recorded, want {first_eval}")
+    for one in per_launch:
+        if any(e > tl for e, tl in zip(one["max_abs_err"], one["tol"])):
+            raise AssertionError(f"an attention backward launch of exact guidance disagrees: {one}")
+        if any(f <= tl for f, tl in zip(one["rowsum_dropped_err"], one["tol"])):
+            raise AssertionError(f"the per-launch check cannot see a dropped row sum: {one}")
+    return {"launches": launches, **rec}
+
+
+def phase9a_gradient(snapshot_dir, device, res=128, seed=0, frames=GRAD_FRAMES, chunk=GRAD_CHUNK) -> dict:
+    """The exact gradient at full width in fp32: the 72.1M snapshot in fp32
+    on a trajectory of ``frames`` frames in window chunks of ``chunk`` (the
+    last shifted back), at t = ``GRAD_T`` with the config's likelihood, and
+    <grad log p, v> for a random direction v against the central difference
+    of log p at the steps ``GRAD_STEPS``. The control is the central
+    difference itself: the limit is 3x the most it moves between two of its
+    steps. The gradient must meet the limit, and the planted fault, the
+    cotangent of the windows the shifted last chunk overwrites counted
+    twice, must exceed it."""
+    from climate2weather_tpu_torch.diffusion import window as window_mod
+    from climate2weather_tpu_torch.diffusion.guidance import (
+        GaussianGuidance,
+        SpatioTemporalCoarsening,
+        per_channel,
+    )
+    from climate2weather_tpu_torch.diffusion.process import construct_process
+    from climate2weather_tpu_torch.exp.downscaling import load_net
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+
+    t0 = time.time()
+    cfg = yaml_load_file(CONFIG)
+    net, snap_cfg = load_net(str(snapshot_dir), device, compute_dtype=torch.float32)
+    C = int(snap_cfg["dataset_kwargs"]["train"]["num_features"])
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    process = construct_process(**snap_cfg["pipeline_kwargs"])
+    gt, _ = synthetic_inputs(frames, res, res, C, 1, seed)
+    gt = torch.from_numpy(gt).to(device)
+    A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
+    guide = GaussianGuidance(A=A, y=A(gt), std=per_channel(cfg["likelihood_std"], C, device),
+                             gamma=per_channel(cfg["likelihood_gamma"], C, device), exact_grad=True)
+    score = window_mod.WindowScoreFn(net, window // 2, chunk_size=chunk)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    mu, sigma = float(process.mu(GRAD_T)), float(process.sigma(GRAD_T))
+    x = mu * gt + sigma * torch.randn(gt.shape, generator=g, device=device)
+    v = torch.randn(gt.shape, generator=g, device=device)
+    var = (guide.std.double() ** 2 + guide.gamma.double() * (sigma / mu) ** 2)
+
+    def log_p(xx):
+        x0 = process.denoise(xx, GRAD_T, score(xx, GRAD_T))
+        return float(-((guide.y.double() - A(x0).double()) ** 2 / var).sum() / 2)
+
+    def directional():
+        _, grad = guide.eps_and_grad(score, process, x, GRAD_T)
+        return float((grad.double() * v.double()).sum())
+
+    with torch.no_grad():
+        got = directional()
+        real_owned = window_mod.owned_windows
+        window_mod.owned_windows = lambda ci, n_chunks, B, n: B  # every centre back-propagated
+        try:
+            fault = directional()
+        finally:
+            window_mod.owned_windows = real_owned
+        fds = [(log_p(x + h * v) - log_p(x - h * v)) / (2 * h) for h in GRAD_STEPS]
+    spread = max(abs(a - b) for a, b in zip(fds, fds[1:]))
+    limit = 3 * spread
+    rec = {"frames": frames, "windows": frames - window + 1, "chunk": chunk, "t": GRAD_T,
+           "steps": list(GRAD_STEPS), "central_differences": fds, "directional": got,
+           "err": abs(got - fds[-1]), "rel_err": abs(got - fds[-1]) / abs(fds[-1]), "control_spread": spread,
+           "limit": limit, "double_count_directional": fault, "double_count_err": abs(fault - fds[-1])}
+    emit("9a_gradient", t0, **rec)
+    if not all(np.isfinite([got, fault, *fds])):
+        raise AssertionError(f"non-finite gradient check: {rec}")
+    if rec["err"] > limit:
+        raise AssertionError(f"the exact gradient disagrees with the central difference: {rec}")
+    if rec["double_count_err"] <= limit:
+        raise AssertionError(f"the gradient check cannot see the overwritten windows counted twice: {rec}")
+    return rec
+
+
+def phase9c_long(root, snapshot_dir, device, res=128, hours=YEAR_HOURS, seed=0, resume_steps=16,
+                 overrides=None) -> dict:
+    """The year path at ``hours`` frames on the year config: DPM-Solver++(3M)
+    crashed in its second call and resumed (phase 8b at ``order=3``), then
+    ``sample_arrays`` with exact guidance for 2 steps and the final denoise
+    at the config's chunks of 128 windows: finite, A(x) = y, the attention
+    launches of both passes, peak memory."""
+    from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
+    from climate2weather_tpu_torch.exp.downscaling import load_net, sample_arrays
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+    C = int(snap_cfg["dataset_kwargs"]["train"]["num_features"])
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    gt, train = synthetic_inputs(hours, res, res, C, 16, seed)
+    cfg = yaml_load_file(YEAR_CONFIG)
+    cfg.update(num_hours=hours, num_samples=1, **(overrides or {}))
+    net, snap_cfg = load_net(str(snapshot_dir), device)
+    resume = phase8b_resume(root, net, snap_cfg, cfg, gt, device, steps=resume_steps, seed=seed, order=3,
+                            label="9c_resume")
+    cfg.update(use_exact_grad=True, num_sampling_steps=2)
+    n_win = hours - window + 1
+    per_call = min(n_win, int(cfg["batch_size"]))
+    chunks = -(-n_win // per_call)
+    want_fwd, want_bwd = _exact_launches(_attention_blocks(snap_cfg["network_kwargs"]), 3, chunks, per_call,
+                                         device)
+    for k in launch_counts:
+        launch_counts[k] = 0
+    _peak_reset(device)
+    stats = {}
+    t_sample = time.time()
+    samples, nan = sample_arrays(net, snap_cfg, cfg, gt, calib_frames=train, device=device, stats=stats)
+    sampling_s = time.time() - t_sample
+    peak = _peak(device)
+    A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
+    consistency, tol = _consistency(A, [torch.from_numpy(samples[0])], A(torch.from_numpy(gt)))
+    rec = {"L": hours, "long_path": stats["long_path"], "window_chunks": chunks, "windows_per_chunk": per_call,
+           "finite": bool(np.isfinite(samples).all()) and not nan.any(),
+           "A_x_minus_y_max": consistency, "A_tol": tol, "sampling_s": sampling_s,
+           "attention_launches": dict(launch_counts),
+           "expected_launches": {"attention_fwd": want_fwd, "attention_bwd": want_bwd},
+           "max_memory_allocated": peak}
+    emit("9c_exact", t0, **rec)
+    if not rec["long_path"] or not rec["finite"]:
+        raise AssertionError(f"exact guidance on the long path: not taken or not finite: {rec}")
+    if consistency > tol:
+        raise AssertionError(f"A(x) != y after exact guidance on the long path: {rec}")
+    if rec["attention_launches"] != rec["expected_launches"]:
+        raise AssertionError(f"attention launches of the long exact path: {rec}")
+    return {"resume": resume, **rec}
+
+
+def phase9d_sweep(root, paths, snapshot_dir, device, steps=EXACT_STEPS) -> dict:
+    """``python -m climate2weather_tpu_torch.experiment hparam-sweep`` (its
+    ``main``, in this process) with 2 trials on the phase's files,
+    ``s16_t6_spectral.yml`` cut to ``steps`` steps: two numbered directories
+    of 10 finite samples each, and the trials' (sigma, gamma) as printed."""
+    import contextlib
+    import io
+    import re
+
+    from climate2weather_tpu_torch import experiment
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+
+    t0 = time.time()
+    cfg = yaml_load_file(PREDICT_CONFIGS / "s16_t6_spectral.yml")
+    cfg.update(model_path=str(snapshot_dir), data_path=paths["data"], quantile_path=paths["quantiles"],
+               observation_path=paths["data"], spectral_calibrate=paths["train"], num_sampling_steps=steps)
+    config_path = root / "sweep.yml"
+    yaml_dump_file(cfg, config_path)
+    printed = io.StringIO()
+    args = ["hparam-sweep", "--save-path", str(root / "sweep"), "--config-path", str(config_path), "--trials", "2"]
+    if device.type != "cuda":
+        args += ["--device", "cpu"]
+    with contextlib.redirect_stdout(printed):
+        code = experiment.main(args)
+    text = printed.getvalue()
+    trials = re.findall(r"^Trial (\d+): sigma = (.*), gamma = (.*)$", text, flags=re.M)
+    dirs = sorted(p.name for p in (root / "sweep").iterdir())
+    finite = [all(bool(np.isfinite(vals).all()) for i in range(10)
+                  for vals in open_grid(str(root / "sweep" / d / f"gen_sample_{i:03d}.nc")).data_vars.values())
+              for d in dirs]
+    rec = {"exit_code": code, "trials": [{"trial": int(n), "sigma": sg, "gamma": float(gm)} for n, sg, gm in trials],
+           "dirs": dirs, "finite": finite, "failed": "FAILED" in text}
+    emit("9d", t0, **rec)
+    if code != 0 or rec["failed"] or len(trials) != 2 or dirs != ["001_sweep", "002_sweep"] or not all(finite):
+        raise AssertionError(f"the sweep did not give two trials of finite samples: {rec}\n{text[-2000:]}")
+    return rec
+
+
+def phase9e_fidelity(root, paths, snapshot_dir, device, steps=EXACT_STEPS, guided=3, uncond=8) -> dict:
+    """``exp/fidelity.run`` with ``skip_figures`` on the phase's files:
+    ``guided`` guided and ``uncond`` unconditional samples of ``steps``
+    steps, their metrics and ``FIDELITY.md``, every score finite."""
+    from climate2weather_tpu_torch.exp import fidelity
+
+    t0 = time.time()
+    out = fidelity.run(str(snapshot_dir), paths["data"], paths["quantiles"], str(root / "fidelity"),
+                       "2014-04-07-04", num_samples=guided, uncond_samples=uncond, num_sampling_steps=steps,
+                       skip_figures=True, device=device)
+    report = root / "fidelity" / "FIDELITY.md"
+    values = [np.asarray(val) for side in ("guided", "uncond") for kind, by_var in out[side].items()
+              if kind != "protocol" for entries in by_var.values() for val in entries.values()]
+    rows = [ln for ln in report.read_text().splitlines() if ln.startswith("| ") and "metric" not in ln] \
+        if report.exists() else []
+    rec = {"report": report.exists(), "rows": len(rows), "scores": len(values),
+           "finite": bool(values) and all(bool(np.isfinite(val).all()) for val in values),
+           "guided_samples": guided, "uncond_samples": uncond, "steps": steps}
+    emit("9e", t0, **rec)
+    if not rec["report"] or not rows or not rec["finite"]:
+        raise AssertionError(f"FIDELITY.md missing or scores not finite: {rec}")
+    return rec
+
+
+def phase9_modes(snapshot_dir, device, res=128, hours=49, long_hours=YEAR_HOURS, seed=0, overrides=None,
+                 long_overrides=None, resume_steps=16) -> dict:
+    """Phase 9, 9a-9e (see the module docstring), h5py unimportable, in one
+    scratch directory; ``overrides`` cut 9a's and 9b's config (the tests' CPU
+    rehearsal), ``long_overrides`` 9c's. Returns each part's record."""
+    import shutil
+    import tempfile
+
+    sys.modules["h5py"] = None  # the port reads and writes HDF5 without it
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-modes-"))
+    try:
+        a = phase9a_exact(snapshot_dir, device, L=hours, res=res, seed=seed, overrides=overrides)
+        grad = phase9a_gradient(snapshot_dir, device, res=res, seed=seed)
+        t0 = time.time()
+        paths = write_predict_inputs(root, res, hours, seed)
+        runs = [(name, base, {**over, **(overrides or {})}) for name, base, over in PREDICT9_RUNS]
+        b = _predict_runs(root, paths, snapshot_dir, device, runs, hours)
+        emit("9b", t0, runs=b)
+        c = phase9c_long(root, snapshot_dir, device, res=res, hours=long_hours, seed=seed,
+                         resume_steps=resume_steps, overrides=long_overrides)
+        d = phase9d_sweep(root, paths, snapshot_dir, device)
+        e = phase9e_fidelity(root, paths, snapshot_dir, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"9a": a, "9a_gradient": grad, "9b": b, "9c": c, "9d": d, "9e": e}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1642,11 +1999,11 @@ def main(argv=None) -> int:
             checks, wino_rows = phase2_winograd(device, g)
             emit(2, t0, checks=checks, timing_winograd=wino_rows)
         else:
-            checks, bwd_row, bwd_long = phase2_backward(device, g)
-            emit(2, t0, checks=checks, timing=[bwd_row], timing_t256=[bwd_long])
+            checks, bwd_row, bwd_long, bwd_exact = phase2_backward(device, g)
+            emit(2, t0, checks=checks, timing=[bwd_row], timing_t256=[bwd_long], timing_exact_bwd=bwd_exact)
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
-    rows, year_fwd = phase2_kernels(device, args.seed)
+    rows, year_fwd, exact_bwd = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
     main_path = phase4_slice(SNAPSHOT, CONFIG, device, seed=args.seed)
@@ -1656,6 +2013,9 @@ def main(argv=None) -> int:
     t8 = time.time()
     year = phase8_year(SNAPSHOT, device, seed=args.seed)
     emit(8, t8, launches=year["launches"])
+    t9 = time.time()
+    modes = phase9_modes(SNAPSHOT, device, seed=args.seed)
+    emit(9, t9, launches={"9a": modes["9a"]["launches"], "9c": modes["9c"]["attention_launches"]})
     # each kernel's launches on its own path: sampling for the forward (and
     # the year path's, at its own shape), training for the backward, the
     # ModResidualBlock composition for the Winograd conv
@@ -1664,6 +2024,13 @@ def main(argv=None) -> int:
         k: year_fwd[k] for k in ("shape", "max_abs_err", "ms", "graph_ms", "host_ms", "plain_ms", "bound_ms",
                                  "library_ms", "library_graph_ms")}}
     rows["attention_bwd"]["launches"] = training["launches"]["attention_bwd"]
+    # exact guidance puts the backward on the sampling paths: its launches
+    # there (phase 9a, and 9c's year chunks) and its times at 9a's shape
+    rows["attention_bwd"]["exact_path"] = {
+        "launches": modes["9a"]["launches"]["attention_bwd"],
+        "year_path_launches": modes["9c"]["attention_launches"]["attention_bwd"], **{
+            k: exact_bwd[k] for k in ("shape", "max_abs_err", "ms", "graph_ms", "host_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "library_graph_ms")}}
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -1,8 +1,15 @@
 """Gaussian likelihood guidance through a coarse-graining observation
-operator (port of climate2weather_tpu/diffusion/guidance.py, detached mode).
+operator (port of climate2weather_tpu/diffusion/guidance.py).
 
     p(y | x) = N(y | A(x_hat0), var),  var = std^2 + gamma (sigma/mu)^2
-    guided_eps = eps - sigma * (1/mu) A^T((y - A(x_hat0)) / var)
+    guided_eps = eps - sigma grad log p(y | x_t)
+
+In the detached (production) mode the gradient flows through the linear map
+x -> x_hat0 only, so it is closed-form: (1/mu) A^T((y - A(x_hat0)) / var).
+The exact mode (``exact_grad``) also differentiates eps: with
+u = A^T((y - A(x_hat0)) / var) the gradient is (u - sigma J_eps^T u) / mu,
+and the vector-Jacobian product J_eps^T u runs through the network
+(:func:`eps_vjp`; :meth:`WindowScoreFn.vjp` window chunk by chunk).
 
 Trajectories are NHWC ``[*batch, L, H, W, C]``; the observation ``y`` is
 ``[lo, h, w, C]`` and is shared by every leading index. Fourier work runs in
@@ -25,6 +32,25 @@ def _fft2_shifted(x: torch.Tensor) -> torch.Tensor:
 
 def _ifft2_unshifted(spec: torch.Tensor) -> torch.Tensor:
     return torch.fft.ifft2(torch.fft.ifftshift(spec, dim=(-3, -2)), dim=(-3, -2)).real
+
+
+def tent_weights(n_in: int, n_out: int) -> np.ndarray:
+    """fp32 [n_in, n_out] weights of ``jax.image.resize(..., "bilinear")``
+    along one axis (``compute_weight_mat`` with the triangle kernel, zero
+    translation, antialiasing on): output i samples the input at
+    (i + 1/2) n_in / n_out - 1/2, and each column's tent weights are divided
+    by their sum over the input samples in bounds, so a border output takes
+    its nearest input alone."""
+    scale = np.float32(n_out) / np.float32(n_in)
+    inv_scale = np.float32(1.0) / scale
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - dist)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
 @dataclass(frozen=True)
@@ -62,10 +88,13 @@ class SpatioTemporalCoarsening:
     def prolong_spatial(self, v: torch.Tensor, method: str = "spectral") -> torch.Tensor:
         """The spatial part of :meth:`prolong`, in fp32: [..., h, w, C] ->
         [..., H, W, C]."""
-        if method != "spectral":
-            raise NotImplementedError(f"prolong method {method!r} is not ported (spectral only)")
         *_, h, w, C = v.shape
         s = self.s_step
+        if method == "bilinear":
+            wy, wx = (torch.from_numpy(tent_weights(n, n * s)).to(v.device) for n in (h, w))
+            return torch.einsum("...hwc,hy,wx->...yxc", v.float(), wy, wx) / float(s * s)
+        if method != "spectral":
+            raise ValueError(f"unknown prolong method {method!r}")
         spec = _fft2_shifted(v.float())
         pad = spec.new_zeros((*v.shape[:-3], h * s, w * s, C))
         y0, x0 = (h * s - h) // 2, (w * s - w) // 2
@@ -73,9 +102,10 @@ class SpatioTemporalCoarsening:
         return _ifft2_unshifted(pad)
 
     def prolong(self, v: torch.Tensor, out_len: int, method: str = "spectral") -> torch.Tensor:
-        """Band-limited prolongation of the coarse residual with the adjoint's
-        1/s^2 gain: the residual's spectrum zero-padded onto the fine grid.
-        Only ``spectral`` is ported; ``bilinear`` raises."""
+        """Prolongation of the coarse residual with the adjoint's 1/s^2 gain
+        and zero rows at unobserved frames: ``spectral`` zero-pads the
+        residual's spectrum onto the fine grid; ``bilinear`` is
+        ``jax.image.resize``'s tent interpolation (:func:`tent_weights`)."""
         return self._scatter_times(self.prolong_spatial(v, method), out_len).to(v.dtype)
 
     def project(self, x: torch.Tensor, y: torch.Tensor, iters: int = 3,
@@ -129,11 +159,13 @@ def per_channel(values, num_channels: int, device=None) -> torch.Tensor:
 
 @dataclass
 class GaussianGuidance:
-    """Likelihood-guided eps prediction in the detached (production) mode.
+    """Likelihood-guided eps prediction.
 
-    ``exact_grad`` (autodiff through the network) is not ported and raises. ``prolong``
-    spreads the residual with :meth:`SpatioTemporalCoarsening.prolong`;
-    ``anneal`` scales the correction by ``min(t / anneal, 1)``.
+    ``exact_grad`` differentiates the likelihood through the network
+    (:func:`eps_vjp`); otherwise the gradient is the detached closed form.
+    ``prolong`` (detached mode only) spreads the residual with
+    :meth:`SpatioTemporalCoarsening.prolong` (True: ``spectral``, or the
+    method's name); ``anneal`` scales the correction by ``min(t / anneal, 1)``.
     """
 
     A: SpatioTemporalCoarsening
@@ -144,11 +176,16 @@ class GaussianGuidance:
     prolong: Union[bool, str] = False
     anneal: float = 0.0
 
-    def __post_init__(self):
-        if self.exact_grad:
-            raise NotImplementedError(
-                "exact-gradient guidance (use_exact_grad) is not ported; the detached "
-                "guidance is"
+    def prolong_method(self) -> str:
+        return self.prolong if isinstance(self.prolong, str) else "spectral"
+
+    def check_exact(self) -> None:
+        """Raise, as JAX does, where exact-gradient guidance is asked for with
+        a prolongation, which has no exact counterpart."""
+        if self.exact_grad and self.prolong:
+            raise ValueError(
+                "prolong guidance is a detached-mode preconditioner; "
+                "exact_grad=True has no prolonged counterpart"
             )
 
     def anneal_weight(self, t) -> float:
@@ -157,25 +194,47 @@ class GaussianGuidance:
         w = torch.clamp(torch.as_tensor(t, dtype=torch.float32) / float(self.anneal), 0.0, 1.0)
         return float(w)
 
-    def guided_eps(self, score_fn: Callable, process, x: torch.Tensor, t) -> torch.Tensor:
-        """eps - sigma grad log p(y | x_t) on [*batch, L, H, W, C]."""
+    def eps_and_grad(self, score_fn: Callable, process, x: torch.Tensor, t):
+        """``(eps, grad)`` on [*batch, L, H, W, C]: the score and the gradient
+        of log p(y | x_t) (with ``prolong``, its prolonged surrogate). With
+        ``exact_grad`` and leading members, log p is summed over them and one
+        gradient taken: each member's part is its own gradient."""
         check_observation_shape(self, x.shape[-4:])
+        self.check_exact()
         mu, sigma = process.mu(t), process.sigma(t)
-        ratio2 = float((sigma / mu) ** 2)
         std = torch.as_tensor(self.std, dtype=torch.float32, device=x.device)
         gamma = torch.as_tensor(self.gamma, dtype=torch.float32, device=x.device)
-        var = std**2 + gamma * ratio2
+        var = std**2 + gamma * float((sigma / mu) ** 2)
         L = x.shape[-4]
         eps = score_fn(x, t)
         x0 = process.denoise(x, t, eps)
         err = (self.y.float() - self.A(x0).float()) / var
+        if self.exact_grad:
+            u = self.A.adjoint(err.to(x.dtype), L)
+            return eps, (u - float(sigma) * eps_vjp(score_fn, x, t, u)) / float(mu)
         if self.prolong:
-            method = self.prolong if isinstance(self.prolong, str) else "spectral"
-            spread = self.A.prolong(err.to(x.dtype), L, method=method)
+            spread = self.A.prolong(err.to(x.dtype), L, method=self.prolong_method())
         else:
             spread = self.A.adjoint(err.to(x.dtype), L)
-        grad = spread / float(mu)
-        return eps - (self.anneal_weight(t) * float(sigma)) * grad
+        return eps, spread / float(mu)
+
+    def guided_eps(self, score_fn: Callable, process, x: torch.Tensor, t) -> torch.Tensor:
+        """eps - w sigma grad log p(y | x_t) (:meth:`eps_and_grad`)."""
+        eps, grad = self.eps_and_grad(score_fn, process, x, t)
+        return eps - (self.anneal_weight(t) * float(process.sigma(t))) * grad
+
+
+def eps_vjp(score_fn: Callable, x: torch.Tensor, t, cotangent: torch.Tensor) -> torch.Tensor:
+    """J^T ``cotangent``, J the Jacobian of x -> score_fn(x, t) at ``x``:
+    the score function's own ``vjp`` where it has one (a window score
+    recomputes its chunks), else autograd through one graded call."""
+    vjp = getattr(score_fn, "vjp", None)
+    if vjp is not None:
+        return vjp(x, t, cotangent)
+    with torch.enable_grad():
+        leaf = x.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(score_fn(leaf, t), leaf, grad_outputs=cotangent.to(x.dtype))
+    return grad
 
 
 def check_observation_shape(guidance, trajectory_shape_nhwc) -> None:

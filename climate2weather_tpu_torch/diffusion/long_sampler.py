@@ -11,8 +11,12 @@ and follow the JAX long samplers' arithmetic:
 - **guidance in observation space**: the observation operator A (block mean
   after ``::t_step``) is linear, so the likelihood error uses
   A(x0) = (A(x) - sigma A(eps)) / mu, computed in fp32 on the observed
-  frames only;
-- **frame-chunked updates**: guided eps, the x0 prediction and the step
+  frames only. Exact-gradient guidance (``guidance.exact_grad``) folds
+  -w sigma grad log p into eps after the window pass: with u = A^T(err),
+  grad = (u - sigma J_eps^T u) / mu, the vector-Jacobian product running
+  window chunk by chunk through :meth:`WindowScoreFn.vjp`;
+- **frame-chunked updates**: guided eps (the detached adjoint, or the
+  spectral or bilinear prolongation), the x0 prediction and the step
   rule applied in chunks of ``frame_chunk`` frames, the last chunk shifted
   back to end at the last frame, into fresh output buffers; the Langevin
   corrector's step size sums its squares chunk by chunk.
@@ -30,9 +34,11 @@ calls: the trajectory buffers, the step index, the multistep carry and the
 noise generator's state, so that a resumed run equals an uninterrupted one.
 The file is removed when the run ends.
 
-Not ported: exact-gradient guidance and DPM-Solver++(3M) (``order=3``), which
-no shipped config uses (ROADMAP queue A 5), and ``proc_x0``, which no caller
-of the JAX long samplers passes.
+``sample_dpmpp2m_long(order=3)`` is DPM-Solver++(3M), with one more
+trajectory buffer (the second-previous x0 prediction) and one more carry
+(the step before the previous one's h), both in the resume file.
+
+Not ported: ``proc_x0``, which no caller of the JAX long samplers passes.
 """
 
 from __future__ import annotations
@@ -81,8 +87,8 @@ def obs_error(guidance: GaussianGuidance, process, x: torch.Tensor, eps: torch.T
 def guided_eps_chunk(guidance: Optional[GaussianGuidance], process, eps_chunk: torch.Tensor,
                      err: Optional[torch.Tensor], f0: int, t) -> torch.Tensor:
     """eps - w sigma A^T(err) / mu on the frames [f0, f0 + F) of the
-    trajectory: the adjoint (or, with ``guidance.prolong``, the spectral
-    prolongation) of the observation-space error, nonzero at observed frames
+    trajectory: the adjoint (or, with ``guidance.prolong``, the spectral or
+    bilinear prolongation) of the observation-space error, nonzero at observed frames
     only, computed in fp32 and cast to eps's dtype. ``eps_chunk`` is left
     as it is."""
     if guidance is None or err is None:
@@ -95,8 +101,7 @@ def guided_eps_chunk(guidance: Optional[GaussianGuidance], process, eps_chunk: t
         return eps_chunk
     err_rows = err[torch.clamp((f0 + rows) // ts, max=err.shape[0] - 1)]
     if guidance.prolong:
-        method = guidance.prolong if isinstance(guidance.prolong, str) else "spectral"
-        up = A.prolong_spatial(err_rows, method)
+        up = A.prolong_spatial(err_rows, guidance.prolong_method())
     else:
         up = A.adjoint_spatial(err_rows)
     weight = guidance.anneal_weight(t) * float(process.sigma(t))
@@ -126,6 +131,7 @@ def _resume(resume_path, resume_every, kind: tuple, score: WindowScoreFn, guidan
                     float(noise.sum(dtype=torch.float64)))
     if guidance is not None:
         parts += (guidance.A.s_step, guidance.A.t_step, str(guidance.prolong), float(guidance.anneal),
+                  bool(guidance.exact_grad),
                   tuple(guidance.y.shape), float(guidance.y.sum(dtype=torch.float64)),
                   repr(np.asarray(torch.as_tensor(guidance.std).cpu()).tolist()),
                   repr(np.asarray(torch.as_tensor(guidance.gamma).cpu()).tolist()))
@@ -212,9 +218,20 @@ def _stepwise_drive(step, state: dict, n_steps: int, steps_per_call: Optional[in
 
 
 def _guided_eps_and_err(score: WindowScoreFn, guidance, process, x: torch.Tensor, t):
-    """eps over the windows and, under guidance, the observation-space error."""
+    """eps over the windows and, under detached guidance, the
+    observation-space error; under exact guidance the guided eps itself and
+    no error (the frame passes then add nothing)."""
     eps = score(x, t)
-    return eps, (obs_error(guidance, process, x, eps, t) if guidance is not None else None)
+    if guidance is None:
+        return eps, None
+    err = obs_error(guidance, process, x, eps, t)
+    if not guidance.exact_grad:
+        return eps, err
+    # grad log p = (u - sigma J_eps^T u) / mu, u = A^T(err) nonzero at the observed frames
+    mu, sigma = float(process.mu(t)), float(process.sigma(t))
+    u = guidance.A.adjoint(err, x.shape[0]).to(x.dtype)
+    grad = (u.float() - sigma * score.vjp(x, t, u).float()) / mu
+    return eps - (guidance.anneal_weight(t) * sigma * grad).to(eps.dtype), None
 
 
 def _final_denoise(score, guidance, process, x: torch.Tensor, F: int) -> torch.Tensor:
@@ -264,6 +281,8 @@ def sample_guided_long(
     (``steps * corrections`` trajectories, in order; a frame takes the
     values of the last chunk that covers it). Returns ``(x, nan_flag)``."""
     check_observation_shape(guidance, noise.shape)
+    if guidance is not None:
+        guidance.check_exact()
     if corrections > 0 and rng is None and z is None:
         raise ValueError("corrections > 0 requires an rng generator or injected z")
     if z is not None and len(z) != steps * corrections:
@@ -342,16 +361,22 @@ def sample_dpmpp2m_long(
     resume_every: int = 8,
 ):
     """DPM-Solver++(2M) on log-SNR-spaced steps from ``noise`` [L, H, W, C],
-    with one more trajectory buffer for the previous x0 prediction.
-    ``sde_eta > 0`` selects the SDE form, whose noise of each frame chunk
-    comes from ``rng``, or, for tests, from ``z`` (one trajectory per step).
+    with one more trajectory buffer for the previous x0 prediction;
+    ``order=3`` is DPM-Solver++(3M) (first order at step 0, second at step
+    1), with one more for the second-previous one. ``sde_eta > 0`` (order 2
+    only) selects the SDE form, whose noise of each frame chunk comes from
+    ``rng``, or, for tests, from ``z`` (one trajectory per step).
     ``traj_dtype`` sets the dtype of every trajectory buffer (bf16 for a
     year). Returns ``(x, nan_flag)``, ``x`` in that dtype."""
-    if order != 2:
-        raise NotImplementedError("DPM-Solver++(3M) (order=3) is not ported; order=2 is")
+    if order not in (2, 3):
+        raise ValueError(f"order must be 2 or 3, got {order}")
     check_observation_shape(guidance, noise.shape)
+    if guidance is not None:
+        guidance.check_exact()
     if sde_eta < 0:
         raise ValueError(f"sde_eta must be >= 0, got {sde_eta}")
+    if sde_eta > 0 and order != 2:
+        raise ValueError("sde_eta requires order=2 (SDE form is 2M-only)")
     if sde_eta > 0 and rng is None and z is None:
         raise ValueError("sde_eta > 0 requires an rng generator or injected z")
     if z is not None and len(z) != steps:
@@ -376,6 +401,10 @@ def sample_dpmpp2m_long(
         else:
             h, *coeffs = steprules.dpm_scalar_coeffs(process, t_prev, t_cur, state["prev_h"])
         coeffs = [_in_dtype(c, d) for c in coeffs]
+        third = order == 3 and i >= 2
+        if third:
+            w3 = [_in_dtype(c, d) for c in steprules.dpm3_scalar_coeffs(
+                process, t_prev, t_cur, state["prev_h"], state["prev2_h"])[3:]]
         out, x0_buf = torch.empty_like(x), torch.empty_like(x)
         for _, f0 in chunks:
             sl = slice(f0, f0 + F)
@@ -388,15 +417,23 @@ def sample_dpmpp2m_long(
                                                  multi)
             else:
                 sigma_ratio, growth, c_cur, c_prev = coeffs
-                dd = steprules.dpm_data_estimate(x0, prev_x0[sl], c_cur, c_prev, multi)
+                if third:
+                    dd = steprules.dpm3_data_estimate(x0, prev_x0[sl], state["prev2_x0"][sl], *w3)
+                else:
+                    dd = steprules.dpm_data_estimate(x0, prev_x0[sl], c_cur, c_prev, multi)
                 out[sl] = steprules.dpm_step(x[sl], dd, sigma_ratio, growth)
             x0_buf[sl] = x0
-        return {"x": out, "prev_x0": x0_buf, "prev_h": h.reshape(()).float(),
-                "is_first": torch.zeros((), dtype=torch.bool), "nan": state["nan"] | _nan(out)}
+        new = {"x": out, "prev_x0": x0_buf, "prev_h": h.reshape(()).float(),
+               "is_first": torch.zeros((), dtype=torch.bool), "nan": state["nan"] | _nan(out)}
+        if order == 3:
+            new.update(prev2_x0=prev_x0, prev2_h=state["prev_h"])
+        return new
 
     init = {"x": noise, "prev_x0": torch.zeros_like(noise), "prev_h": torch.ones((), dtype=torch.float32),
             "is_first": torch.ones((), dtype=torch.bool),
             "nan": torch.zeros((), dtype=torch.bool, device=noise.device)}
+    if order == 3:
+        init.update(prev2_x0=torch.zeros_like(noise), prev2_h=torch.ones((), dtype=torch.float32))
     kind = ("dpm", order, float(sde_eta), steps)
     ckpt = _resume(resume_path, resume_every, kind, score, guidance, noise, F)
     state = _stepwise_drive(step, init, steps, steps_per_call, verbose, ckpt,

@@ -1,6 +1,7 @@
 """Samplers (port of climate2weather_tpu/diffusion/sampler.py ``sample``,
-``logsnr_time_grid`` and ``sample_dpmpp2m``): the predictor-corrector
-sampler that the training loop's validation runs, and DPM-Solver++(2M).
+``logsnr_time_grid``, ``sample_dpmpp2m``, ``sample_dpmpp3m`` and
+``SAMPLERS``): the predictor-corrector sampler that the training loop's
+validation runs, DPM-Solver++(2M) and DPM-Solver++(3M).
 
 The JAX ``lax.scan`` becomes a Python loop. The state may carry leading
 batch dimensions in front of the trajectory's ``[L, H, W, C]`` (an ensemble
@@ -189,3 +190,60 @@ def sample_dpmpp2m(
             x = proc_x0(x)
         nan_flag |= _nan_flag(x, batch_dims)
     return x, nan_flag
+
+
+@torch.no_grad()
+def sample_dpmpp3m(
+    process,
+    score_fn: Callable,
+    noise: torch.Tensor,
+    *,
+    steps: int = 32,
+    rng: Optional[Generators] = None,
+    proc_x0: Optional[Callable] = None,
+    lambda_spacing: bool = True,
+    denoise_final: bool = False,
+    batch_dims: int = 0,
+):
+    """DPM-Solver++(3M) from ``noise`` [*batch, L, H, W, C]: the step
+    spacing of :func:`sample_dpmpp2m` with a quadratic extrapolant over the
+    last three x0 predictions (``steprules.dpm3_scalar_coeffs``). Step 0 is
+    first order (D = x0), step 1 second order (the 2M estimate), the rest
+    third order. Deterministic: ``rng`` is accepted, as in JAX, and unused.
+    Returns ``(x, nan_detected)``; the flag has shape ``noise.shape[:batch_dims]``."""
+    del rng
+    if lambda_spacing:
+        grid = logsnr_time_grid(process, steps)
+    else:
+        grid = np.linspace(1.0, 0.0, steps + 1, dtype=np.float32)
+    times = [float(t) for t in grid]
+
+    x = noise
+    prev_x0 = prev2_x0 = torch.zeros_like(noise)
+    prev_h = prev2_h = torch.ones((), dtype=torch.float32)
+    nan_flag = torch.zeros(noise.shape[:batch_dims], dtype=torch.bool, device=noise.device)
+    for i in range(steps):
+        t_prev, t_cur = times[i], times[i + 1]
+        eps = score_fn(x, t_prev)
+        x0 = process.denoise(x, t_prev, eps)
+        if proc_x0 is not None:
+            x0 = proc_x0(x0)
+        h, sigma_ratio, growth, c_cur, c_prev = steprules.dpm_scalar_coeffs(process, t_prev, t_cur, prev_h)
+        if i >= 2:
+            _, _, _, w0, w1, w2 = steprules.dpm3_scalar_coeffs(process, t_prev, t_cur, prev_h, prev2_h)
+            d = steprules.dpm3_data_estimate(x0, prev_x0, prev2_x0, float(w0), float(w1), float(w2))
+        else:
+            d = steprules.dpm_data_estimate(x0, prev_x0, float(c_cur), float(c_prev), i >= 1)
+        x = steprules.dpm_step(x, d, float(sigma_ratio), float(growth))
+        nan_flag |= _nan_flag(x, batch_dims)
+        prev2_x0, prev_x0, prev2_h, prev_h = prev_x0, x0, prev_h, h
+    if denoise_final:
+        eps = score_fn(x, 0.0)
+        x = process.denoise(x, 0.0, eps)
+        if proc_x0 is not None:
+            x = proc_x0(x)
+        nan_flag |= _nan_flag(x, batch_dims)
+    return x, nan_flag
+
+
+SAMPLERS = {"pc": sample, "dpmpp2m": sample_dpmpp2m, "dpmpp3m": sample_dpmpp3m}

@@ -1,7 +1,7 @@
 """Reverse-diffusion update formulas (port of
 climate2weather_tpu/diffusion/steprules.py): the DDIM predictor and the
-Langevin corrector of the PC sampler, and DPM-Solver++(2M), deterministic
-and SDE.
+Langevin corrector of the PC sampler, DPM-Solver++(2M), deterministic
+and SDE, and DPM-Solver++(3M).
 
 The coefficient functions compute fp32 scalars from the schedule (host
 tensors); the step functions are plain arithmetic on the state with those
@@ -22,6 +22,8 @@ __all__ = [
     "dpm_scalar_coeffs",
     "dpm_data_estimate",
     "dpm_step",
+    "dpm3_scalar_coeffs",
+    "dpm3_data_estimate",
     "dpm_sde_scalar_coeffs",
     "dpm_sde_step",
 ]
@@ -94,6 +96,39 @@ def dpm_data_estimate(x0, prev_x0, c_cur, c_prev, use_multi: bool):
 def dpm_step(x, d, sigma_ratio, growth):
     """x <- sigma_ratio x + growth D."""
     return sigma_ratio * x + growth * d
+
+
+def dpm3_scalar_coeffs(process, t_prev, t_cur, prev_h, prev2_h):
+    """fp32 ``(h, sigma_ratio, growth, w0, w1, w2)`` of one DPM++(3M) step.
+
+    With r0 = prev_h / h and r1 = prev2_h / h, the exact-integrator weights
+    of the quadratic data extrapolant are A0 = -expm1(-h),
+    A1 = 1 + expm1(-h)/h and A2 = 1/2 - (expm1(-h) + h)/h^2; folded into one
+    data estimate D = w0 x0 + w1 prev_x0 + w2 prev2_x0, the step keeps the
+    2M form x <- sigma_ratio x + growth D with growth = A0 mu(t_cur).
+    """
+    h = _lambda(process, t_cur) - _lambda(process, t_prev)
+    r0 = torch.as_tensor(prev_h, dtype=torch.float32) / h
+    r1 = torch.as_tensor(prev2_h, dtype=torch.float32) / h
+    em = torch.expm1(-h)
+    a0 = -em
+    a1 = 1.0 + em / h
+    a2 = 0.5 - (em + h) / (h * h)
+    s = r0 + r1
+    ca, cb, cc = 1.0 + r0 / s, r0 / s, 1.0 / s  # D1 = ca D1_0 - cb D1_1; D2 = cc (D1_0 - D1_1)
+    u_cur = (a1 * ca + a2 * cc) / r0
+    u_old = (a1 * cb + a2 * cc) / r1
+    w0 = 1.0 + u_cur / a0
+    w1 = -(u_cur + u_old) / a0
+    w2 = u_old / a0
+    sigma_ratio = process.sigma(t_cur) / process.sigma(t_prev)
+    growth = a0 * process.mu(t_cur)
+    return h, sigma_ratio, growth, w0, w1, w2
+
+
+def dpm3_data_estimate(x0, prev_x0, prev2_x0, w0, w1, w2):
+    """The third-order data estimate D = w0 x0 + w1 prev_x0 + w2 prev2_x0."""
+    return w0 * x0 + w1 * prev_x0 + w2 * prev2_x0
 
 
 def dpm_sde_scalar_coeffs(process, t_prev, t_cur, prev_h, eta: float):

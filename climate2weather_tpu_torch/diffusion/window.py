@@ -9,6 +9,12 @@ windows also their outer ``k`` frames.
 The port takes any leading batch dimensions in front of ``[L, H, W, C]``
 (an ensemble): the windows of all members go through the network in one
 batch, ``members x chunk`` windows per call.
+
+:meth:`WindowScoreFn.vjp` is the vector-Jacobian product of the chunked
+pass, for exact-gradient guidance. JAX differentiates through its scan over
+chunks (rematerialized per chunk on the long path); the port does the same
+chunk by chunk: each chunk is recomputed under grad and its cotangent
+back-propagated at once, so only one chunk's activations are ever held.
 """
 
 from __future__ import annotations
@@ -16,6 +22,25 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+# Windows through the network in one backward of :meth:`WindowScoreFn.vjp`.
+# The 72.1M net at 128 x 128 in bf16 holds 0.30 GB per window under grad
+# (38.4 GB at 128 windows on an NVIDIA H100 80GB HBM3: exp/profile_vjp.py,
+# PERF.md), so the short path's 3 members x 32 windows and the year path's
+# chunks of 128 go at once. Windows are independent through the net, so a
+# chunk that holds more runs in equal sub-batches, each exact.
+VJP_WINDOWS = 128
+
+
+def owned_windows(ci: int, n_chunks: int, B: int, n: int) -> int:
+    """How many leading windows of chunk ``ci`` (of ``n_chunks`` chunks of
+    ``B`` of the ``n`` windows) keep their centre output in the folded
+    trajectory: all of the last chunk's, and of an earlier chunk's those
+    before the last chunk's start (the last chunk is shifted back to end at
+    the final window, and overwrites the centres it shares)."""
+    if ci == n_chunks - 1:
+        return B
+    return min(B, n - B - ci * B)
 
 
 def unfold_windows(x: torch.Tensor, markov_order: int) -> torch.Tensor:
@@ -52,31 +77,53 @@ class WindowScoreFn:
     final window (duplicate evaluations instead of padding).
     """
 
-    def __init__(self, eps_fn: Callable, markov_order: int, chunk_size: Optional[int] = None):
+    def __init__(self, eps_fn: Callable, markov_order: int, chunk_size: Optional[int] = None,
+                 noise_process=None):
         self.eps_fn = eps_fn
         self.markov_order = int(markov_order)
         self.chunk_size = chunk_size
+        self.noise_process = noise_process
 
     @property
     def window(self) -> int:
         return 2 * self.markov_order + 1
 
+    def condition_on(self, *, A, y, std, gamma=1e-2, exact_grad: bool = False):
+        """A guided score function for p(y | A(x0)) (the reference's
+        ``condition_on``); needs ``noise_process``."""
+        from climate2weather_tpu_torch.diffusion.guidance import GaussianGuidance
+
+        if self.noise_process is None:
+            raise ValueError("condition_on requires WindowScoreFn(..., noise_process=...)")
+        guidance = GaussianGuidance(A=A, y=y, std=std, gamma=gamma, exact_grad=exact_grad)
+        return ConditionedScoreFn(guidance, self, self.noise_process)
+
+    def _chunks(self, L: int):
+        """``(n windows, windows per chunk, chunks)`` of a trajectory of L frames."""
+        n = L - self.window + 1
+        if n < 1:
+            raise ValueError(f"trajectory length {L} shorter than window {self.window}")
+        B = n if self.chunk_size is None or n <= self.chunk_size else int(self.chunk_size)
+        return n, B, -(-n // B)
+
+    def _gather(self, xb: torch.Tensor, start: int, B: int) -> torch.Tensor:
+        """The windows [start, start + B) of every member of ``xb``
+        [m, L, H, W, C], as [m * B, H, W, w * C]."""
+        w = self.window
+        m, _, H, W, C = xb.shape
+        idx = start + torch.arange(B, device=xb.device)[:, None] + torch.arange(w, device=xb.device)[None, :]
+        return xb[:, idx].permute(0, 1, 3, 4, 2, 5).reshape(m * B, H, W, w * C)
+
     def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
         k, w = self.markov_order, self.window
         *batch, L, H, W, C = x.shape
-        n = L - w + 1
-        if n < 1:
-            raise ValueError(f"trajectory length {L} shorter than window {w}")
+        n, B, n_chunks = self._chunks(L)
         xb = x.reshape(-1, L, H, W, C)
         m = xb.shape[0]
-        B = n if self.chunk_size is None or n <= self.chunk_size else int(self.chunk_size)
-        n_chunks = -(-n // B)
         out = torch.empty_like(xb)
-        frames = torch.arange(w, device=x.device)
         for ci in range(n_chunks):
             start = min(ci * B, n - B)
-            idx = start + torch.arange(B, device=x.device)[:, None] + frames[None, :]  # [B, w]
-            xw = xb[:, idx].permute(0, 1, 3, 4, 2, 5).reshape(m * B, H, W, w * C)
+            xw = self._gather(xb, start, B)
             o = self.eps_fn(xw, t).to(x.dtype).reshape(m, B, H, W, w, C)
             out[:, k + start : k + start + B] = o[:, :, :, :, k]
             if k > 0 and ci == 0:
@@ -84,3 +131,64 @@ class WindowScoreFn:
             if k > 0 and ci == n_chunks - 1:
                 out[:, k + n :] = o[:, B - 1, :, :, w - k :].permute(0, 3, 1, 2, 4)
         return out.reshape(*batch, L, H, W, C)
+
+    def vjp(self, x: torch.Tensor, t, cotangent: torch.Tensor) -> torch.Tensor:
+        """J^T ``cotangent`` for J the Jacobian of x -> self(x, t) at ``x``
+        [*batch, L, H, W, C]; the result has x's shape and dtype.
+
+        Chunk by chunk, as the forward goes: the chunk's windows are
+        recomputed under grad (in sub-batches of at most ``VJP_WINDOWS``)
+        and the cotangent of what the chunk wrote into the folded output is
+        back-propagated to them at once, with the network's parameters left
+        out of the backward. Centre outputs that the shifted last chunk
+        overwrites get zero cotangent in the chunk before it
+        (:func:`owned_windows`), as the overwrite gives them in JAX."""
+        k, w = self.markov_order, self.window
+        *batch, L, H, W, C = x.shape
+        n, B, n_chunks = self._chunks(L)
+        xb = x.reshape(-1, L, H, W, C)
+        gb = cotangent.reshape(xb.shape).to(x.dtype)
+        m = xb.shape[0]
+        grad = torch.zeros_like(xb)
+        for ci in range(n_chunks):
+            start = min(ci * B, n - B)
+            owned = owned_windows(ci, n_chunks, B, n)
+            co = xb.new_zeros((m, B, H, W, w, C))
+            co[:, :owned, :, :, k] = gb[:, k + start : k + start + owned]
+            if k > 0 and ci == 0:
+                co[:, 0, :, :, :k] = gb[:, :k].permute(0, 2, 3, 1, 4)
+            if k > 0 and ci == n_chunks - 1:
+                co[:, B - 1, :, :, w - k :] = gb[:, k + n :].permute(0, 2, 3, 1, 4)
+            xw = self._gather(xb, start, B)
+            co = co.reshape(m * B, H, W, w * C)
+            parts = -(-(m * B) // VJP_WINDOWS)
+            size = -(-(m * B) // parts)
+            gw = torch.cat([self._windows_vjp(xw[s : s + size], t, co[s : s + size])
+                            for s in range(0, m * B, size)])
+            gw = gw.reshape(m, B, H, W, w, C)
+            for j in range(w):  # window frame j of windows [start, start + B) is frame start + j + b
+                grad[:, start + j : start + j + B] += gw[:, :, :, :, j]
+        return grad.reshape(*batch, L, H, W, C)
+
+    def _windows_vjp(self, xw: torch.Tensor, t, co: torch.Tensor) -> torch.Tensor:
+        """The windows' input gradient for the output cotangent ``co``: one
+        forward under grad and one backward to the windows alone (no
+        parameter gradient is formed)."""
+        with torch.enable_grad():
+            leaf = xw.detach().requires_grad_(True)
+            out = self.eps_fn(leaf, t).to(xw.dtype)
+            (g,) = torch.autograd.grad(out, leaf, grad_outputs=co)
+        return g
+
+
+class ConditionedScoreFn:
+    """``guidance.guided_eps`` over a window score function: the guided
+    score that :meth:`WindowScoreFn.condition_on` returns."""
+
+    is_conditioned = True
+
+    def __init__(self, guidance, score: WindowScoreFn, process):
+        self.guidance, self.score, self.process = guidance, score, process
+
+    def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
+        return self.guidance.guided_eps(self.score, self.process, x, t)

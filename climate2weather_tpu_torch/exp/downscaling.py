@@ -13,23 +13,28 @@ observation (``observation_path`` unset), the coarsened ground truth
 :func:`run_arrays` and :func:`sample_arrays` are its array core:
 :func:`load_net` (snapshot to ScoreUNet on the device) and the sampling of
 ``num_samples`` trajectories in groups of ``ensemble_batch`` (the JAX
-``vmap`` written out as a batch dimension), with the PC sampler or
-DPM-Solver++(2M) under detached Gaussian guidance (or none, with
-``guidance_off``), then the climatological calibration and the t=0
-projection. A caller downscaling several trajectories loads the net once and
-calls :func:`sample_arrays` for each; :func:`iter_samples` yields the groups
-one by one, and :func:`run` writes each sample as soon as it is done.
+``vmap`` written out as a batch dimension), with the PC sampler,
+DPM-Solver++(2M) or DPM-Solver++(3M) under Gaussian guidance (detached,
+prolonged or, with ``use_exact_grad``, differentiated through the network;
+or none, with ``guidance_off``), then the climatological calibration and
+the t=0 projection. A caller downscaling several trajectories loads the net
+once and calls :func:`sample_arrays` for each; :func:`iter_samples` yields
+the groups one by one, and :func:`run` writes each sample as soon as it is
+done.
 
 Trajectories longer than ``long_trajectory_threshold`` (512 frames) take the
 long path, as in JAX: one sample at a time through
 ``diffusion/long_sampler.py`` (``ensemble_batch`` is ignored there), in
 calls of 8 steps with a resume file ``.sample_resume_NNN.npz`` in the save
-directory every ``sample_resume_every`` calls, DPM-Solver++(2M)'s trajectory
+directory every ``sample_resume_every`` calls, the DPM-Solver++ trajectory
 in bf16 above 4000 frames, and the calibration and projection run in time
 chunks on the card (``calibrate.postprocess_long``) before the host copy.
 
-Not ported, and refused before any sampling: the host-streaming sampler,
-exact-gradient guidance and DPM-Solver++(3M).
+:func:`sweep_likelihood_hparams` is the random search over the likelihood's
+(sigma, gamma) that the ``hparam-sweep`` command runs: one :func:`run` per
+trial.
+
+Not ported, and refused before any sampling: the host-streaming sampler.
 """
 
 from __future__ import annotations
@@ -57,17 +62,16 @@ from climate2weather_tpu_torch.diffusion.guidance import (
 )
 from climate2weather_tpu_torch.diffusion.long_sampler import sample_dpmpp2m_long, sample_guided_long
 from climate2weather_tpu_torch.diffusion.process import construct_process
-from climate2weather_tpu_torch.diffusion.sampler import sample, sample_dpmpp2m
+from climate2weather_tpu_torch.diffusion.sampler import SAMPLERS, sample, sample_dpmpp2m, sample_dpmpp3m
 from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
 from climate2weather_tpu_torch.io.snapshot import load_snapshot, yaml_dump_file, yaml_load_file
 from climate2weather_tpu_torch.models.score_net import build_score_unet
 from climate2weather_tpu_torch.utils.device import resolve_device, set_reference_numerics
-from climate2weather_tpu_torch.utils.seeding import derive_seed
+from climate2weather_tpu_torch.utils.seeding import derive_seed, set_random_seed
 
 _T0_METHODS = ("", "spectral", "block")
-_SAMPLERS = ("pc", "dpmpp2m")
 # the long path: steps per sampler call, and the length above which
-# DPM-Solver++(2M) keeps its trajectory buffers in bf16 (JAX _run_impl)
+# DPM-Solver++ keeps its trajectory buffers in bf16 (JAX _run_impl)
 _STEPS_PER_CALL = 8
 _BF16_TRAJECTORY_ABOVE = 4000
 
@@ -81,12 +85,14 @@ def _check_config(cfg: dict, L: int, calib_frames, observation_given: bool = Fal
             "entry points take it as the normalized `observation` array"
         )
     kind = cfg.get("sampler_kind", "pc")
-    if kind not in _SAMPLERS:
-        raise NotImplementedError(f"sampler_kind {kind!r} is not ported ({', '.join(_SAMPLERS)})")
+    if kind not in SAMPLERS:
+        raise ValueError(f"sampler_kind {kind!r} is not one of {', '.join(SAMPLERS)}")
     if cfg.get("sde_eta", 0.0) and kind != "dpmpp2m":
         raise ValueError(f"sde_eta applies to sampler_kind dpmpp2m only (got {kind!r})")
-    if cfg.get("use_exact_grad", False):
-        raise NotImplementedError("use_exact_grad is not ported")
+    guided = obs_path is not None and not cfg.get("guidance_off", False)
+    if guided and cfg.get("use_exact_grad", False) and cfg.get("guidance_prolong", False):
+        raise ValueError("prolong guidance is a detached-mode preconditioner; "
+                         "use_exact_grad has no prolonged counterpart")
     if cfg.get("host_streaming", False):
         raise NotImplementedError("the host-streaming sampler is not ported (the long-trajectory one is)")
     if str(cfg.get("t0_project", "") or "") not in _T0_METHODS:
@@ -105,7 +111,8 @@ def load_net(snapshot_dir: str, device="cuda", compute_dtype: torch.dtype = torc
     params, snap_config = load_snapshot(snapshot_dir)
     net = build_score_unet(snap_config["network_kwargs"], dtype=compute_dtype)
     load_params(net, params)
-    return net.to(dev).eval(), snap_config
+    # sampling differentiates at most through the inputs (exact guidance)
+    return net.to(dev).eval().requires_grad_(False), snap_config
 
 
 def run_arrays(
@@ -206,7 +213,7 @@ def iter_samples(
     process = construct_process(**snap_config["pipeline_kwargs"])
     use_long = L > int(cfg.get("long_trajectory_threshold", 512))
     kind = cfg.get("sampler_kind", "pc")
-    traj_dtype = torch.bfloat16 if use_long and kind == "dpmpp2m" and L > _BF16_TRAJECTORY_ABOVE else None
+    traj_dtype = torch.bfloat16 if use_long and kind != "pc" and L > _BF16_TRAJECTORY_ABOVE else None
     if stats is not None:
         stats.update(long_path=use_long, traj_dtype=str(traj_dtype or torch.float32))
 
@@ -230,6 +237,7 @@ def iter_samples(
             A=A, y=y,
             std=per_channel(cfg.get("likelihood_std", 1e-2), C, dev),
             gamma=per_channel(cfg.get("likelihood_gamma", 1e-2), C, dev),
+            exact_grad=bool(cfg.get("use_exact_grad", False)),
             prolong=cfg.get("guidance_prolong", False),
             anneal=float(cfg.get("guidance_anneal", 0.0)),
         )
@@ -254,12 +262,16 @@ def iter_samples(
     else:
         sde_eta = float(cfg.get("sde_eta", 0.0))
         n_draws = steps if sde_eta > 0 else 0
+        order = 3 if kind == "dpmpp3m" else 2
 
         def run_sampler(x_init, gens, zs, sid):
             if use_long:
                 return sample_dpmpp2m_long(process, score, x_init, guidance=guidance, steps=steps,
-                                           rng=gens, z=zs, traj_dtype=traj_dtype,
-                                           denoise_final=denoise_final, sde_eta=sde_eta, **long_kw(sid))
+                                           rng=gens, z=zs, traj_dtype=traj_dtype, denoise_final=denoise_final,
+                                           order=order, sde_eta=sde_eta, **long_kw(sid))
+            if order == 3:
+                return sample_dpmpp3m(process, score_fn, x_init, steps=steps, denoise_final=denoise_final,
+                                      batch_dims=1)
             return sample_dpmpp2m(process, score_fn, x_init, steps=steps, rng=gens, z=zs,
                                   denoise_final=denoise_final, sde_eta=sde_eta, batch_dims=1)
 
@@ -417,3 +429,45 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
             raise FloatingPointError(f"NaN detected in sample(s) {[s for s, n in zip(sids, nan_flags) if n]}")
     print(f"Saved results to {save_path}")
     return save_path
+
+
+# ---------------------------------------------------------------------------
+# the likelihood hyperparameter sweep
+
+
+def _draw_likelihood_hparams(n_channels: int = 4):
+    """One (sigma, gamma) draw of the published search space from numpy's
+    global stream: a 100-point log-uniform grid over [1e-4, 10^0.2],
+    ``n_channels - 1`` per-channel sigmas with the last channel reusing the
+    one before it (uas and vas share a noise scale), and one scalar gamma."""
+    grid = np.logspace(-4, 0.2, 100)
+    sigmas = [float(s) for s in np.random.choice(grid, size=n_channels - 1)]
+    sigmas.append(sigmas[-1])
+    return tuple(sigmas), float(np.random.choice(grid))
+
+
+def sweep_likelihood_hparams(save_path: str, config_path: str, trials: int, base_seed: int = 99,
+                             device="cuda"):
+    """Random search over the likelihood guidance's (sigma, gamma): trial n
+    seeds numpy's stream with ``set_random_seed(base_seed, n)`` (a re-run
+    draws the same points), draws its point and runs :func:`run` on the
+    standard evaluation ensemble (10 samples of 49 hours, no corrector,
+    ``seed = base_seed``). A failing trial is reported and the sweep goes
+    on. Returns ``[(n, sigma, gamma, save directory or "FAILED: ...")]``;
+    the runs are on the card unless ``device="cpu"``."""
+    outcomes = []
+    for n in range(1, trials + 1):
+        set_random_seed(base_seed, n)
+        sigma, gamma = _draw_likelihood_hparams()
+        print(f"Trial {n}: sigma = {sigma}, gamma = {gamma}")
+        try:
+            out = run(save_path, config_path, device, likelihood_std=sigma, likelihood_gamma=gamma,
+                      num_samples=10, num_hours=49, num_corrections=0, seed=base_seed)
+            outcomes.append((n, sigma, gamma, str(out)))
+        except Exception as e:  # one trial's failure does not end the sweep
+            print(f"Trial {n} failed: {e}")
+            outcomes.append((n, sigma, gamma, f"FAILED: {e}"))
+    print("Sweep summary:")
+    for n, sigma, gamma, res in outcomes:
+        print(f"  trial {n}: sigma={sigma} gamma={gamma} -> {res}")
+    return outcomes

@@ -1,13 +1,17 @@
-"""Experiment command line of the port (the ``predict`` and ``metrics``
-commands of the JAX package's ``experiment.py``):
+"""Experiment command line of the port (the ``predict``, ``hparam-sweep``
+and ``metrics`` commands of the JAX package's ``experiment.py``):
 
     python -m climate2weather_tpu_torch.experiment predict \\
         --save-path OUT --config-path CONFIG.yml [--num-samples N] ... [--device cpu]
+    python -m climate2weather_tpu_torch.experiment hparam-sweep \\
+        --save-path OUT --config-path CONFIG.yml [--trials 10] [--base-seed 99] [--device cpu]
     python -m climate2weather_tpu_torch.experiment metrics run EXP_DIR [--time-stride N]
     python -m climate2weather_tpu_torch.experiment metrics load EXP_DIR
 
 ``predict`` runs :func:`climate2weather_tpu_torch.exp.downscaling.run` with the
-flags given as overrides of the config, on the card unless ``--device cpu``.
+flags given as overrides of the config, on the card unless ``--device cpu``;
+``hparam-sweep`` runs :func:`~climate2weather_tpu_torch.exp.downscaling.sweep_likelihood_hparams`
+(one ``predict`` per trial at a random likelihood (sigma, gamma)), likewise.
 ``metrics run`` scores an experiment directory on the host
 (:func:`climate2weather_tpu_torch.exp.metrics.run`), ``metrics load`` prints
 the scores it saved.
@@ -47,6 +51,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int)
     p.add_argument("--observation-path")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    sw = sub.add_parser("hparam-sweep", help="random search over the likelihood's (sigma, gamma)")
+    sw.add_argument("--save-path", required=True)
+    sw.add_argument("--config-path", required=True)
+    sw.add_argument("--trials", type=int, default=10)
+    sw.add_argument("--base-seed", type=int, default=99)
+    sw.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     m = sub.add_parser("metrics", help="score an experiment directory (exp/metrics)")
     msub = m.add_subparsers(dest="metrics_command", required=True)
     r = msub.add_parser("run", help="compute the scores and pickle them under EXP_DIR/metrics/run")
@@ -66,6 +76,11 @@ def main(argv=None) -> int:
 
         save_path, config_path, device = args.pop("save_path"), args.pop("config_path"), args.pop("device")
         downscaling.run(save_path, config_path, device=device, **args)
+    elif command == "hparam-sweep":
+        from climate2weather_tpu_torch.exp import downscaling
+
+        downscaling.sweep_likelihood_hparams(args["save_path"], args["config_path"], args["trials"],
+                                             args["base_seed"], device=args["device"])
     else:
         from climate2weather_tpu_torch.exp import metrics
 

@@ -238,10 +238,13 @@ def test_long_path_ignores_ensemble_batch(setup):
 
 
 @pytest.mark.parametrize("override,error", [
-    ({"sampler_kind": "dpmpp3m"}, NotImplementedError),
-    ({"use_exact_grad": True}, NotImplementedError),
+    # what the JAX package refuses too: the SDE form with DPM-Solver++(3M),
+    # exact-gradient guidance with a prolongation (short and long path), and
+    # the host-streaming sampler, which the port does not have
+    ({"sampler_kind": "dpmpp3m", "sde_eta": 0.3}, ValueError),
+    ({"use_exact_grad": True, "guidance_prolong": "bilinear"}, ValueError),
     ({"host_streaming": True}, NotImplementedError),
-    ({"long_trajectory_threshold": 4, "use_exact_grad": True}, NotImplementedError),
+    ({"long_trajectory_threshold": 4, "use_exact_grad": True, "guidance_prolong": True}, ValueError),
     ({"observation_path": "/elsewhere.nc"}, NotImplementedError),
     ({"t0_project": "bilinear"}, ValueError),
     ({"spectral_calibrate": ""}, ValueError),

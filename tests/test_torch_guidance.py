@@ -38,8 +38,8 @@ def test_spectral_prolong(L, H, W, C, s, ts):
     A, JA = _ops(s, ts)
     v = np.random.RandomState(3).randn(A.out_times(L), H // s, W // s, C).astype(np.float32)
     close(A.prolong(t(v), L), JA.prolong(jnp.asarray(v), L, method="spectral"))
-    with pytest.raises(NotImplementedError):
-        A.prolong(t(v), L, method="bilinear")
+    with pytest.raises(ValueError):
+        A.prolong(t(v), L, method="cubic")
 
 
 @pytest.mark.parametrize("method,iters", [("spectral", 1), ("spectral", 3), ("block", 1)])
@@ -95,8 +95,10 @@ def test_guided_eps_checks_observation_shape_and_exact_grad():
     guide = g.GaussianGuidance(A=A, y=torch.zeros(2, 2, 2, 4))
     with pytest.raises(ValueError, match="observation shape"):
         guide.guided_eps(lambda xx, _t: xx, VPCosineProcess(), torch.zeros(13, 32, 32, 4), 0.5)
-    with pytest.raises(NotImplementedError):
-        g.GaussianGuidance(A=A, y=torch.zeros(3, 2, 2, 4), exact_grad=True)
+    # exact-gradient guidance has no prolonged counterpart, as in JAX
+    exact = g.GaussianGuidance(A=A, y=torch.zeros(3, 2, 2, 4), exact_grad=True, prolong=True)
+    with pytest.raises(ValueError, match="prolong"):
+        exact.guided_eps(lambda xx, _t: xx, VPCosineProcess(), torch.zeros(13, 32, 32, 4), 0.5)
 
 
 def test_per_channel():

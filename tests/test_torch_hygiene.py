@@ -7,8 +7,10 @@ climate2weather_tpu, imports
 the port and ``chip_smoke``, and runs the smoke's phase-3 and phase-4
 functions on the CPU with a tiny snapshot, its phase-5 training at a tiny
 size, its phase-6 ``predict`` from files (written and read through
-``io/hdf5.py``), its phase-7 training drive and a Winograd call, or its
-phase-8 year path at a tiny size (the kernel phases need the card).
+``io/hdf5.py``), its phase-7 training drive and a Winograd call, its
+phase-8 year path, or its phase-9 sampler and guidance modes (exact
+gradients, DPM-Solver++(3M), the bilinear prolongation, the sweep and the
+fidelity harness) at a tiny size (the kernel phases need the card).
 """
 
 import json
@@ -72,6 +74,13 @@ elif mode == "year":
     p8 = chip_smoke.phase8_year(snap, cpu, res=32, hours=31,
                                 overrides={"long_trajectory_threshold": 16, "num_sampling_steps": 24})
     out = {"p8": {k: p8[k] for k in ("8a", "8b", "8c", "8d")}}
+elif mode == "modes":
+    # phase 9 with 4 steps in 9a and 9b, and the year config above a
+    # threshold lowered to 16 frames for 31 hours in 9c
+    p9 = chip_smoke.phase9_modes(snap, cpu, res=32, hours=49, long_hours=31,
+                                 overrides={"num_sampling_steps": 4},
+                                 long_overrides={"long_trajectory_threshold": 16})
+    out = {"p9": p9}
 else:
     p5 = chip_smoke.phase5_training(cpu, model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
                                     res=16, frames=40, compute_dtype=torch.float32)
@@ -176,6 +185,42 @@ def test_year_path_and_metrics_need_only_stdlib_torch_numpy(tmp_path):
     assert b["resumed_forwards"] == b["expected_forwards"] == 8
     assert c["traj_dtype"] == "torch.bfloat16" and c["finite"] and c["A_x_minus_y_max"] <= c["A_tol"]
     assert d["finite"] and d["scores"] == 32 and d["protocol"] == {"time_stride": 1, "num_times": 6}
+
+
+def test_sampler_and_guidance_modes_need_only_stdlib_torch_numpy(tmp_path):
+    """Phase 9 on the CPU with the tiny snapshot, with h5py, scipy, jax, yaml,
+    msgpack and the JAX package unimportable (so no module of the port,
+    those this slice adds among them, reaches climate2weather_tpu): exact
+    guidance through ``run_arrays`` and its gradient check (the planted
+    double count caught), ``run`` with DPM-Solver++(3M) and the bilinear
+    prolongation, the order-3 resume and exact guidance on the long path,
+    the ``hparam-sweep`` command and the fidelity harness."""
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "modes", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for name in ("exp.fidelity", "exp.downscaling", "diffusion.window", "diffusion.guidance", "experiment"):
+        assert f"climate2weather_tpu_torch.{name}" in out["modules"]
+    p9 = out["p9"]
+    a, grad = p9["9a"], p9["9a_gradient"]
+    assert a["finite"] and a["A_x_minus_y_max"] <= a["A_tol"] and a["samples_shape"] == [3, 49, 32, 32, 4]
+    assert a["attention_launches"] == {"attention_fwd": 0, "attention_bwd": 0}  # no kernel on the CPU
+    assert grad["err"] <= grad["limit"] < grad["double_count_err"]
+    assert [r["run"] for r in p9["9b"]] == ["dpmpp3m", "bilinear"]
+    for r in p9["9b"]:
+        assert r["finite"] and r["A_x_minus_y_max"] <= r["A_tol"]
+    c = p9["9c"]
+    assert c["resume"]["resumed_equal"] and c["resume"]["order"] == 3 and "prev2_x0" in c["resume"]["carry"]
+    assert c["long_path"] and c["finite"] and c["A_x_minus_y_max"] <= c["A_tol"]
+    d, e = p9["9d"], p9["9e"]
+    assert d["dirs"] == ["001_sweep", "002_sweep"] and all(d["finite"]) and len(d["trials"]) == 2
+    assert e["report"] and e["finite"] and e["rows"] == 24
 
 
 def test_smoke_refuses_to_run_without_a_card(tmp_path):

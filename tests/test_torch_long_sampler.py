@@ -273,8 +273,9 @@ def test_carry_round_trip_keeps_bf16_bits_and_the_generator_state(tmp_path):
 
 def test_unported_options_raise(setup):
     _, port_net, guidance, noise = setup
-    with pytest.raises(NotImplementedError):
-        long_sampler.sample_dpmpp2m_long(VPCosineProcess(), _score(port_net), torch.from_numpy(noise), order=3)
+    with pytest.raises(ValueError, match="order=2"):  # the SDE form is 2M only, as in JAX
+        long_sampler.sample_dpmpp2m_long(VPCosineProcess(), _score(port_net), torch.from_numpy(noise), order=3,
+                                         sde_eta=0.3, rng=torch.Generator())
     with pytest.raises(ValueError):
         long_sampler.sample_dpmpp2m_long(VPCosineProcess(), _score(port_net), torch.from_numpy(noise),
                                          sde_eta=0.3)

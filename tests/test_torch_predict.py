@@ -149,6 +149,18 @@ CASES = {
     # projection in time chunks
     "long": ("s16_t6_spectral.yml", dict(num_samples=2, ensemble_batch=2, num_sampling_steps=16,
                                          long_trajectory_threshold=8, sample_resume_every=1)),
+    # the bilinear prolongation of the residual, and DPM-Solver++(3M) with
+    # exact-gradient guidance (24 steps: the third-order steps carry the
+    # round-off of caveat 4 further), on the short and the long path
+    "bilinear": ("s16_t6_spectral.yml", dict(num_samples=2, ensemble_batch=2, num_sampling_steps=16,
+                                             guidance_prolong="bilinear")),
+    "exact_dpmpp3m": ("s16_t6_spectral.yml", dict(num_samples=2, ensemble_batch=2, num_sampling_steps=24,
+                                                  sampler_kind="dpmpp3m", sde_eta=0.0, use_exact_grad=True)),
+    "long_bilinear": ("s16_t6_spectral.yml", dict(num_samples=1, ensemble_batch=1, num_sampling_steps=16,
+                                                  long_trajectory_threshold=8, guidance_prolong="bilinear")),
+    "long_exact_dpmpp3m": ("s16_t6_spectral.yml", dict(num_samples=1, ensemble_batch=1, num_sampling_steps=24,
+                                                       long_trajectory_threshold=8, sampler_kind="dpmpp3m",
+                                                       sde_eta=0.0, use_exact_grad=True)),
 }
 
 
@@ -225,10 +237,14 @@ def test_experiment_cli_runs_predict(inputs, tmp_path):
 
 def test_run_refuses_unported_settings_before_sampling(inputs, tmp_path):
     tmp, snap, paths = inputs
-    for name, over in (("dpmpp3m", {"sampler_kind": "dpmpp3m"}), ("exact", {"use_exact_grad": True}),
-                       ("long", {"long_trajectory_threshold": 4, "use_exact_grad": True}),
-                       ("stream", {"host_streaming": True})):
+    # what the JAX package refuses too, and the host-streaming sampler
+    for name, over, error in (
+            ("dpmpp3m", {"sampler_kind": "dpmpp3m", "sde_eta": 0.3}, ValueError),
+            ("exact", {"use_exact_grad": True, "guidance_prolong": "bilinear"}, ValueError),
+            ("long", {"long_trajectory_threshold": 4, "use_exact_grad": True, "guidance_prolong": True},
+             ValueError),
+            ("stream", {"host_streaming": True}, NotImplementedError)):
         config_path, _ = _config(tmp_path, snap, paths, name, "s16_t6_spectral.yml", **over)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error):
             downscaling.run(str(tmp_path / name), str(config_path), device="cpu")
         assert not list((tmp_path / name).glob("*/gen_sample_*.nc"))

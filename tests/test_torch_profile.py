@@ -33,3 +33,14 @@ def test_profile_train_step_rehearsal_on_cpu(tmp_path, capsys):
     assert (tmp_path / "train_step.json").exists()
     assert profile_forward.group_of("void attention_bwd_grads_kernel<__nv_bfloat16>") == \
         "attention backward kernel"
+
+
+def test_profile_vjp_rehearsal_on_cpu(capsys):
+    from climate2weather_tpu_torch.exp import profile_vjp
+
+    profile_vjp.main(["--device", "cpu", "--res", "32", "--windows", "1", "2"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()[-2:]]
+    assert [ln["windows"] for ln in lines] == [1, 2]
+    for ln in lines:
+        assert ln["device"] == "cpu" and ln["forward_s"] > 0 and ln["vjp_s"] > 0
+        assert ln["vjp_peak_bytes_over_base"] is None  # a device number, not measured on the CPU
