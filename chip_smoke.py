@@ -94,14 +94,48 @@ Numbered phases, each printing one JSON line with its seconds:
    windows; (9d) ``experiment hparam-sweep`` with 2 trials (8 steps): two
    numbered directories of finite samples; (9e) ``exp/fidelity.run`` with
    ``skip_figures`` (3 guided, 8 unconditional samples, 8 steps):
-   ``FIDELITY.md`` and finite scores.
+   ``FIDELITY.md`` and finite scores;
+10. several processes (each a real process under a wall-clock limit, h5py
+   unimportable): (10a) ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m climate2weather_tpu_torch.train`` (NCCL, a world of
+   one) on the 72.1M net of ``configs/sda_unet.yml`` at 128 x 128 from phase
+   5's synthetic file, batch 64 in 2 microbatches to 2048 ndata with a
+   checkpoint at 1024, and the same command without the launcher: the final
+   snapshot and checkpoint equal bit for bit (where not, a second plain run's
+   spread is the limit), step ms of both; (10b) two ranks on the one card
+   over gloo (each sees it as ``cuda:0``): one step on a fixed global batch of
+   64 with fixed draws, 32 rows a rank, against the one-process step on that
+   batch rank-major in 2 rounds of 32, parameters, AdamW moments and EMA
+   equal bit for bit (where not, the one-process step's own spread over
+   two runs is the limit), and a planted fault (rank 1 keeps its own
+   gradient sum) that must break the ranks' agreement and exceed that
+   limit; then ``train`` on 2 ranks, batch 128 (64 a rank in 2 rounds), 8
+   steps to a checkpoint at 1024 and a 2-rank resume for 8 more: the ranks'
+   final states equal bit for bit, rank 0 alone writing checkpoints and
+   snapshots, falling losses, 12 forward and 12 backward attention
+   launches a step on each rank; (10d, beside 10b) 10a's plain command under
+   ``climate2weather_tpu_torch.training.supervisor`` (10 s stall timeout),
+   its child stopped with SIGSTOP once the first checkpoint exists: one
+   stall and one restart in the journal, the stall seen within the timeout,
+   the resumed run's final snapshot and checkpoint equal to 10a's plain
+   run's; (10c) ``experiment predict`` on phase 6's files with
+   ``s16_t6_spectral.yml`` cut to 6 samples (3 a rank, one group each) and 8
+   steps, on 2 ranks over gloo and in this process: the six samples equal
+   file for file, ``ground_truth.nc`` and ``observation.nc`` written by rank
+   0 alone, A(x) = y, 6 attention launches per UNet forward on each rank.
+   Its line: step ms of the plain, world-of-one and 2-rank runs (two ranks
+   time-slice the card, beside 10d: no production number) and each start's
+   seconds to its first step, the ranks' peak memory, 10c's seconds on 2
+   ranks and in one process, 10d's seconds to detect and to recover.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 There is no CPU mode: without a card the script exits non-zero at once.
-``--winograd-only`` stops after phase 2's Winograd part, and
-``--attention-bwd-only`` after phase 2's attention backward part (no device
-line in either).
+``--winograd-only`` stops after phase 2's Winograd part,
+``--attention-bwd-only`` after phase 2's attention backward part, and
+``--multi-process-only`` runs phases 0, 1 and 10 alone (no device line in
+any). ``--child ...`` is one process of phase 10 (``child_step``,
+``child_cli``), not for use by hand.
 """
 
 from __future__ import annotations
@@ -1967,7 +2001,630 @@ def phase9_modes(snapshot_dir, device, res=128, hours=49, long_hours=YEAR_HOURS,
     return {"9a": a, "9a_gradient": grad, "9b": b, "9c": c, "9d": d, "9e": e}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: multi-process training and sample-striped predict over
+# torch.distributed, and the restart supervisor. Every sub-phase launches
+# real processes (the port's command lines, or this script's ``--child``
+# harness around them), each under a wall-clock limit.
+
+CHILD_PREFIX = "CHILD_RESULT "
+CHILD_TIMEOUT = 300.0  # seconds, for each process phase 10 starts
+
+
+def _child_env(device, rank=None, world=None, port=None) -> dict:
+    """The environment of a child: this one without torchrun's variables,
+    unbuffered; with ``rank``, a rank of ``world`` on the first card (or the
+    CPU), its rendezvous at ``port`` on this host."""
+    from climate2weather_tpu_torch.parallel import mesh
+
+    env = {k: v for k, v in os.environ.items() if k not in mesh.LAUNCH_ENV}
+    env.update(PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])))
+    if device.type == "cuda":
+        env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    else:  # two ranks share the CPU's cores; every run takes as many
+        env["OMP_NUM_THREADS"] = str(max(1, torch.get_num_threads() // 2))
+    if rank is not None:
+        # every rank sees the one card as its cuda:0 (NCCL refuses two ranks
+        # on one card, so several take gloo)
+        env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+    return env
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_processes(cmds, envs, timeout=CHILD_TIMEOUT, label="") -> tuple:
+    """Run the commands together to their end; each must exit 0 within
+    ``timeout`` seconds. A failing one ends the rest at once (a rank that
+    raised must not leave its peers waiting). Returns (outputs, seconds,
+    each process's seconds to its first ``Status:`` line or None)."""
+    import signal
+
+    t0 = time.time()
+    procs = [subprocess.Popen(cmd, env=env, cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, start_new_session=True) for cmd, env in zip(cmds, envs)]
+    outs = [[] for _ in procs]
+    readers = [_pump(p.stdout, out) for p, out in zip(procs, outs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        for r in readers:
+            r.join(timeout=10)
+    seconds = time.time() - t0
+    texts = ["".join(line for _, line in o) for o in outs]
+    firsts = [next((at - t0 for at, line in o if "Status:" in line), None) for o in outs]
+    for i, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 10 {label} process {i} exited {p.returncode} after {seconds:.1f} s:\n"
+                                 f"{text[-6000:]}")
+    return texts, seconds, firsts
+
+
+def _pump(stream, sink: list):
+    """A thread that copies ``stream``'s lines into ``sink`` with the time
+    each arrived."""
+    import threading
+
+    def run():
+        for line in iter(stream.readline, ""):
+            sink.append((time.time(), line))
+        stream.close()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def _child_result(text: str) -> dict:
+    lines = [ln for ln in text.splitlines() if ln.startswith(CHILD_PREFIX)]
+    if len(lines) != 1:
+        raise AssertionError(f"a child printed {len(lines)} results:\n{text[-4000:]}")
+    return json.loads(lines[0][len(CHILD_PREFIX):])
+
+
+def _step_ms(text: str, batch: int) -> list:
+    """Milliseconds a step from the ``Status:`` lines (sec/kdata x batch),
+    the first tick (the run's set-up) left out."""
+    ms = [float(part.split()[0]) * batch for line in text.splitlines() if "Status:" in line
+          for part in line.split(" +++ ") if part.strip().endswith("sec/kdata")]
+    return ms[1:]
+
+
+def _train_argv(run_dir, data_path, model_config, res, batch, batch_gpu, total, seed, device,
+                backend=None, snapshot=1024) -> list:
+    argv = ["--run-dir", str(run_dir), "--run-id", "r", "--train-data", str(data_path),
+            "--spatial-res", str(res), "--num-features", "4", "--markov-order", "6",
+            "--model-config", str(model_config), "--lr", "2e-4", "--total-ndata", str(total),
+            "--batch", str(batch), "--batch-gpu", str(batch_gpu), "--status", str(4 * batch),
+            "--snapshot", str(snapshot), "--checkpoint", "1024", "--logging", str(batch), "--valid", "0",
+            "--seed", str(seed), "--device", device.type]
+    return argv + (["--dist-backend", backend] if backend else [])
+
+
+def _flax_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _flax_leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def _snapshot_diff(a: pathlib.Path, b: pathlib.Path) -> float:
+    """Largest difference between two snapshots' parameters (0.0: equal)."""
+    from climate2weather_tpu_torch.io.snapshot import load_snapshot
+
+    la, lb = (_flax_leaves(load_snapshot(str(d))[0]) for d in (a, b))
+    return max(float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max()) for x, y in zip(la, lb))
+
+
+def _final(run_dir: pathlib.Path, kdata: int) -> tuple:
+    """The final snapshot directory and checkpoint file of a run."""
+    return (run_dir / "r" / f"network-snapshot-{kdata:07d}-0.999900",
+            run_dir / "r" / f"training-state-{kdata:07d}.ckpt")
+
+
+def _same_run(a: pathlib.Path, b: pathlib.Path, kdata: int) -> dict:
+    """The final snapshot and checkpoint of two runs: equal bytes, and the
+    snapshots' largest difference."""
+    (sa, ca), (sb, cb) = _final(a, kdata), _final(b, kdata)
+    return {"snapshot_equal": (sa / "params.msgpack").read_bytes() == (sb / "params.msgpack").read_bytes(),
+            "checkpoint_equal": ca.read_bytes() == cb.read_bytes(), "snapshot_max_diff": _snapshot_diff(sa, sb)}
+
+
+def phase10a_world_one(root, data_path, device, model_config, res, seed, backend) -> dict:
+    """``train`` under ``torch.distributed.run`` with a world of one (NCCL on
+    the card) and the same command without the launcher: the final snapshot
+    and checkpoint equal bit for bit; where they are not, a second plain run
+    measures the plain runs' own spread, which the launched run must sit
+    within. Step ms of both from their ``Status:`` lines."""
+    t0 = time.time()
+    argv = lambda name: _train_argv(root / name, data_path, model_config, res, 64, 32, 2048, seed,  # noqa: E731
+                                    device, backend, snapshot=2048)
+    launched = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                "-m", "climate2weather_tpu_torch.train"] + argv("a_launched")
+    (out_l,), sec_l, (first_l,) = _run_processes([launched], [_child_env(device)], label="10a launched")
+    plain = [sys.executable, "-m", "climate2weather_tpu_torch.train"] + argv("a_plain")
+    (out_p,), sec_p, (first_p,) = _run_processes([plain], [_child_env(device)], label="10a plain")
+    same = _same_run(root / "a_launched", root / "a_plain", 2)
+    # to_first_status_s: process start to the first Status line, the step
+    # loop's start (imports, the group, the net, the optimizer, the data)
+    rec = {"launched_step_ms": _step_ms(out_l, 64), "plain_step_ms": _step_ms(out_p, 64),
+           "launched_s": sec_l, "plain_s": sec_p, "launched_to_first_status_s": first_l,
+           "plain_to_first_status_s": first_p, **same, "plain_spread": None}
+    rec["launched_start_line"] = [ln for ln in out_l.splitlines() if "Rank 0 of " in ln]
+    if not (same["snapshot_equal"] and same["checkpoint_equal"]):
+        plain2 = [sys.executable, "-m", "climate2weather_tpu_torch.train"] + argv("a_plain2")
+        _run_processes([plain2], [_child_env(device)], label="10a second plain")
+        rec["plain_spread"] = _snapshot_diff(_final(root / "a_plain", 2)[0], _final(root / "a_plain2", 2)[0])
+    for k in ("launched_step_ms", "plain_step_ms"):
+        rec[k + "_median"] = float(np.median(rec[k])) if rec[k] else None
+    emit("10a", t0, **rec)
+    want = "Rank 0 of 1 on cuda:0" if device.type == "cuda" else "Rank 0 of 1 on cpu"
+    if len(rec["launched_start_line"]) != 1 or not rec["launched_start_line"][0].endswith(want):
+        raise AssertionError(f"the launched run's start line: {rec['launched_start_line']}, want {want!r}")
+    if rec["plain_spread"] is not None and not rec["snapshot_max_diff"] <= rec["plain_spread"]:
+        raise AssertionError(f"the world-of-one run differs from the plain run beyond two plain runs: {rec}")
+    return rec
+
+
+def _step_setup(net_kwargs, seed, device, compute_dtype, batch=64, init=None):
+    """Phase 10b's step: the net from the seed (or the state dict ``init``)
+    with AdamW and an EMA, and the generator of a fixed global batch and its
+    (t, eps), made on the CPU from the seed."""
+    from climate2weather_tpu_torch.models.init import init_params
+    from climate2weather_tpu_torch.models.score_net import build_score_unet
+    from climate2weather_tpu_torch.training.lr import make_schedule
+    from climate2weather_tpu_torch.training.state import init_train_state, make_optimizer, make_train_step
+    from climate2weather_tpu_torch.utils.seeding import derive_seed
+
+    net = build_score_unet(net_kwargs, dtype=compute_dtype)
+    if init is None:
+        init_params(net, torch.Generator().manual_seed(derive_seed(seed, "phase10", "init")))
+    else:
+        net.load_state_dict(init)
+    net = net.to(device)
+    opt = make_optimizer(net.parameters(), {"weight_decay": 1e-3, "betas": [0.9, 0.999]})
+    state = init_train_state(net, opt, (0.9999,))
+    step = make_train_step(VPCosineProcess(), make_schedule(
+        {"func_name": "lr/linear", "ref_lr": 2e-4, "total_ndata": 2048}, batch), (0.9999,))
+    return state, step, torch.Generator().manual_seed(derive_seed(seed, "phase10", "batch"))
+
+
+def _step_inputs(g, batch, res, channels, device):
+    x = torch.randn((batch, res, res, channels), generator=g)
+    t = torch.rand((batch, 1, 1, 1), generator=g)
+    eps = torch.randn((batch, res, res, channels), generator=g)
+    return x.to(device), t.to(device), eps.to(device)
+
+
+def _flat_state(state) -> torch.Tensor:
+    """Parameters, AdamW's two moments and the EMA, in one fp32 vector."""
+    params = list(state.net.parameters())
+    parts = [p.detach() for p in params]
+    parts += [state.optimizer.state[p][m] for m in ("exp_avg", "exp_avg_sq") for p in params]
+    parts += list(state.emas["0.999900"].values())
+    return torch.cat([p.reshape(-1).float() for p in parts])
+
+
+def _digest(flat: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def _reference_step(net_kwargs, res, seed, device, compute_dtype, batch=64) -> torch.Tensor:
+    """The one-process step on the global batch laid out rank-major in 2
+    rounds of ``batch // 2``: the flat state after it, on the host."""
+    threads = torch.get_num_threads()
+    if device.type == "cpu":  # the ranks' thread count (_child_env): CPU sums depend on it
+        torch.set_num_threads(max(1, threads // 2))
+    state, step, g = _step_setup(net_kwargs, seed, device, compute_dtype, batch)
+    x, t, eps = _step_inputs(g, batch, res, net_kwargs["channels"], device)
+    h = batch // 2
+    step(state, x.view(2, h, *x.shape[1:]), draws=[(t[:h], eps[:h]), (t[h:], eps[h:])])
+    torch.set_num_threads(threads)
+    return _flat_state(state).cpu()
+
+
+def child_step(argv) -> dict:
+    """``--child step REF SEED RES DEVICE MODEL_CONFIG``: one rank of 10b's
+    step check (gloo): the step on this rank's rows of the global batch with
+    the global draws, then again from the same start with the planted fault
+    on rank 1 (it keeps its own gradient sum, still joining the
+    collective). Returns for each whether its state equals the reference and
+    their largest difference; the process group stays up for the ``train``
+    run that follows in the same process."""
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+    from climate2weather_tpu_torch.parallel import mesh
+
+    ref_path, seed, res, device_type, model_config = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    device = mesh.maybe_init_distributed(device_type, "gloo")
+    rank, world = mesh.rank(), mesh.world_size()
+    net_kwargs = {"class_name": "score_unet", "channels": 52, **yaml_load_file(model_config)}
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    ref = torch.load(ref_path).to(device)
+    real_all_reduce = mesh.all_reduce_grads
+
+    def keep_own(params, extra):
+        grads = [p.grad for p in params]
+        bucket = torch.cat([g.reshape(-1) for g in grads] + [extra.reshape(1)])
+        torch.distributed.all_reduce(bucket)
+        return bucket[-1]
+
+    out, init = {"rank": rank, "world": world}, None
+    try:
+        for variant in ("correct", "fault"):
+            mesh.all_reduce_grads = keep_own if variant == "fault" and rank == 1 else real_all_reduce
+            state, step, g = _step_setup(net_kwargs, seed, device, dtype, init=init)
+            if init is None:  # both variants start from the same weights
+                init = {k: v.detach().cpu().clone() for k, v in state.net.state_dict().items()}
+            x, t, eps = _step_inputs(g, 64, res, 52, device)
+            b = 64 // world
+            step(state, x[rank * b:(rank + 1) * b][None], draws=[(t, eps)])
+            flat = _flat_state(state)
+            out[variant] = {"max_abs_diff": float((flat - ref).abs().max()), "equal": bool(torch.equal(flat, ref))}
+            del state, step, x, t, eps, flat
+    finally:
+        mesh.all_reduce_grads = real_all_reduce
+    return out
+
+
+def child_cli(kind: str, argv) -> dict:
+    """``--child train|predict ARGS``: the port's command line (``train.main``
+    or ``experiment.main``) in this process; returns this rank's attention
+    launches, peak device memory, the checkpoint, snapshot and grid files it
+    wrote, and, for ``train``, the digest of its final state."""
+    from climate2weather_tpu_torch import experiment, train
+    from climate2weather_tpu_torch.data.grid import GridDataset
+    from climate2weather_tpu_torch.ops import attention
+    from climate2weather_tpu_torch.training import loop
+
+    writes, captured = [], {}
+    real_loop, real_io, real_snapshot = loop.training_loop, loop.CheckpointIO, loop.save_snapshot
+    real_to_file = GridDataset.to_file
+
+    class RecordingIO(real_io):
+        def save(self, path, verbose=True):
+            writes.append(os.path.basename(path))
+            return super().save(path, verbose)
+
+    def recording_snapshot(run_dir, kdata, rate, *args, **kwargs):
+        writes.append(f"network-snapshot-{kdata:07d}-{rate}")
+        return real_snapshot(run_dir, kdata, rate, *args, **kwargs)
+
+    def recording_to_file(self, path, *args, **kwargs):
+        writes.append(os.path.basename(str(path)))
+        return real_to_file(self, path, *args, **kwargs)
+
+    def capturing_loop(*args, **kwargs):
+        captured["state"] = real_loop(*args, **kwargs)
+        captured["digest"] = _digest(_flat_state(captured["state"]))
+        return captured["state"]
+
+    loop.training_loop, loop.CheckpointIO, loop.save_snapshot = capturing_loop, RecordingIO, recording_snapshot
+    GridDataset.to_file = recording_to_file
+    for k in attention.launch_counts:
+        attention.launch_counts[k] = 0
+    if torch.cuda.is_available() and torch.cuda.is_initialized():  # after 10b's step check
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if kind == "train":
+        train.main(argv)
+    else:
+        experiment.main(argv)
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if cuda:
+        torch.cuda.synchronize()
+    out = {"rank": int(os.environ.get("RANK", 0)), "seconds": time.time() - t0,
+           "launches": dict(attention.launch_counts), "writes": writes,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+    if kind == "train":
+        out.update(digest=captured["digest"], step=captured["state"].step)
+    return out
+
+
+def phase10b_two_ranks(root, data_path, device, model_config, res, seed) -> dict:
+    """Two ranks on the one card over gloo: the step check against the
+    one-process step (and its planted fault), then ``train`` on 2 ranks for
+    8 steps of 128 (64 rows a rank in 2 rounds of 32) to a checkpoint at
+    1024 ndata and a 2-rank resume for 8 more."""
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+
+    t0 = time.time()
+    net_kwargs = {"class_name": "score_unet", "channels": 52, **yaml_load_file(model_config)}
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    ref = _reference_step(net_kwargs, res, seed, device, dtype)
+    ref_path = root / "step_ref.pt"
+    torch.save(ref, ref_path)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # the step check, then in the same processes the first run; then the resume
+    step_child = ["--child", "step", str(ref_path), str(seed), str(res), device.type, str(model_config), "--"]
+    runs = {}
+    for name, total, child in (("first", 1024, step_child), ("resumed", 2048, ["--child", "train"])):
+        port = _free_port()
+        argv = _train_argv(root / "b_ranks", data_path, model_config, res, 128, 32, total, seed, device, "gloo")
+        outs, sec, _ = _run_processes(
+            [[sys.executable, str(REPO / "chip_smoke.py")] + child + argv for _ in range(2)],
+            [_child_env(device, r, 2, port) for r in range(2)], label=f"10b {name}")
+        runs[name] = {"seconds": sec, "ranks": [_child_result(o) for o in outs],
+                      "step_ms": _step_ms(outs[0], 128)}
+    steps = [r.pop("step_check") for r in runs["first"]["ranks"]]
+    # the limit: 0.0 (bits) where the ranks reproduce the reference; else the
+    # one-process step's own spread, from a second run of it
+    limit = 0.0
+    if not all(st["correct"]["equal"] for st in steps):
+        limit = float((_reference_step(net_kwargs, res, seed, device, dtype) - ref).abs().max())
+    del ref
+    lines = (root / "b_ranks" / "r" / "metrics.jsonl").read_text().splitlines()
+    losses = [json.loads(ln)["train/loss"] for ln in lines if "train/loss" in json.loads(ln)]
+    per_step = 12 if device.type == "cuda" else 0  # 6 attention blocks x 2 microbatches a rank
+    launches = [{k: sum(runs[n]["ranks"][r]["launches"][k] for n in runs) for k in ("attention_fwd", "attention_bwd")}
+                for r in range(2)]
+    rec = {
+        "step_check": {"limit": limit, "ranks": steps},
+        "train": {n: {"seconds": v["seconds"], "step_ms": v["step_ms"],
+                      "ranks": [{k: r[k] for k in ("rank", "digest", "step", "writes", "peak_bytes", "launches")}
+                                for r in v["ranks"]]} for n, v in runs.items()},
+        "losses": losses, "launches_per_rank": launches, "expected_per_rank": per_step * 16,
+        "step_ms_median": float(np.median(runs["resumed"]["step_ms"])) if runs["resumed"]["step_ms"] else None,
+        "peak_bytes": [None if device.type != "cuda" else max(runs[n]["ranks"][r]["peak_bytes"] for n in runs)
+                       for r in range(2)],
+    }
+    emit("10b", t0, **rec)
+    # rank agreement through the reference: both within the limit of it, or
+    # (the fault) rank 0 within and rank 1 beyond
+    good = [st["correct"] for st in steps]
+    bad = [st["fault"] for st in steps]
+    if any(g["max_abs_diff"] > limit for g in good):
+        raise AssertionError(f"the 2-rank step differs from the one-process step: {steps}, limit {limit}")
+    if not (bad[0]["max_abs_diff"] <= limit < bad[1]["max_abs_diff"]):
+        raise AssertionError(f"the step check cannot see a rank that skips the all-reduce: {steps}")
+    for n, v in runs.items():
+        r0, r1 = v["ranks"]
+        want_step = {"first": 8, "resumed": 16}[n]
+        if r0["digest"] != r1["digest"] or r0["step"] != want_step or r1["step"] != want_step:
+            raise AssertionError(f"the ranks disagree after the {n} run: {r0}, {r1}")
+        want0 = [f"network-snapshot-{1 if n == 'first' else 2:07d}-0.999900",
+                 f"training-state-{1 if n == 'first' else 2:07d}.ckpt"]
+        if r1["writes"] or r0["writes"] != want0:
+            raise AssertionError(f"{n}: rank 0 must write {want0} alone: {r0['writes']}, {r1['writes']}")
+    if len(losses) != 16 or not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        raise AssertionError(f"the 2-rank losses do not fall: {losses}")
+    if any(lr != {"attention_fwd": per_step * 16, "attention_bwd": per_step * 16} for lr in launches):
+        raise AssertionError(f"attention launches per rank {launches}, want {per_step} a step")
+    return rec
+
+
+def phase10c_striped(root, snapshot_dir, device, res, hours, seed, steps=8) -> dict:
+    """``experiment predict`` on phase 6's files with ``s16_t6_spectral.yml``
+    cut to 6 samples (3 a rank, one group each) and ``steps`` steps, on 2
+    ranks over gloo and in this process: the samples equal bit for bit, the
+    shared files written once, by rank 0, A(x) = y under phase 4's limit."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+
+    t0 = time.time()
+    paths = write_predict_inputs(root, res, hours, seed)
+    cfg = yaml_load_file(CONFIG)
+    cfg.update(model_path=str(snapshot_dir), data_path=paths["data"], quantile_path=paths["quantiles"],
+               observation_path=paths["data"], spectral_calibrate=paths["train"], num_samples=6,
+               ensemble_batch=3, num_sampling_steps=steps, seed=seed)
+    config_path = root / "striped.yml"
+    yaml_dump_file(cfg, config_path)
+    predict = lambda name: ["predict", "--save-path", str(root / name), "--config-path", str(config_path),  # noqa: E731
+                            "--device", device.type]
+    child = [sys.executable, str(REPO / "chip_smoke.py"), "--child", "predict"]
+    port = _free_port()
+    outs, ranks_s, _ = _run_processes([child + predict("c_ranks") + ["--dist-backend", "gloo"]] * 2,
+                                   [_child_env(device, r, 2, port) for r in range(2)], label="10c ranks")
+    ranks = [_child_result(o) for o in outs]
+    from climate2weather_tpu_torch import experiment
+    from climate2weather_tpu_torch.ops import attention
+
+    for k in attention.launch_counts:
+        attention.launch_counts[k] = 0
+    threads = torch.get_num_threads()
+    if device.type == "cpu":  # the ranks' thread count (_child_env): CPU sums depend on it
+        torch.set_num_threads(max(1, threads // 2))
+    t_one = time.time()
+    experiment.main(predict("c_one"))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    one = {"seconds": time.time() - t_one, "launches": dict(attention.launch_counts)}
+    torch.set_num_threads(threads)
+    got_dir, one_dir = root / "c_ranks" / "001_striped", root / "c_one" / "001_striped"
+    names = sorted(p.name for p in one_dir.iterdir())
+    equal = {n: (got_dir / n).read_bytes() == (one_dir / n).read_bytes() for n in names
+             if n.startswith("gen_sample_")}
+    samples = [open_grid(str(got_dir / f"gen_sample_{i:03d}.nc")) for i in range(6)]
+    consistency, tol = _written_consistency(got_dir, samples, cfg, paths["quantiles"])
+    snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    expect = (_attention_blocks(snap_cfg["network_kwargs"])
+              * _expected_forwards({**cfg, "num_samples": 3}, hours, window) if device.type == "cuda" else 0)
+    # ranks_wall_s: the launch of both ranks to their exit (process start
+    # included); *_run_s: the predict command itself in each process
+    rec = {"files": names, "ranks_files": sorted(p.name for p in got_dir.iterdir()), "samples_equal": equal,
+           "writes": [r["writes"] for r in ranks], "ranks_wall_s": ranks_s,
+           "ranks_run_s": [r["seconds"] for r in ranks], "one_run_s": one["seconds"],
+           "launches_per_rank": [r["launches"] for r in ranks], "one_launches": one["launches"],
+           "expected_per_rank": expect, "A_x_minus_y_max": consistency, "A_tol": tol}
+    emit("10c", t0, **rec)
+    if len(equal) != 6 or not all(equal.values()) or rec["ranks_files"] != names:
+        raise AssertionError(f"the striped run differs from the one-process run: {rec}")
+    shared = ["ground_truth.nc", "observation.nc"]
+    if ranks[0]["writes"] != shared + [f"gen_sample_{i:03d}.nc" for i in range(3)] or \
+            ranks[1]["writes"] != [f"gen_sample_{i:03d}.nc" for i in range(3, 6)]:
+        raise AssertionError(f"the ranks' writes: {rec['writes']}")
+    if consistency > tol:
+        raise AssertionError(f"A(x) != y in the striped samples: {consistency} > {tol}")
+    if any(r["launches"]["attention_fwd"] != expect for r in ranks):
+        raise AssertionError(f"attention launches per rank {rec['launches_per_rank']}, want {expect}")
+    return rec
+
+
+def _children_of(pid: int) -> list:
+    """Processes whose parent is ``pid`` (from /proc)."""
+    kids = []
+    for entry in pathlib.Path("/proc").iterdir():
+        if entry.name.isdigit():
+            try:
+                stat = (entry / "stat").read_text()
+            except OSError:
+                continue
+            if int(stat[stat.rindex(")") + 2:].split()[1]) == pid:
+                kids.append(int(entry.name))
+    return kids
+
+
+def phase10d_supervisor(root, data_path, device, model_config, res, seed, plain_dir,
+                        stall_timeout=10.0) -> dict:
+    """10a's plain command under the supervisor: once its first checkpoint
+    exists the child's process group is stopped (SIGSTOP, a wedge without
+    a hook in the program); the supervisor must see the stall within
+    ``stall_timeout``, kill the child and relaunch it, and the resumed run
+    must end on 10a's plain run's final snapshot."""
+    import signal
+
+    t0 = time.time()
+    run_dir, journal = root / "d_supervised", root / "d_journal.jsonl"
+    cmd = [sys.executable, "-m", "climate2weather_tpu_torch.training.supervisor",
+           "--stall-timeout", str(stall_timeout), "--startup-grace", "300", "--term-grace", "2",
+           "--restart-delay", "1", "--max-restarts", "2", "--steady-pattern", "Status:",
+           "--journal", str(journal), "--", sys.executable, "-m", "climate2weather_tpu_torch.train",
+           ] + _train_argv(run_dir, data_path, model_config, res, 64, 32, 2048, seed, device, snapshot=2048)
+    sup = subprocess.Popen(cmd, env=_child_env(device), cwd=str(REPO), stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    lines = []
+    reader = _pump(sup.stdout, lines)
+    ckpt = run_dir / "r" / "training-state-0000001.ckpt"
+    deadline = time.monotonic() + CHILD_TIMEOUT
+    stopped_at = stopped = None
+    try:
+        while sup.poll() is None and time.monotonic() < deadline:
+            if stopped is None and ckpt.exists():
+                kids = _children_of(sup.pid)
+                if len(kids) != 1:
+                    raise AssertionError(f"the supervisor runs {len(kids)} children")
+                os.killpg(kids[0], signal.SIGSTOP)
+                stopped, stopped_at = kids[0], time.time()
+            time.sleep(0.05)
+    finally:
+        if sup.poll() is None:
+            os.killpg(sup.pid, signal.SIGKILL)
+        sup.wait()
+        reader.join(timeout=10)
+    text = "".join(line for _, line in lines)
+    if sup.returncode != 0:
+        raise AssertionError(f"the supervisor exited {sup.returncode}:\n{text[-6000:]}")
+    events = [json.loads(ln) for ln in journal.read_text().splitlines()]
+    kinds = [e["event"] for e in events]
+    stall = next((e for e in events if e["event"] == "stall"), None)
+    same = _same_run(run_dir, plain_dir, 2)
+    rec = {"events": kinds, "stopped_pid": stopped,
+           "detect_s": stall["ts"] - stopped_at if stall and stopped_at else None,
+           "recover_s": events[-1]["ts"] - stopped_at if stopped_at else None,
+           "stall": stall, **same}
+    emit("10d", t0, **rec)
+    if kinds != ["start", "stall", "killed", "start", "exit"]:
+        raise AssertionError(f"supervisor journal {kinds}, want one stall and one restart")
+    if not rec["detect_s"] <= stall_timeout + 2.0:  # its poll interval is stall_timeout / 10
+        raise AssertionError(f"the stall was seen after {rec['detect_s']} s (timeout {stall_timeout})")
+    return rec
+
+
+def phase10_summary(ranks: dict) -> dict:
+    """Phase 10's line: step ms of the plain, world-of-one and 2-rank runs
+    (2 ranks time-slice one card: no production number), the ranks' peak
+    memory, 10c's wall time on 2 ranks against one process, 10d's time to
+    detect the stall and to recover."""
+    a, b, c, d = (ranks[k] for k in ("10a", "10b", "10c", "10d"))
+    return {"step_ms_plain": a["plain_step_ms_median"], "step_ms_world_one": a["launched_step_ms_median"],
+            "to_first_status_s_plain": a["plain_to_first_status_s"],
+            "to_first_status_s_world_one": a["launched_to_first_status_s"],
+            "step_ms_two_ranks_gloo": b["step_ms_median"], "two_ranks_batch": 128,
+            "peak_bytes_per_rank": b["peak_bytes"], "world_one_equal": a["snapshot_equal"] and a["checkpoint_equal"],
+            "predict_wall_s_two_ranks": c["ranks_wall_s"], "predict_run_s_two_ranks": c["ranks_run_s"],
+            "predict_run_s_one_process": c["one_run_s"],
+            "supervisor_detect_s": d["detect_s"], "supervisor_recover_s": d["recover_s"]}
+
+
+def phase10_multi_process(snapshot_dir, device, model_config=MODEL_CONFIG, res=128, frames=140,
+                          predict_res=128, hours=49, seed=0, predict_steps=8) -> dict:
+    """Phase 10, 10a-10d (see the module docstring), in one scratch
+    directory, h5py unimportable in this process. 10d runs beside 10b (on a
+    thread of this process; both are mostly process starts and checkpoint
+    writes on the host): 10b's time-sliced step ms and 10d's seconds to
+    recover include each other's work. Returns each part's record."""
+    import shutil
+    import tempfile
+    import threading
+
+    sys.modules["h5py"] = None
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-ranks-"))
+    if device.type == "cuda":  # what earlier phases left cached goes to the children
+        torch.cuda.empty_cache()
+    try:
+        data_path = root / "train.h5"
+        write_training_h5(data_path, synthetic_inputs(frames, res, res, 4, 1, seed)[0])
+        a = phase10a_world_one(root, data_path, device, model_config, res, seed,
+                               "nccl" if device.type == "cuda" else "gloo")
+        beside = {}
+
+        def run_d():
+            try:
+                beside["d"] = phase10d_supervisor(root, data_path, device, model_config, res, seed,
+                                                  root / "a_plain")
+            except BaseException as e:  # noqa: BLE001 - raised again on this thread
+                beside["error"] = e
+
+        thread = threading.Thread(target=run_d, daemon=True)
+        thread.start()
+        try:
+            b = phase10b_two_ranks(root, data_path, device, model_config, res, seed)
+        finally:
+            thread.join()  # 10d ends within its own limit
+        if "error" in beside:
+            raise beside["error"]
+        d = beside["d"]
+        c = phase10c_striped(root, snapshot_dir, device, predict_res, hours, seed, predict_steps)
+        if a["plain_spread"] is not None and not d["snapshot_max_diff"] <= a["plain_spread"]:
+            raise AssertionError(f"the supervised run differs from the plain run beyond two plain runs: {d}")
+        if a["plain_spread"] is None and not (d["snapshot_equal"] and d["checkpoint_equal"]):
+            raise AssertionError(f"the supervised run differs from the plain run: {d}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"10a": a, "10b": b, "10c": c, "10d": d}
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--child"]:  # one process of phase 10 (see child_step, child_cli)
+        sys.path.insert(0, str(REPO))
+        sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+        if argv[1] == "step":  # --child step ARGS [-- train ARGS]: the step check, then a run
+            rest = argv[2:]
+            cut = rest.index("--") if "--" in rest else len(rest)
+            out = {"step_check": child_step(rest[:cut])}
+            out.update(child_cli("train", rest[cut + 1:]) if cut < len(rest) else {})
+        else:
+            out = child_cli(argv[1], argv[2:])
+        print(CHILD_PREFIX + json.dumps(out), flush=True)
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--winograd-only", action="store_true",
@@ -1977,6 +2634,9 @@ def main(argv=None) -> int:
     ap.add_argument("--attention-bwd-only", action="store_true",
                     help="phases 0 and 1, then phase 2's attention backward checks and timings, "
                          "and stop (likewise for another checkout's backward)")
+    ap.add_argument("--multi-process-only", action="store_true",
+                    help="phases 0 and 1, then phase 10 (multi-process training, striped predict, the "
+                         "supervisor), and stop (no device line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only",
@@ -2003,6 +2663,11 @@ def main(argv=None) -> int:
             emit(2, t0, checks=checks, timing=[bwd_row], timing_t256=[bwd_long], timing_exact_bwd=bwd_exact)
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
+    if args.multi_process_only:
+        t10 = time.time()
+        emit(10, t10, **phase10_summary(phase10_multi_process(SNAPSHOT, device, seed=args.seed)))
+        print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
+        return 0
     rows, year_fwd, exact_bwd = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
@@ -2016,6 +2681,9 @@ def main(argv=None) -> int:
     t9 = time.time()
     modes = phase9_modes(SNAPSHOT, device, seed=args.seed)
     emit(9, t9, launches={"9a": modes["9a"]["launches"], "9c": modes["9c"]["attention_launches"]})
+    t10 = time.time()
+    ranks = phase10_multi_process(SNAPSHOT, device, seed=args.seed)
+    emit(10, t10, **phase10_summary(ranks))
     # each kernel's launches on its own path: sampling for the forward (and
     # the year path's, at its own shape), training for the backward, the
     # ModResidualBlock composition for the Winograd conv
@@ -2031,6 +2699,12 @@ def main(argv=None) -> int:
         "year_path_launches": modes["9c"]["attention_launches"]["attention_bwd"], **{
             k: exact_bwd[k] for k in ("shape", "max_abs_err", "ms", "graph_ms", "host_ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "library_graph_ms")}}
+    # phase 10: the launches of each rank of the 2-rank training (10b) and
+    # the striped predict (10c)
+    for name in ("attention_fwd", "attention_bwd"):
+        rows[name]["multi_process"] = {
+            "10b_launches_per_rank": [lr[name] for lr in ranks["10b"]["launches_per_rank"]],
+            "10c_launches_per_rank": [lr[name] for lr in ranks["10c"]["launches_per_rank"]]}
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

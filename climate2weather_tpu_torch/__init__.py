@@ -10,12 +10,16 @@ Gaussian guidance, calibration and the t=0 projection, and the
 and training files read and written by its own HDF5 code. Training on one
 card: the ndata-driven loop, the train step with AdamW and EMAs, checkpoints
 and snapshots in the JAX package's formats, the dataset and sampler, and the
-``train`` CLI, with the attention's gradient from a second CUDA kernel. The
-Winograd conv of the JAX package is a third kernel (``ops.winograd``). It
-imports torch and numpy only; the JAX package is its reference in the tests.
+``train`` CLI, with the attention's gradient from a second CUDA kernel.
+Several processes: ``train`` and ``experiment predict`` under torchrun, one
+rank per card (data-parallel training, samples striped over the ranks), and
+the restart supervisor. The Winograd conv of the JAX package is a third
+kernel (``ops.winograd``). It imports torch and numpy only; the JAX package
+is its reference in the tests.
 
 Subpackages: ``io`` (msgpack, YAML and HDF5 readers and writers), ``models``,
-``diffusion``, ``training``, ``data`` (datasets, grids, normalization),
+``diffusion``, ``training``, ``parallel`` (the process group),
+``data`` (datasets, grids, normalization),
 ``ops`` (CUDA kernels, their plain versions, the autograd Functions and the
 nvcc build), ``exp``, ``utils``. Sources of the kernels live in ``csrc/``.
 """

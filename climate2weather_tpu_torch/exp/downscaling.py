@@ -34,6 +34,18 @@ chunks on the card (``calibrate.postprocess_long``) before the host copy.
 (sigma, gamma) that the ``hparam-sweep`` command runs: one :func:`run` per
 trial.
 
+Several ranks (a process group started by ``parallel.mesh``, as
+``experiment predict`` does under torchrun): :func:`run` stripes whole
+samples over the ranks as JAX does, rank r taking the contiguous block of
+ids ``r * (num_samples // world) + g`` in its own ensemble groups, each
+sample's noise still keyed on its id, so a striped run writes the samples
+of a one-process run. ``num_samples`` must be a multiple of the world
+(refused before any output). Rank 0 numbers and makes the save directory
+(its number broadcast, the run's one collective, before any sampling) and
+writes ``config_freeze.yaml``, ``ground_truth.nc`` and ``observation.nc``;
+each rank writes its samples and resume files. Nothing in the sample loop
+waits on another rank.
+
 Not ported, and refused before any sampling: the host-streaming sampler.
 """
 
@@ -66,6 +78,7 @@ from climate2weather_tpu_torch.diffusion.sampler import SAMPLERS, sample, sample
 from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
 from climate2weather_tpu_torch.io.snapshot import load_snapshot, yaml_dump_file, yaml_load_file
 from climate2weather_tpu_torch.models.score_net import build_score_unet
+from climate2weather_tpu_torch.parallel import mesh
 from climate2weather_tpu_torch.utils.device import resolve_device, set_reference_numerics
 from climate2weather_tpu_torch.utils.seeding import derive_seed, set_random_seed
 
@@ -192,19 +205,26 @@ def iter_samples(
     z: Optional[np.ndarray] = None,
     resume_dir: Optional[str] = None,
     stats: Optional[dict] = None,
+    rank: int = 0,
+    world: int = 1,
 ):
     """Yield ``(sample ids, samples, nan_flags)`` for each group as it is
     done: float32 ``[n, L, H, W, C]`` and bool ``[n]`` numpy arrays,
     post-processed. On the long path a group is one sample, and with
     ``sample_resume_every > 0`` in ``cfg`` its resume file lives in
     ``resume_dir``. ``stats``, a dict, gets ``long_path`` and
-    ``traj_dtype``."""
+    ``traj_dtype``. With ``world > 1`` only the ``num_samples // world``
+    ids of block ``rank`` are sampled (``noise`` and ``z`` stay indexed by
+    sample id)."""
+    num_samples = int(cfg.get("num_samples", 1))
+    if num_samples % world:
+        raise ValueError(f"num_samples {num_samples} is not a multiple of the {world} ranks")
+    num_local = num_samples // world
     dev = resolve_device(device)
     set_reference_numerics()
     gt = torch.as_tensor(np.asarray(ground_truth_lhwc, np.float32), device=dev)
     L, H, W, C = gt.shape
     _check_config(cfg, L, calib_frames, observation is not None)
-    num_samples = int(cfg.get("num_samples", 1))
     steps = int(cfg.get("num_sampling_steps", 256))
     s_step, t_step = int(cfg.get("s_step", 16)), int(cfg.get("t_step", 6))
     t0_project = str(cfg.get("t0_project", "") or "")
@@ -294,8 +314,8 @@ def iter_samples(
 
     # the long path runs one sample at a time, as in JAX
     eb = 1 if use_long else max(1, int(cfg.get("ensemble_batch", 1)))
-    for start in range(0, num_samples, eb):
-        sids = list(range(start, min(start + eb, num_samples)))
+    for start in range(0, num_local, eb):
+        sids = [rank * num_local + g for g in range(start, min(start + eb, num_local))]
         if noise is not None:
             x_init = torch.as_tensor(np.asarray(noise[sids], np.float32), device=dev)
             gens = None
@@ -337,9 +357,7 @@ def run(save_path: str, config_path: str, device="cuda", *, compute_dtype: torch
     ``sampling_s``, to each group's host copy; ``write_s``: the samples'
     files) and :func:`iter_samples`' keys."""
     config_path = pathlib.Path(config_path)
-    save_path = pathlib.Path(save_path)
-    subdir_i = len([s for s in save_path.iterdir() if s.is_dir()]) + 1 if save_path.exists() else 1
-    save_path = save_path / f"{subdir_i:03d}_{config_path.stem}"
+    save_root = pathlib.Path(save_path)
     if not (config_path.exists() and config_path.suffix.lower() in (".yaml", ".yml")):
         raise FileNotFoundError(f"Config file not found: {config_path}")
     config = yaml_load_file(config_path)
@@ -351,8 +369,17 @@ def run(save_path: str, config_path: str, device="cuda", *, compute_dtype: torch
         else:
             print(f">>> CONFIG: Setting {k} = {v}")
         config[k] = v
-    save_path.mkdir(parents=True, exist_ok=False)
-    yaml_dump_file(config, save_path / "config_freeze.yaml")
+    world = mesh.world_size()
+    if int(config.get("num_samples", 1)) % world:  # as JAX asserts, before any output
+        raise ValueError(f"num_samples {config.get('num_samples', 1)} is not a multiple of the {world} ranks")
+    subdir_i = 0
+    if mesh.is_main():
+        subdir_i = len([s for s in save_root.iterdir() if s.is_dir()]) + 1 if save_root.exists() else 1
+        save_path = save_root / f"{subdir_i:03d}_{config_path.stem}"
+        save_path.mkdir(parents=True, exist_ok=False)
+        yaml_dump_file(config, save_path / "config_freeze.yaml")
+    subdir_i = mesh.broadcast_int(subdir_i, device)
+    save_path = save_root / f"{subdir_i:03d}_{config_path.stem}"
     _run_impl(save_path, config, device, compute_dtype=compute_dtype, noise=noise, z=z,
               stats={} if stats is None else stats)
     print("Done. \n")
@@ -372,7 +399,9 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
     start_time, num_hours = str(cfg["start_time"]), int(cfg["num_hours"])
     s_step, t_step = int(cfg.get("s_step", 16)), int(cfg.get("t_step", 6))
     calib = cfg.get("spectral_calibrate") or None
+    rank, world = mesh.rank(), mesh.world_size()
     print(f"STARTING DOWNSCALING AT {datetime.now().strftime('%Y-%m-%d_%H%M%S')} >>>")
+    print(f"Running on {world} process(es); rank {rank}")
     print(f"Saving results to {save_path}")
 
     t_input = time.time()
@@ -381,7 +410,8 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
     # every refusal before any output beyond config_freeze.yaml, and before sampling
     _check_config(cfg, L, calib, observation_given=True)
     dev = resolve_device(device)
-    unnormed.to_file(os.path.join(save_path, "ground_truth.nc"))
+    if rank == 0:
+        unnormed.to_file(os.path.join(save_path, "ground_truth.nc"))
     cosmo = data_pipeline.normalize_ds(unnormed, quantile_path, norm_mode)
     gt = data_pipeline.nchw_to_nhwc(data_pipeline.ds_to_sorted_np(cosmo, data_vars))  # [L, H, W, C]
 
@@ -397,7 +427,7 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
             data_pipeline.load_processed(obs_path, data_vars, start_time, num_hours),
             quantile_path, norm_mode)
         observation = data_pipeline.nchw_to_nhwc(data_pipeline.ds_to_sorted_np(observation_ds, data_vars))
-    if observation_ds is not None:
+    if observation_ds is not None and rank == 0:
         data_pipeline.unnormalize_ds(observation_ds, quantile_path, norm_mode).to_file(
             os.path.join(save_path, "observation.nc"))
     if obs_path is not None and cfg.get("guidance_off", False):
@@ -411,7 +441,8 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
     t_group = time.time()
     stats.update(input_s=t_net - t_input, load_net_s=t_group - t_net, sampling_s=0.0, write_s=0.0)
     for sids, gens, nan_flags in iter_samples(net, snap_config, cfg, gt, calib, dev, observation=observation,
-                                              noise=noise, z=z, resume_dir=str(save_path), stats=stats):
+                                              noise=noise, z=z, resume_dir=str(save_path), stats=stats,
+                                              rank=rank, world=world):
         t_write = time.time()
         stats["sampling_s"] += t_write - t_group
         total = t_write - t_group

@@ -10,16 +10,22 @@ and ``metrics`` commands of the JAX package's ``experiment.py``):
 
 ``predict`` runs :func:`climate2weather_tpu_torch.exp.downscaling.run` with the
 flags given as overrides of the config, on the card unless ``--device cpu``;
+launched by torchrun (``torchrun --nproc_per_node N -m
+climate2weather_tpu_torch.experiment predict ...``) it starts the process
+group as ``train`` does and stripes the samples over the ranks, each on its
+own card (``--dist-backend`` as for ``train``).
 ``hparam-sweep`` runs :func:`~climate2weather_tpu_torch.exp.downscaling.sweep_likelihood_hparams`
 (one ``predict`` per trial at a random likelihood (sigma, gamma)), likewise.
 ``metrics run`` scores an experiment directory on the host
 (:func:`climate2weather_tpu_torch.exp.metrics.run`), ``metrics load`` prints
-the scores it saved.
+the scores it saved. ``hparam-sweep`` and ``metrics`` run in one process and
+refuse a torchrun world above one.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -51,6 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int)
     p.add_argument("--observation-path")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    p.add_argument("--dist-backend", default=None,
+                   help="torch.distributed backend under torchrun (default: nccl on the card, gloo on the CPU)")
     sw = sub.add_parser("hparam-sweep", help="random search over the likelihood's (sigma, gamma)")
     sw.add_argument("--save-path", required=True)
     sw.add_argument("--config-path", required=True)
@@ -69,13 +77,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from climate2weather_tpu_torch.parallel import mesh
+
     args = vars(build_parser().parse_args(argv))
     command = args.pop("command")
+    if command != "predict" and mesh.launched() and int(os.environ["WORLD_SIZE"]) > 1:
+        raise SystemExit(f"{command} runs in one process; it was launched as one of "
+                         f"{os.environ['WORLD_SIZE']} ranks")
     if command == "predict":
         from climate2weather_tpu_torch.exp import downscaling
 
         save_path, config_path, device = args.pop("save_path"), args.pop("config_path"), args.pop("device")
-        downscaling.run(save_path, config_path, device=device, **args)
+        dev = mesh.maybe_init_distributed(device, args.pop("dist_backend"))
+        try:
+            downscaling.run(save_path, config_path, device=dev, **args)
+        finally:
+            mesh.shutdown()
     elif command == "hparam-sweep":
         from climate2weather_tpu_torch.exp import downscaling
 

@@ -2,13 +2,18 @@
 
     python -m climate2weather_tpu_torch.train --run-dir RUNS --run-id ID \\
         --train-data train.h5 --spatial-res 128 --num-features 4 [--device cpu] ...
+    torchrun --nproc_per_node 8 -m climate2weather_tpu_torch.train ...
 
 The same flags, ndata suffixes (Ki/Mi/Gi) and config assembly as the JAX
 CLI's ``fabricless_main``: the run directory ``RUN_DIR/RUN_ID[-DESC]`` gets
 a frozen ``opts.yaml`` and ``config.yaml`` (written by the package's own
-YAML writer) and the run itself (``training.loop.training_loop``). Flags are
-parsed with ``argparse``. The reference CLI's device flags are accepted and
-ignored; ``--device`` picks the card (the default) or the CPU.
+YAML writer, on rank 0) and the run itself (``training.loop.training_loop``).
+Flags are parsed with ``argparse``. ``--device`` picks the card (the
+default) or the CPU. Launched by torchrun, every process is one rank of a
+data-parallel run on its own card (``cuda:LOCAL_RANK``), over NCCL on the
+card and gloo on the CPU unless ``--dist-backend`` names another; the
+launcher sets the world, so the reference CLI's device flags are accepted
+and ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -79,18 +84,27 @@ def build_parser() -> argparse.ArgumentParser:
     _flag_pair(ap, "log-alldevices", "log_alldevices", False, off="log-firstdevice")
     _flag_pair(ap, "wandb", "use_wandb", False)
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    ap.add_argument("--dist-backend", default=None,
+                    help="torch.distributed backend under torchrun (default: nccl on the card, gloo on the CPU)")
     return ap
 
 
 def main(argv=None) -> None:
+    from climate2weather_tpu_torch.parallel import mesh
+
     opts = vars(build_parser().parse_args(argv))
+    backend = opts.pop("dist_backend")
     for flag in _IGNORED:
         if opts.pop(flag, None) is not None:
             print(
                 f"NOTE: --{flag.replace('_', '-')} is accepted for reference-CLI "
-                f"compatibility but ignored (one card, or the CPU with --device cpu)."
+                f"compatibility but ignored (the launcher sets the world)."
             )
-    fabricless_main(**opts)
+    mesh.maybe_init_distributed(opts["device"], backend)
+    try:
+        fabricless_main(**opts)
+    finally:
+        mesh.shutdown()
 
 
 def fabricless_main(
@@ -99,16 +113,22 @@ def fabricless_main(
     status, snapshot, checkpoint, logging_, valid, slice_data, seed, ema_rates,
     log_alldevices, use_wandb, device="cuda",
 ):
+    opts = EasyDict(locals())  # the options alone, before any other local name
+
+    from climate2weather_tpu_torch.parallel import mesh
     from climate2weather_tpu_torch.training.loop import training_loop
     from climate2weather_tpu_torch.utils.logging import RunLogger
 
-    opts = EasyDict(locals())
+    rank, world = mesh.rank(), mesh.world_size()
+    dev = mesh.rank_device(device)
+    print(f"Rank {rank} of {world} on {dev}")
 
     # -- run dir + frozen opts (reference train.py:103-121) ----------------
     cur_run_dir = os.path.join(run_dir, str(run_id) + (f"-{desc}" if desc else ""))
     os.makedirs(cur_run_dir, exist_ok=True)
-    yaml_dump_file({k: v for k, v in opts.items() if not callable(v)},
-                   os.path.join(cur_run_dir, "opts.yaml"))
+    if rank == 0:
+        yaml_dump_file({k: v for k, v in opts.items() if not callable(v)},
+                       os.path.join(cur_run_dir, "opts.yaml"))
 
     # -- config assembly (reference train.py:128-196) ----------------------
     cfg = EasyDict()
@@ -144,11 +164,12 @@ def fabricless_main(
                               rates=[float(r) for r in str(ema_rates).split(",")])
     cfg.lr_kwargs = EasyDict(func_name="lr/linear", ref_lr=lr, total_ndata=total_ndata)
     cfg.run_dir = cur_run_dir
-    yaml_dump_file(cfg.to_plain(), os.path.join(cur_run_dir, "config.yaml"))
+    if rank == 0:
+        yaml_dump_file(cfg.to_plain(), os.path.join(cur_run_dir, "config.yaml"))
 
-    logger = RunLogger(cur_run_dir, enabled=True, use_wandb=use_wandb,
-                       run_id=f"{run_id}-0" if log_alldevices else run_id,
-                       config=cfg.to_plain(), rank=0)
+    logger = RunLogger(cur_run_dir, enabled=log_alldevices or rank == 0, use_wandb=use_wandb,
+                       run_id=f"{run_id}-{rank}" if log_alldevices else run_id,
+                       config=cfg.to_plain(), rank=rank)
     training_loop(
         cur_run_dir,
         dataset_kwargs=cfg.dataset_kwargs,
@@ -168,7 +189,7 @@ def fabricless_main(
         slice_ndata=cfg.slice_ndata,
         seed=cfg.seed,
         logger=logger,
-        device=device,
+        device=dev,
     )
     logger.finish()
     print("Training complete.")

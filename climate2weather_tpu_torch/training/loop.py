@@ -1,4 +1,4 @@
-"""ndata-driven training loop on one card (port of
+"""ndata-driven training loop, one card per rank (port of
 climate2weather_tpu/training/loop.py).
 
 Kept from the JAX loop: the batch math and its asserts; status, EMA
@@ -9,9 +9,19 @@ resume through ``load_latest`` with the batch-size check; ``slice_ndata``;
 the choice between a device-resident dataset (windows gathered on the card,
 only indices cross per step) and the streaming loader under
 ``C2W_DEVICE_DATA_BUDGET``; ``C2W_REMAT``; ``C2W_PROFILE_DIR``, here a
-``torch.profiler`` trace. World size is 1: one card, no
-``torch.distributed``. Host copies for checkpoints and snapshots are made on
-the main thread; only the file writes run on the writer thread.
+``torch.profiler`` trace. Host copies for checkpoints and snapshots are
+made on the main thread; only the file writes run on the writer thread.
+
+Several ranks (a process group started by ``parallel.mesh``): the world
+size is the group's, each rank takes its ``batch_size // world`` rows a step
+from the rank-strided sampler, seeds Python's and numpy's streams with its
+rank, and holds the dataset on its own card; the train step sums the
+gradients over the ranks (``training/state.py``). Rank 0 alone prints the
+status line, writes snapshots and checkpoints, samples for validation and
+profiles, as in JAX; none of these holds a collective. Every rank resumes
+from the same ``load_latest``, and after each checkpoint the ranks meet in
+a barrier once rank 0's write is complete, so no rank goes on while the
+file is half written.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from climate2weather_tpu_torch.diffusion.sampler import sample as pc_sample
 from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
 from climate2weather_tpu_torch.models.init import init_params
 from climate2weather_tpu_torch.models.score_net import build_score_unet
+from climate2weather_tpu_torch.parallel import mesh
 from climate2weather_tpu_torch.training.checkpoint import (
     AsyncWriter,
     CheckpointIO,
@@ -108,8 +119,9 @@ def training_loop(
     log_ndata, status_ndata = norm(log_ndata), norm(status_ndata)
     snapshot_ndata, checkpoint_ndata = norm(snapshot_ndata), norm(checkpoint_ndata)
     valid_ndata, slice_ndata = norm(valid_ndata), norm(slice_ndata)
-    set_random_seed(seed, 0)
-    world_size = 1
+    rank, world_size = mesh.rank(), mesh.world_size()
+    main_rank = rank == 0
+    set_random_seed(seed, rank)
 
     # -- batch math (training_loop.py:58-72) -------------------------------
     batch_gpu_total = batch_size // world_size
@@ -194,8 +206,9 @@ def training_loop(
     )
 
     # -- input pipeline ----------------------------------------------------
-    sampler = InfiniteSampler(dataset_size=len(train_dataset), rank=0, num_replicas=1,
+    sampler = InfiniteSampler(dataset_size=len(train_dataset), rank=rank, num_replicas=world_size,
                               shuffle=True, seed=seed, start_idx=start_ndata)
+    local_batch = batch_size // world_size
     if use_device_data:
         print(
             f"Uploading dataset to the device ({data_nbytes / 2**30:.2f} GiB fp32 as "
@@ -209,7 +222,7 @@ def training_loop(
         print("Dataset resident on device; per-step transfer is indices only.")
     else:
         loader = PrefetchLoader(train_dataset, sampler,
-                                batch_size=batch_size // num_accumulation_rounds,
+                                batch_size=local_batch // num_accumulation_rounds,
                                 rounds=num_accumulation_rounds,
                                 num_threads=loader_threads).start()
 
@@ -239,6 +252,7 @@ def training_loop(
             status_ndata is not None
             and (done or cur_ndata % status_ndata == 0)
             and (cur_ndata != start_ndata or start_ndata == 0)
+            and main_rank
         ):
             if last_loss is not None:
                 last_loss.item()  # the device has finished the tick's steps
@@ -263,6 +277,7 @@ def training_loop(
             snapshot_ndata is not None
             and (done or cur_ndata % snapshot_ndata == 0)
             and cur_ndata != start_ndata
+            and main_rank
         ):
             for rate in ema_rates:
                 snap_host = to_flax_params(
@@ -280,6 +295,7 @@ def training_loop(
             and logger is not None  # results are only consumed by the logger
             and cur_ndata % valid_ndata == 0
             and (cur_ndata != start_ndata or start_ndata == 0)
+            and main_rank
         ):
             tr = dataset_kwargs.train
             noise = torch.randn((tr.window, tr.spatial_res, tr.spatial_res, tr.num_features),
@@ -316,29 +332,34 @@ def training_loop(
             losses_accum = []
 
         # ---- checkpoint (training_loop.py:353-363): host copy here, write
-        # on the writer thread
+        # on the writer thread; under a process group rank 0 waits for the
+        # write, then every rank meets in the barrier
         if (
             checkpoint_ndata is not None
             and (done or cur_ndata % checkpoint_ndata == 0)
             and cur_ndata != start_ndata
         ):
-            state_host = state_to_flax(state)
-            ckpt_path = os.path.join(run_dir, f"training-state-{cur_ndata // 1000:07d}.ckpt")
-            keep_last = int(os.environ.get("C2W_CKPT_KEEP", 0))
+            if main_rank:
+                state_host = state_to_flax(state)
+                ckpt_path = os.path.join(run_dir, f"training-state-{cur_ndata // 1000:07d}.ckpt")
+                keep_last = int(os.environ.get("C2W_CKPT_KEEP", 0))
 
-            def _write_ckpt(sc=state_host, path=ckpt_path, keep=keep_last):
-                CheckpointIO(state=sc, meta={"batch_size": batch_size}).save(path)
-                if keep > 0:
-                    prune_checkpoints(run_dir, keep)
+                def _write_ckpt(sc=state_host, path=ckpt_path, keep=keep_last):
+                    CheckpointIO(state=sc, meta={"batch_size": batch_size}).save(path)
+                    if keep > 0:
+                        prune_checkpoints(run_dir, keep)
 
-            writer.submit(_write_ckpt)
+                writer.submit(_write_ckpt)
+                if mesh.distributed():
+                    writer.flush()
+            mesh.barrier(dev)
 
         if done:
             break
 
         # ---- optional profiler trace over steps 2..5 of this run
         profile_dir = os.environ.get("C2W_PROFILE_DIR")
-        if profile_dir and cur_ndata == start_ndata + 2 * batch_size:
+        if profile_dir and main_rank and cur_ndata == start_ndata + 2 * batch_size:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if dev.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -355,12 +376,12 @@ def training_loop(
         # so they replay exactly across a resume
         generator = step_generator(seed, cur_ndata // batch_size, dev)
         if use_device_data:
-            idx = np.fromiter((next(index_iter) for _ in range(batch_size)), np.int64,
-                              count=batch_size).reshape(num_accumulation_rounds, -1)
+            idx = np.fromiter((next(index_iter) for _ in range(local_batch)), np.int64,
+                              count=local_batch).reshape(num_accumulation_rounds, -1)
             idx = torch.from_numpy(idx).to(dev)
             state, loss = train_step(state, device_data_arr, idx, generator)
         else:
-            batch = torch.from_numpy(next(loader)).to(dev)  # [rounds, B, w*C, H, W]
+            batch = torch.from_numpy(next(loader)).to(dev)  # [rounds, B_local, w*C, H, W]
             state, loss = train_step(state, batch, generator)
         last_loss = loss
         if log_ndata is not None:  # only the log block empties the list

@@ -11,6 +11,16 @@ by ``derive_seed(seed, "global-train-stream", step)`` (:func:`step_generator`),
 t then eps for each microbatch in turn, so a resumed run replays the draws
 of an uninterrupted one, as the JAX loop does with ``fold_in``. For parity
 tests a step also takes injected ``(t, eps)`` per microbatch.
+
+Several ranks (``parallel.mesh``): each rank's microbatch is its rows of the
+round's global microbatch, the ranks' microbatches in rank order, as JAX
+assembles it (``make_array_from_process_local_data``). Every rank draws the
+global microbatch's (t, eps) from the shared generator and keeps its rows,
+and injected draws are the global ones too. After the last round the
+gradients and the loss are summed over the ranks in one bucketed
+all-reduce (:func:`~climate2weather_tpu_torch.parallel.mesh.all_reduce_grads`)
+and divided by rounds x world: JAX's one mean over the global batch. The
+all-reduce runs whenever a process group does, a world of one included.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from climate2weather_tpu_torch.parallel import mesh
 from climate2weather_tpu_torch.training.ema import ema_init, ema_update
 from climate2weather_tpu_torch.utils.seeding import derive_seed
 
@@ -70,18 +81,33 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
-def apply_update(state: TrainState, schedule: Callable, ema_rates, rounds: int = 1) -> None:
-    """The update after the gradients of ``rounds`` microbatches were summed
-    into ``.grad``: their mean, AdamW at ``schedule(step)``, the EMAs, and
-    ``step + 1``."""
+def apply_update(state: TrainState, schedule: Callable, ema_rates, rounds: int = 1,
+                 world: int = 1) -> None:
+    """The update after the gradients of ``rounds`` microbatches on each of
+    ``world`` ranks were summed into ``.grad``: their mean, AdamW at
+    ``schedule(step)``, the EMAs, and ``step + 1``."""
     params = list(state.net.parameters())
-    if rounds > 1:
-        torch._foreach_div_([p.grad for p in params if p.grad is not None], float(rounds))
+    if rounds * world > 1:
+        torch._foreach_div_([p.grad for p in params if p.grad is not None], float(rounds * world))
     for group in state.optimizer.param_groups:
         group["lr"] = schedule(state.step)  # optax's schedule sees the update count
     state.optimizer.step()
     ema_update(state.emas, dict(state.net.named_parameters()), ema_rates)
     state.step += 1
+
+
+def _rank_rows(x: torch.Tensor, generator, t, eps, rank: int, world: int):
+    """This rank's rows of the round's global (t, eps): the injected ones, or
+    those drawn from ``generator`` for the global microbatch of
+    ``world x len(x)`` rows, t then eps, as ``VPCosineProcess.loss`` draws."""
+    b = x.shape[0]
+    if t is None:
+        t = torch.rand((b * world,) + (1,) * (x.dim() - 1), generator=generator, device=x.device)
+        eps = torch.randn((b * world,) + tuple(x.shape[1:]), generator=generator, device=x.device,
+                          dtype=x.dtype)
+    if len(t) != b * world or len(eps) != b * world:
+        raise ValueError(f"draws of {len(t)} rows for a global microbatch of {world} x {b}")
+    return t[rank * b:(rank + 1) * b], eps[rank * b:(rank + 1) * b]
 
 
 def _make_step(microbatch: Callable, process, schedule: Callable, ema_rates,
@@ -95,16 +121,22 @@ def _make_step(microbatch: Callable, process, schedule: Callable, ema_rates,
                    generator: Optional[torch.Generator] = None, draws: Draws = None):
         if draws is not None and len(draws) != rounds:
             raise ValueError(f"{len(draws)} injected draws for {rounds} rounds")
+        world = mesh.world_size()
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = None
         for r in range(rounds):
             x = microbatch(inputs, r)
             t, eps = draws[r] if draws is not None else (None, None)
+            if world > 1:
+                t, eps = _rank_rows(x, generator, t, eps, mesh.rank(), world)
             loss = process.loss(lambda xt, tt, forcing: net_apply(state.net, xt, tt), x,
                                 generator=generator, t=t, eps=eps) * loss_scaling
             loss.backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        apply_update(state, schedule, ema_rates, rounds)
+        if mesh.distributed():
+            params = [p for p in state.net.parameters() if p.requires_grad]
+            loss_sum = mesh.all_reduce_grads(params, loss_sum) / world
+        apply_update(state, schedule, ema_rates, rounds, world)
         return state, loss_sum / rounds
 
     return train_step

@@ -8,12 +8,15 @@ the port and ``chip_smoke``, and runs the smoke's phase-3 and phase-4
 functions on the CPU with a tiny snapshot, its phase-5 training at a tiny
 size, its phase-6 ``predict`` from files (written and read through
 ``io/hdf5.py``), its phase-7 training drive and a Winograd call, its
-phase-8 year path, or its phase-9 sampler and guidance modes (exact
+phase-8 year path, its phase-9 sampler and guidance modes (exact
 gradients, DPM-Solver++(3M), the bilinear prolongation, the sweep and the
-fidelity harness) at a tiny size (the kernel phases need the card).
+fidelity harness), or its phase-10 multi-process runs (every rank's process
+blocked the same way, by a ``sitecustomize`` on its path) at a tiny size (the
+kernel phases need the card).
 """
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -74,6 +77,14 @@ elif mode == "year":
     p8 = chip_smoke.phase8_year(snap, cpu, res=32, hours=31,
                                 overrides={"long_trajectory_threshold": 16, "num_sampling_steps": 24})
     out = {"p8": {k: p8[k] for k in ("8a", "8b", "8c", "8d")}}
+elif mode == "ranks":
+    # phase 10 over gloo on the CPU: the tiny net at 16 x 16, 2 steps of predict
+    p10 = chip_smoke.phase10_multi_process(snap, cpu, model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
+                                           res=16, frames=40, predict_res=32, predict_steps=2)
+    out = {"p10": chip_smoke.phase10_summary(p10),
+           "p10b": {k: p10["10b"][k] for k in ("launches_per_rank", "losses", "expected_per_rank")},
+           "p10b_step": p10["10b"]["step_check"]["ranks"], "p10c_equal": p10["10c"]["samples_equal"],
+           "p10c_writes": p10["10c"]["writes"], "p10d_events": p10["10d"]["events"]}
 elif mode == "modes":
     # phase 9 with 4 steps in 9a and 9b, and the year config above a
     # threshold lowered to 16 frames for 31 hours in 9c
@@ -221,6 +232,76 @@ def test_sampler_and_guidance_modes_need_only_stdlib_torch_numpy(tmp_path):
     d, e = p9["9d"], p9["9e"]
     assert d["dirs"] == ["001_sweep", "002_sweep"] and all(d["finite"]) and len(d["trials"]) == 2
     assert e["report"] and e["finite"] and e["rows"] == 24
+
+
+SITECUSTOMIZE = r"""
+import atexit, importlib.abc, os, sys
+
+BLOCKED = {"jax", "flax", "optax", "msgpack", "yaml", "h5py", "scipy", "click", "netCDF4", "xarray",
+           "ml_dtypes", "ninja", "matplotlib", "PIL", "climate2weather_tpu"}
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked for the hygiene check: {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+for name in BLOCKED:
+    sys.modules[name] = None
+
+def report():
+    leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in BLOCKED)
+    with open(LOG, "a") as f:
+        f.write(f"{os.getpid()} {' '.join(sys.argv[:4])} leaked={leaked}\n")
+
+atexit.register(report)
+"""
+
+
+def test_multi_process_phase_needs_only_stdlib_torch_numpy(tmp_path):
+    """Phase 10 on the CPU over gloo (the world of one under
+    ``torch.distributed.run``, the 2-rank step check with its planted fault,
+    2-rank training with a checkpoint and a resume, the striped ``predict``
+    against one process, the supervisor recovering a stopped run), with
+    every process it starts blocked from jax, flax, the JAX package, h5py,
+    scipy, msgpack and the rest, as this process is."""
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    site, log = tmp_path / "site", tmp_path / "processes.log"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(f"LOG = {str(log)!r}\n" + SITECUSTOMIZE)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "ranks", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=str(site)),
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    assert "climate2weather_tpu_torch.parallel.mesh" in out["modules"]
+    assert "climate2weather_tpu_torch.training.supervisor" in out["modules"]
+    p10 = out["p10"]
+    assert p10["world_one_equal"]
+    step = out["p10b_step"]
+    assert all(r["correct"]["equal"] for r in step) and step[0]["fault"]["equal"]
+    assert not step[1]["fault"]["equal"] and step[1]["fault"]["max_abs_diff"] > 0
+    assert len(out["p10b"]["losses"]) == 16
+    assert out["p10b"]["launches_per_rank"] == [{"attention_fwd": 0, "attention_bwd": 0}] * 2  # the CPU
+    assert all(out["p10c_equal"].values()) and len(out["p10c_equal"]) == 6
+    assert out["p10c_writes"][1] == ["gen_sample_003.nc", "gen_sample_004.nc", "gen_sample_005.nc"]
+    assert out["p10d_events"] == ["start", "stall", "killed", "start", "exit"]
+    # the processes phase 10 started reported at exit (the stopped child is
+    # killed before it can): none imported a blocked package
+    lines = log.read_text().splitlines()
+    assert all(ln.endswith("leaked=[]") for ln in lines), lines
+    count = lambda part: sum(part in ln for ln in lines)  # noqa: E731
+    # 10a's launched and plain runs and 10d's relaunch; 10b's 2 x 2 ranks and
+    # 10c's 2; the supervisor
+    assert count("climate2weather_tpu_torch/train.py") >= 3, lines
+    assert count("chip_smoke.py --child") >= 6, lines
+    assert count("supervisor") >= 1, lines
 
 
 def test_smoke_refuses_to_run_without_a_card(tmp_path):
