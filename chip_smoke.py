@@ -128,13 +128,44 @@ Numbered phases, each printing one JSON line with its seconds:
    seconds to its first step, the ranks' peak memory, 10c's seconds on 2
    ranks and in one process, 10d's seconds to detect and to recover.
 
+11. the offline data layer on the card's host, with jax, flax, optax, h5py,
+   scipy, click, netCDF4, xarray and the JAX package unimportable in this
+   process and in every process it starts: (11a) the committed netCDF-C
+   fixtures ``tests/fixtures/netcdf_c_{v108,latest}.nc`` (superblocks 2 and
+   3, version-2 object headers, dense links and attributes in fractal heaps
+   and version-2 B-trees, single-chunk, fixed-array and extensible-array
+   chunk indexes) through ``io.hdf5.File`` and ``open_grid``, equal to
+   ``netcdf_c_contents.npz`` bit for bit, and a flipped byte in each kind
+   of checksummed structure raising ``ChecksumError``; (11b) the drill of
+   ``tests/test_cosmo_layout.py`` through ``python -m
+   climate2weather_tpu_torch.data.cli``: a raw archive over 473 x 500 (four
+   variables, a 2005 decoy, a missing tas hour), ``extract-patch-folder
+   --years 2006-2014`` per variable and ``preproc-all`` (the 128 x 128
+   patch, [24, 4, 128, 128] finite, the ``vars`` attribute, 12 test hours,
+   the quantiles, the NaN hour in the audit file and repaired), then
+   ``train`` at ``configs/tiny_unet.yml`` for 4 steps on the file it wrote
+   (attention over 4,096 tokens, forward and backward, launches counted);
+   (11c) ``synth --res 128 --spectrum mesoscale`` (train and eval hours cut
+   to 240 and 56), a biased coarse climate model from the eval grid (16x
+   block means every 6th hour; tas + 2 K, psl x 1.002, winds x 0.8) and
+   ``debias`` against the train grid coarsened the same way: each
+   variable's debiased quantiles (levels 0.01-0.99, in the reference's
+   standard deviations) within a tenth of the biased ones' distance from
+   the reference's; (11d) ``experiment predict`` with the 72.1M snapshot at
+   a copy of ``qm_debiased_climate_mpi.yml`` naming 11c's files (the
+   observation the debiased file; 49 hours, DPM-Solver++(2M), 8 steps, 3
+   samples, with the confirmed setting's t=0 spectral projection): finite
+   samples, the written observation the debiased file's frames, A(x) = y
+   under phase 4's limit, 6 attention launches per UNet forward; then
+   ``metrics run`` on the written directory: finite scores.
+
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 There is no CPU mode: without a card the script exits non-zero at once.
 ``--winograd-only`` stops after phase 2's Winograd part,
 ``--attention-bwd-only`` after phase 2's attention backward part, and
-``--multi-process-only`` runs phases 0, 1 and 10 alone (no device line in
-any). ``--child ...`` is one process of phase 10 (``child_step``,
+``--multi-process-only`` runs phases 0, 1 and 10 alone, ``--data-only``
+phases 0, 1 and 11 (no device line in any). ``--child ...`` is one process of phase 10 (``child_step``,
 ``child_cli``), not for use by hand.
 """
 
@@ -1629,9 +1660,9 @@ def phase8c_bf16(net, snap_cfg, cfg, gt, calib, device) -> dict:
     return rec
 
 
-def phase8d_metrics(out_dir) -> dict:
+def phase8d_metrics(out_dir, label="8d") -> dict:
     """``metrics run`` on 8a's directory (h5py unimportable): every score
-    finite."""
+    finite. Its line is ``label``'s."""
     from climate2weather_tpu_torch.exp import metrics
 
     t0 = time.time()
@@ -1640,9 +1671,9 @@ def phase8d_metrics(out_dir) -> dict:
               for entries in by_var.values() for v in entries.values()]
     rec = {"scores": len(values), "finite": all(bool(np.isfinite(v).all()) for v in values),
            "protocol": scores["protocol"], "metrics_s": time.time() - t0}
-    emit("8d", t0, **rec)
+    emit(label, t0, **rec)
     if not values or not rec["finite"]:
-        raise AssertionError(f"metrics of the year run missing or not finite: {rec}")
+        raise AssertionError(f"metrics of the run missing or not finite: {rec}")
     return rec
 
 
@@ -2070,7 +2101,7 @@ def _run_processes(cmds, envs, timeout=CHILD_TIMEOUT, label="") -> tuple:
     firsts = [next((at - t0 for at, line in o if "Status:" in line), None) for o in outs]
     for i, (p, text) in enumerate(zip(procs, texts)):
         if p.returncode != 0:
-            raise AssertionError(f"phase 10 {label} process {i} exited {p.returncode} after {seconds:.1f} s:\n"
+            raise AssertionError(f"phase {label} process {i} exited {p.returncode} after {seconds:.1f} s:\n"
                                  f"{text[-6000:]}")
     return texts, seconds, firsts
 
@@ -2611,6 +2642,363 @@ def phase10_multi_process(snapshot_dir, device, model_config=MODEL_CONFIG, res=1
     return {"10a": a, "10b": b, "10c": c, "10d": d}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the offline data layer on the card's host, from a raw archive to
+# a guided predict on the card. Every process it starts and this process
+# from its start on have the packages of PHASE11_BLOCKED unimportable.
+
+FIXTURES = REPO / "tests" / "fixtures"
+FIXTURE_NAMES = ("v108", "latest")  # netCDF-C's 1.8 low bound; libver 'latest'
+# every kind of checksummed structure of the 'latest' fixture (signatures)
+CHECKSUMMED = (b"\x89HDF", b"OHDR", b"OCHK", b"FRHP", b"FHDB", b"FHIB", b"BTHD", b"BTLF", b"FAHD", b"FADB", b"EAHD",
+               b"EAIB", b"EASB", b"EADB")
+PHASE11_BLOCKED = ("jax", "flax", "optax", "h5py", "scipy", "click", "netCDF4", "xarray", "climate2weather_tpu")
+ARCHIVE_NAME = "{var}_EUR-6km_ECMWF-ERAINT_REA6_r1i1p1f1_COSMO_v1_{t0}-{t1}.nc"
+# (start, hours, 12-digit start stamp, end stamp): a 2005 decoy that the
+# year filter drops, two 2006 files (the second with a fully missing tas
+# hour) and one 2014 file
+ARCHIVE_FILES = (("2005-01-01T00", 1, "200501010000", "200501010000"),
+                 ("2006-01-01T00", 12, "200601010000", "200601011100"),
+                 ("2006-01-01T12", 12, "200601011200", "200601012300"),
+                 ("2014-01-01T00", 12, "201401010000", "201401011100"))
+ARCHIVE_NAN = ("tas", 2, 5)  # variable, file of ARCHIVE_FILES, hour
+QM_CONFIG = REPO / "exp" / "configs" / "001_clim-downscaling" / "qm_debiased_climate_mpi.yml"
+# the climate model's bias: (scale, offset) per variable
+QM_BIAS = {"psl": (1.002, 0.0), "tas": (1.0, 2.0), "uas": (0.8, 0.0), "vas": (0.8, 0.0)}
+QM_MARGIN = 0.1  # debiased quantile error at most this share of the biased one
+SYNTH_HOURS = (240, 56)  # train, eval: the CLI's 8784 and 1488 cut to the phase's time
+PHASE11_BLOCKER = r"""
+import importlib.abc, runpy, sys
+
+BLOCKED = set(sys.argv[1].split(","))
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked in chip_smoke phase 11: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+for name in BLOCKED:
+    sys.modules[name] = None
+kind, target, sys.argv = sys.argv[2], sys.argv[3], [sys.argv[3]] + sys.argv[4:]
+if kind == "module":
+    runpy.run_module(target, run_name="__main__", alter_sys=True)
+else:
+    runpy.run_path(target, run_name="__main__")
+"""
+
+
+def _blocked(kind: str, target: str, *argv) -> list:
+    """The command line of ``python -m target ARGS`` (``kind`` "module") or
+    ``python target ARGS`` ("path") with the packages of PHASE11_BLOCKED
+    unimportable."""
+    return [sys.executable, "-c", PHASE11_BLOCKER, ",".join(PHASE11_BLOCKED), kind, str(target), *map(str, argv)]
+
+
+def _data_cli(device, label, *argv) -> float:
+    """One command of ``python -m climate2weather_tpu_torch.data.cli`` in its
+    own blocked process; its seconds."""
+    _, seconds, _ = _run_processes([_blocked("module", "climate2weather_tpu_torch.data.cli", *argv)],
+                                   [_child_env(device)], label=f"11 {label}")
+    return seconds
+
+
+def _read_all(path) -> dict:
+    """Every dataset and attribute of an HDF5 file through the port's reader."""
+    from climate2weather_tpu_torch.io import hdf5
+
+    out = {}
+    with hdf5.File(path) as f:
+        out["/"] = dict(f.attrs)
+        for k in f.keys():
+            out[k] = (f[k][()], dict(f[k].attrs))
+    return out
+
+
+def sig_name(sig: bytes) -> str:
+    """A structure's signature as text (the superblock's without its first byte)."""
+    return sig.decode("latin-1").strip("\x89")
+
+
+def checksummed_byte(raw: bytes, sig: bytes) -> int:
+    """A byte of the first ``sig`` structure in ``raw`` that its checksum
+    covers and that the reader uses only after verifying it: chunk 0's last
+    byte of an object header, a field past the signature of the others."""
+    at = raw.index(sig)
+    if sig == b"OHDR":
+        flags = raw[at + 5]
+        pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+        size_len = 1 << (flags & 3)
+        return at + pos + size_len + int.from_bytes(raw[at + pos:at + pos + size_len], "little") - 1
+    return at + {b"\x89HDF": 20, b"OCHK": 4, b"EAHD": 12, b"FAHD": 8}.get(sig, 6)
+
+
+def phase11a_netcdf(root) -> dict:
+    """The committed netCDF-C fixtures through ``io.hdf5.File`` and
+    ``open_grid``: every array equal to the fixtures' ``.npz`` bit for bit,
+    and a flipped byte in each kind of checksummed structure caught."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io import hdf5
+
+    t0 = time.time()
+    want = np.load(FIXTURES / "netcdf_c_contents.npz")
+    rec = {}
+    for name in FIXTURE_NAMES:
+        path = FIXTURES / f"netcdf_c_{name}.nc"
+        raw = path.read_bytes()
+        read = _read_all(path)
+        grid = open_grid(str(path))
+        equal = {k: read[k][0].dtype == want[k].dtype and read[k][0].tobytes() == want[k].tobytes()
+                 for k in want.files}
+        equal.update({f"open_grid_{v}": grid.data_vars[v].tobytes() == want[v].tobytes() for v in grid.data_vars})
+        rec[name] = {"superblock": raw[8], "bytes": len(raw), "equal": equal, "root_attrs": len(read["/"]),
+                     "structures": {sig_name(s): raw.count(s) for s in CHECKSUMMED}}
+        if not all(equal.values()) or len(equal) != len(want.files) + 4:
+            raise AssertionError(f"the {name} fixture reads wrong: {rec[name]}")
+    raw = (FIXTURES / "netcdf_c_latest.nc").read_bytes()
+    caught = {}
+    for sig in CHECKSUMMED:
+        flipped = bytearray(raw)
+        flipped[checksummed_byte(raw, sig)] ^= 0x10
+        path = root / "flipped.nc"
+        path.write_bytes(bytes(flipped))
+        try:
+            _read_all(path)
+            caught[sig_name(sig)] = None
+        except hdf5.ChecksumError as e:
+            caught[sig_name(sig)] = str(e).split(": ", 1)[1]
+    rec["checksum_faults"] = caught
+    emit("11a", t0, **rec)
+    if not all(caught.values()):
+        raise AssertionError(f"a flipped byte in a checksummed structure went unseen: {caught}")
+    return rec
+
+
+def write_cosmo_archive(root: pathlib.Path, nlat=473, nlon=500, seed=7) -> pathlib.Path:
+    """A raw archive in the reference's layout through the port's writer:
+    one folder per variable of files named as the reference names them
+    (ARCHIVE_FILES) over an ``nlat`` x ``nlon`` domain, one hour of tas
+    missing (ARCHIVE_NAN)."""
+    from climate2weather_tpu_torch.data.grid import GridDataset
+
+    rng = np.random.default_rng(seed)
+    coords = {"rlat": np.linspace(-21.0, 20.9, nlat), "rlon": np.linspace(-28.0, 21.9, nlon)}
+    for var in sorted(PHYSICAL):
+        (root / var).mkdir(parents=True)
+        off, sc = PHYSICAL[var]
+        for start, n, t0, t1 in ARCHIVE_FILES:
+            field = (np.cumsum(rng.standard_normal((n, nlat, nlon), np.float32), axis=0) * 0.1 * sc + off
+                     ).astype(np.float32)
+            if (var, t0) == (ARCHIVE_NAN[0], ARCHIVE_FILES[ARCHIVE_NAN[1]][2]):
+                field[ARCHIVE_NAN[2]] = np.nan
+            time_axis = np.datetime64(start, "ns") + np.arange(n) * np.timedelta64(1, "h")
+            GridDataset({var: field}, {"time": time_axis, **coords}).to_file(
+                str(root / var / ARCHIVE_NAME.format(var=var, t0=t0, t1=t1)))
+    return root
+
+
+def phase11b_drill(root, device, model_config, nlat, nlon, patch, seed, steps) -> dict:
+    """tests/test_cosmo_layout.py's drill through the port's command lines,
+    each a blocked process: ``extract-patch-folder --years 2006-2014`` per
+    variable, ``preproc-all``, then ``train`` for ``steps`` steps of 16 on the
+    ``train_normed.h5`` it wrote (through this script's ``--child train``,
+    which counts the attention launches)."""
+    from climate2weather_tpu_torch.data.grid import QuantileDataset, open_grid
+    from climate2weather_tpu_torch.io import hdf5
+
+    t0 = time.time()
+    archive, patches, proc = root / "archive", root / "patches", root / "preproc"
+    write_cosmo_archive(archive, nlat, nlon, seed)
+    archive_s = time.time() - t0
+    size = sum(p.stat().st_size for p in archive.rglob("*.nc"))
+    (lat0, lat1), (lon0, lon1) = patch
+    cli_s = {}
+    for var in sorted(PHYSICAL):
+        cli_s[f"extract_{var}"] = _data_cli(device, f"extract {var}", "extract-patch-folder", "--var-folder",
+                                            archive / var, "--out-folder", patches / var, "--years", "2006-2014",
+                                            "--lat0", lat0, "--lat1", lat1, "--lon0", lon0, "--lon1", lon1)
+    cli_s["preproc_all"] = _data_cli(device, "preproc-all", "preproc-all", "--raw-dir", patches, "--out-dir", proc)
+    # the checks of tests/test_cosmo_layout.py
+    hw = (lat1 - lat0, lon1 - lon0)
+    kept = {v: sorted(p.name for p in (patches / v).glob("*.nc")) for v in PHYSICAL}
+    var, i, hour = ARCHIVE_NAN
+    name = ARCHIVE_NAME.format(var=var, t0=ARCHIVE_FILES[i][2], t1=ARCHIVE_FILES[i][3])
+    stats = np.load(patches / var / (name[:-len(".nc")] + "_nan_stats.npz"))
+    repaired = open_grid(str(patches / var / name))
+    with hdf5.File(proc / "train_normed.h5") as f:
+        x, x_vars = f["x"][()], [str(v) for v in f.attrs["vars"]]
+    test_ds = open_grid(str(proc / "test_merged-allvars.nc"))
+    quant = QuantileDataset.from_file(str(proc / "train_quantiles.nc"))
+    rec = {"archive_bytes": size, "archive_s": archive_s, "cli_s": cli_s, "kept": {v: len(k) for v, k in kept.items()},
+           "nan_audit": {"nr_of_times": int(stats[f"{var}_nr_of_times"]),
+                         "which_times": stats[f"{var}_which_times"].tolist()},
+           "repaired_finite": bool(np.isfinite(repaired.data_vars[var]).all()),
+           "train_x_shape": list(x.shape), "train_x_finite": bool(np.isfinite(x).all()), "vars": x_vars,
+           "test_hours": len(test_ds.time), "quantile_vars": sorted(quant.values)}
+    want = {"kept": dict.fromkeys(PHYSICAL, 3), "nan_audit": {"nr_of_times": 1, "which_times": [hour]},
+            "repaired_finite": True, "train_x_shape": [24, 4, *hw], "train_x_finite": True,
+            "vars": sorted(PHYSICAL), "test_hours": 12, "quantile_vars": sorted(PHYSICAL)}
+    wrong = {k: (rec[k], v) for k, v in want.items() if rec[k] != v}
+    if wrong:
+        raise AssertionError(f"the drill's files are wrong (got, want): {wrong}")
+    # training on the file the drill wrote
+    t_train = time.time()
+    argv = ["--run-dir", root / "runs", "--run-id", "drill", "--train-data", proc / "train_normed.h5",
+            "--spatial-res", hw[0], "--num-features", "4", "--markov-order", "1", "--model-config", model_config,
+            "--lr", "1e-3", "--total-ndata", 16 * steps, "--batch", "16", "--batch-gpu", "16", "--status", "16",
+            "--snapshot", "1024", "--checkpoint", "1024", "--logging", "16", "--valid", "0",
+            "--seed", seed, "--device", device.type]
+    (out,), train_s, _ = _run_processes([_blocked("path", REPO / "chip_smoke.py", "--child", "train", *argv)],
+                                        [_child_env(device)], label="11b train")
+    child = _child_result(out)
+    lines = (root / "runs" / "drill" / "metrics.jsonl").read_text().splitlines()
+    losses = [json.loads(ln)["train/loss"] for ln in lines if "train/loss" in json.loads(ln)]
+    rec.update(train_s=train_s, train_wall_s=time.time() - t_train, losses=losses, train_launches=child["launches"],
+               train_peak_bytes=child["peak_bytes"], train_steps=child["step"])
+    emit("11b", t0, **rec)
+    if len(losses) != steps or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"training on the drill's file: losses {losses}")
+    return rec
+
+
+def _quantile_error(ds, ref, levels=np.linspace(0.01, 0.99, 99)) -> dict:
+    """Per variable, the mean distance of ``ds``'s quantiles from ``ref``'s
+    over ``levels``, in units of ``ref``'s standard deviation."""
+    return {v: float(np.mean(np.abs(np.quantile(ds.data_vars[v].astype(np.float64), levels)
+                                    - np.quantile(r.astype(np.float64), levels))) / r.std())
+            for v, r in ref.data_vars.items()}
+
+
+def phase11c_synth_debias(root, device, res, hours, seed) -> dict:
+    """``synth --spectrum mesoscale`` (train and eval hours cut to
+    SYNTH_HOURS), a biased coarse "climate model" from the eval grid (16x
+    block means every 6th hour, QM_BIAS), ``debias`` against the train grid
+    coarsened the same way: every variable's debiased quantiles closer to the
+    reference's than the biased ones, by QM_MARGIN."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+
+    t0 = time.time()
+    synth = root / "synth"
+    train_h, eval_h = hours
+    synth_s = _data_cli(device, "synth", "synth", "--out-dir", synth, "--train-hours", train_h, "--eval-hours", eval_h,
+                        "--res", res, "--seed", seed, "--spectrum", "mesoscale")
+    paths = {"model": root / "climate_model.nc", "reference": root / "reference_coarse.nc",
+             "debiased": root / "debiased_qm.nc"}
+
+    def coarse(path):
+        ds = open_grid(str(path))
+        return ds.coarsen_mean(16).isel_time(np.arange(0, len(ds.time), 6))
+
+    model = coarse(synth / "eval_merged.nc").map(
+        lambda k, v: (v * np.float32(QM_BIAS[k][0]) + np.float32(QM_BIAS[k][1])).astype(np.float32))
+    model.to_file(str(paths["model"]))
+    reference = coarse(synth / "train_merged.nc")
+    reference.to_file(str(paths["reference"]))
+    debias_s = _data_cli(device, "debias", "debias", "--model-path", paths["model"], "--reference-path",
+                         paths["reference"], "--out-path", paths["debiased"])
+    debiased = open_grid(str(paths["debiased"]))
+    biased_err, debiased_err = _quantile_error(model, reference), _quantile_error(debiased, reference)
+    rec = {"synth_s": synth_s, "debias_s": debias_s, "hours": {"train": train_h, "eval": eval_h},
+           "model_frames": len(model.time), "reference_frames": len(reference.time),
+           "quantile_error_biased": biased_err, "quantile_error_debiased": debiased_err, "margin": QM_MARGIN,
+           "synth_bytes": sum(p.stat().st_size for p in synth.iterdir())}
+    emit("11c", t0, **rec)
+    if any(not debiased_err[v] <= QM_MARGIN * biased_err[v] for v in QM_BIAS):
+        raise AssertionError(f"debiasing did not bring the quantiles {QM_MARGIN} of the way: {rec}")
+    return {**rec, "paths": {k: str(v) for k, v in paths.items()}, "synth": str(synth)}
+
+
+def phase11d_predict(root, snapshot_dir, device, synth_rec, steps, samples) -> dict:
+    """``experiment predict`` (through ``--child predict``, which counts the
+    attention launches) with the 72.1M snapshot at a copy of
+    ``qm_debiased_climate_mpi.yml`` naming 11c's files, the observation the
+    debiased file, 49 hours, DPM-Solver++(2M), with the confirmed setting's
+    t=0 spectral projection (so A(x) = y): finite samples, the written
+    observation the debiased file's frames, A(x) = y under phase 4's limit,
+    6 attention launches per UNet forward on the card; then ``metrics run``
+    on the written directory."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+
+    t0 = time.time()
+    synth = pathlib.Path(synth_rec["synth"])
+    cfg = yaml_load_file(QM_CONFIG)
+    cfg.update(model_path=str(snapshot_dir), data_path=str(synth / "eval_merged.nc"),
+               quantile_path=str(synth / "quantiles.h5"), observation_path=synth_rec["paths"]["debiased"],
+               num_hours=49, sampler_kind="dpmpp2m", num_sampling_steps=steps, num_samples=samples,
+               t0_project="spectral", t0_project_iters=3)
+    config_path = root / "qm_debiased.yml"
+    yaml_dump_file(cfg, config_path)
+    argv = ["predict", "--save-path", root / "predict", "--config-path", config_path, "--device", device.type]
+    (out,), predict_s, _ = _run_processes([_blocked("path", REPO / "chip_smoke.py", "--child", "predict", *argv)],
+                                          [_child_env(device)], label="11d predict")
+    child = _child_result(out)
+    out_dir = root / "predict" / sorted(p.name for p in (root / "predict").iterdir())[0]
+    gens = [open_grid(str(out_dir / f"gen_sample_{i:03d}.nc")) for i in range(samples)]
+    finite = all(bool(np.isfinite(v).all()) for g in gens for v in g.data_vars.values())
+    consistency, tol = _written_consistency(out_dir, gens, cfg, cfg["quantile_path"])
+    written, debiased = open_grid(str(out_dir / "observation.nc")), open_grid(synth_rec["paths"]["debiased"])
+    frames = debiased.sel_time(written.time[0].astype("datetime64[s]").item(),
+                               written.time[-1].astype("datetime64[s]").item())
+    obs_err = max(float(np.abs(written.data_vars[v] - frames.data_vars[v]).max() / np.abs(frames.data_vars[v]).max())
+                  for v in QM_BIAS)
+    snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    expect = _attention_blocks(snap_cfg["network_kwargs"]) * _expected_forwards(cfg, 49, window) \
+        if device.type == "cuda" else 0
+    metrics = phase8d_metrics(out_dir, label="11d metrics")
+    rec = {"predict_s": predict_s, "run_s": child["seconds"], "peak_bytes": child["peak_bytes"],
+           "launches": child["launches"], "expected_attention_fwd": expect, "finite": finite,
+           "A_x_minus_y_max": consistency, "A_tol": tol, "observation_frames": len(written.time),
+           "observation_rel_err": obs_err, "metrics_scores": metrics["scores"], "metrics_s": metrics["metrics_s"],
+           "outputs": sorted(p.name for p in out_dir.iterdir())}
+    emit("11d", t0, **rec)
+    if not finite or consistency > tol or child["launches"]["attention_fwd"] != expect:
+        raise AssertionError(f"the guided predict from the debiased file failed its checks: {rec}")
+    if len(written.time) != len(frames.time) or obs_err > 1e-6:
+        raise AssertionError(f"the observation the run wrote is not the debiased file's: {rec}")
+    return rec
+
+
+def phase11_summary(data: dict) -> dict:
+    """Phase 11's line: each step's seconds and sizes, and the launches."""
+    b, c, d = data["11b"], data["11c"], data["11d"]
+    return {"archive_bytes": b["archive_bytes"], "cli_s": b["cli_s"], "train_s": b["train_s"],
+            "train_launches": b["train_launches"], "train_peak_bytes": b["train_peak_bytes"],
+            "synth_s": c["synth_s"], "synth_bytes": c["synth_bytes"], "debias_s": c["debias_s"],
+            "quantile_error_biased": c["quantile_error_biased"],
+            "quantile_error_debiased": c["quantile_error_debiased"], "predict_s": d["predict_s"],
+            "predict_run_s": d["run_s"], "predict_peak_bytes": d["peak_bytes"], "predict_launches": d["launches"],
+            "A_x_minus_y_max": d["A_x_minus_y_max"], "metrics_s": d["metrics_s"],
+            "loaded_before": data["loaded_before"]}
+
+
+def phase11_data(snapshot_dir, device, model_config=REPO / "configs" / "tiny_unet.yml", nlat=473, nlon=500,
+                 patch=((344, 472), (371, 499)), res=128, synth_hours=SYNTH_HOURS, seed=0, train_steps=4,
+                 predict_steps=8, samples=3) -> dict:
+    """Phase 11, 11a-11d (see the module docstring), in one scratch
+    directory, with the packages of PHASE11_BLOCKED unimportable in this
+    process and in every process it starts. Returns each part's record."""
+    import shutil
+    import tempfile
+
+    loaded_before = sorted(m for m in PHASE11_BLOCKED if sys.modules.get(m) is not None)
+    for name in PHASE11_BLOCKED:
+        sys.modules[name] = None
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-data-"))
+    try:
+        a = phase11a_netcdf(root)
+        b = phase11b_drill(root, device, model_config, nlat, nlon, patch, seed, train_steps)
+        c = phase11c_synth_debias(root, device, res, synth_hours, seed)
+        d = phase11d_predict(root, snapshot_dir, device, c, predict_steps, samples)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"11a": a, "11b": b, "11c": c, "11d": d, "loaded_before": loaded_before}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--child"]:  # one process of phase 10 (see child_step, child_cli)
@@ -2637,6 +3025,9 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-process-only", action="store_true",
                     help="phases 0 and 1, then phase 10 (multi-process training, striped predict, the "
                          "supervisor), and stop (no device line)")
+    ap.add_argument("--data-only", action="store_true",
+                    help="phases 0 and 1, then phase 11 (the offline data layer from the netCDF-C fixtures and a "
+                         "raw archive to a guided predict), and stop (no device line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only",
@@ -2668,6 +3059,11 @@ def main(argv=None) -> int:
         emit(10, t10, **phase10_summary(phase10_multi_process(SNAPSHOT, device, seed=args.seed)))
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
+    if args.data_only:
+        t11 = time.time()
+        emit(11, t11, **phase11_summary(phase11_data(SNAPSHOT, device, seed=args.seed)))
+        print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
+        return 0
     rows, year_fwd, exact_bwd = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
@@ -2684,6 +3080,9 @@ def main(argv=None) -> int:
     t10 = time.time()
     ranks = phase10_multi_process(SNAPSHOT, device, seed=args.seed)
     emit(10, t10, **phase10_summary(ranks))
+    t11 = time.time()
+    data = phase11_data(SNAPSHOT, device, seed=args.seed)
+    emit(11, t11, **phase11_summary(data))
     # each kernel's launches on its own path: sampling for the forward (and
     # the year path's, at its own shape), training for the backward, the
     # ModResidualBlock composition for the Winograd conv
@@ -2705,6 +3104,11 @@ def main(argv=None) -> int:
         rows[name]["multi_process"] = {
             "10b_launches_per_rank": [lr[name] for lr in ranks["10b"]["launches_per_rank"]],
             "10c_launches_per_rank": [lr[name] for lr in ranks["10c"]["launches_per_rank"]]}
+    # phase 11: the training on the drill's file (11b) and the guided
+    # predict from the debiased file (11d)
+    rows["attention_fwd"]["data_path"] = {"11b_launches": data["11b"]["train_launches"]["attention_fwd"],
+                                          "11d_launches": data["11d"]["launches"]["attention_fwd"]}
+    rows["attention_bwd"]["data_path"] = {"11b_launches": data["11b"]["train_launches"]["attention_bwd"]}
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

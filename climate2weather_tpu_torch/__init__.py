@@ -13,13 +13,16 @@ and snapshots in the JAX package's formats, the dataset and sampler, and the
 ``train`` CLI, with the attention's gradient from a second CUDA kernel.
 Several processes: ``train`` and ``experiment predict`` under torchrun, one
 rank per card (data-parallel training, samples striped over the ranks), and
-the restart supervisor. The Winograd conv of the JAX package is a third
+the restart supervisor. The offline data layer: ``python -m
+climate2weather_tpu_torch.data.cli`` from a raw netCDF-4 archive to the
+training file, quantile-mapping debias and the synthetic generator. The
+Winograd conv of the JAX package is a third
 kernel (``ops.winograd``). It imports torch and numpy only; the JAX package
 is its reference in the tests.
 
 Subpackages: ``io`` (msgpack, YAML and HDF5 readers and writers), ``models``,
 ``diffusion``, ``training``, ``parallel`` (the process group),
-``data`` (datasets, grids, normalization),
+``data`` (datasets, grids, normalization, the offline data layer),
 ``ops`` (CUDA kernels, their plain versions, the autograd Functions and the
 nvcc build), ``exp``, ``utils``. Sources of the kernels live in ``csrc/``.
 """

@@ -139,6 +139,26 @@ class GridDataset:
         return GridDataset({k: fn(k, v) for k, v in self.data_vars.items()}, dict(self.coords),
                            dict(self.attrs))
 
+    def nan_report(self) -> Optional[dict]:
+        """Times containing NaNs per variable ({name: {"nr_of_times",
+        "which_times"}}); None when clean."""
+        report = {}
+        for k, v in self.data_vars.items():
+            isnan = np.isnan(v)
+            if isnan.any():
+                which_times = np.unique(np.argwhere(isnan)[:, 0])
+                report[k] = {"nr_of_times": len(which_times), "which_times": which_times}
+        return report or None
+
+    @staticmethod
+    def concat_time(parts: Sequence["GridDataset"]) -> "GridDataset":
+        """The parts one after another along time (the first part's spatial
+        coordinates and attributes)."""
+        names = parts[0].var_names()
+        return GridDataset({k: np.concatenate([p.data_vars[k] for p in parts], axis=0) for k in names},
+                           {**parts[0].coords, "time": np.concatenate([p.time for p in parts])},
+                           dict(parts[0].attrs))
+
     def to_file(self, path: str, dtype: str = "float32") -> None:
         """Write an HDF5 file as the JAX ``GridDataset.to_file`` does through
         h5py: ``time`` (hours, CF ``units``), ``rlat``, ``rlon``, one

@@ -1,7 +1,7 @@
 """Normalization and tensor <-> grid conversion (port of
-climate2weather_tpu/data/pipeline.py), with the two functions of the JAX
-``data/processing.py`` that make the files the port's own runs need:
-``compute_quantiles`` and ``merged_to_normed_h5``.
+climate2weather_tpu/data/pipeline.py). ``compute_quantiles`` and
+``merged_to_normed_h5`` are in ``data/processing.py`` and importable from
+here too.
 
 - ``load_processed``: open a merged grid file, keep the requested
   variables, slice (start_time, num_hours);
@@ -14,7 +14,7 @@ climate2weather_tpu/data/pipeline.py), with the two functions of the JAX
 from __future__ import annotations
 
 from datetime import timedelta
-from typing import Optional, Sequence, Union
+from typing import Sequence, Union
 
 import numpy as np
 
@@ -24,7 +24,6 @@ from climate2weather_tpu_torch.data.grid import (
     convert_to_datetime,
     open_grid,
 )
-from climate2weather_tpu_torch.io import hdf5
 
 NORM_MODES = ("minmax", "robust", "robust95", "quant95", "quant99")
 
@@ -110,34 +109,12 @@ def nchw_to_nhwc(x: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(x, 1, -1))
 
 
-def compute_quantiles(ds: GridDataset, quantiles: Sequence[float] = (
-        0.0, 0.01, 0.05, 0.25, 0.5, 0.75, 0.95, 0.99, 1.0)) -> QuantileDataset:
-    """Scalar per-variable quantiles over all of (time, rlat, rlon)."""
-    qs = np.asarray(quantiles, np.float64)
-    return QuantileDataset(qs, {k: np.quantile(v.astype(np.float64), qs) for k, v in ds.data_vars.items()})
+def __getattr__(name: str):
+    """``compute_quantiles`` and ``merged_to_normed_h5`` live in
+    ``data/processing.py``, as in the JAX package; they stay importable from
+    here."""
+    if name in ("compute_quantiles", "merged_to_normed_h5"):
+        from climate2weather_tpu_torch.data import processing
 
-
-def merged_to_normed_h5(merged_path: str, quantile_path: str, out_path: str,
-                        norm_mode: str = "quant95", data_vars: Optional[Sequence[str]] = None,
-                        chunk_hours: int = 24) -> str:
-    """Normalize a merged grid file into the training HDF5 layout, as the
-    JAX ``merged_to_normed_h5`` does: dataset ``x`` [T, C, H, W] float32 in
-    chunks of ``chunk_hours`` frames (unlimited first axis), with the
-    ``vars`` and ``norm_mode`` attributes; raises on NaN."""
-    ds = open_grid(merged_path, data_vars)
-    data_vars = ds.var_names()
-    normed = normalize_ds(ds, quantile_path, norm_mode)
-    T, H, W, C = len(normed.time), len(normed.rlat), len(normed.rlon), len(data_vars)
-    with hdf5.Writer(out_path) as w:
-        x = w.create_dataset("x", shape=(T, C, H, W), dtype=np.float32,
-                             chunks=(min(chunk_hours, T), C, H, W))
-        rows = min(chunk_hours, T)
-        for t0 in range(0, T, rows):
-            t1 = min(t0 + rows, T)
-            block = np.stack([normed.data_vars[v][t0:t1] for v in data_vars], axis=1).astype(np.float32)
-            if np.isnan(block).any():
-                raise RuntimeError(f"NaN detected in normalized block [{t0}:{t1}]")
-            x.write_rows(t0, block)
-        w.attrs["vars"] = data_vars
-        w.attrs["norm_mode"] = norm_mode
-    return out_path
+        return getattr(processing, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

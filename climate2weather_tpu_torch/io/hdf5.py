@@ -3,28 +3,42 @@
 The port reads and writes the JAX package's HDF5 files without h5py, which
 a GPU host may lack: the training file of ``merged_to_normed_h5``,
 the grid files of ``GridDataset.to_file`` (``.nc`` names, HDF5 inside) and
-the quantile files of ``QuantileDataset.to_file``. This module covers the
-structures that h5py (HDF5 1.14, default ``libver``) writes for them:
+the quantile files of ``QuantileDataset.to_file``. It also reads what
+HDF5 1.8 and later write for netCDF-4 files (netCDF-C >= 4.4 sets the 1.8
+low bound; h5py's ``libver='latest'`` goes further). This module covers:
 
-- superblock version 0; version-1 object headers with continuation blocks;
+- superblock versions 0, 2 and 3;
+- version-1 object headers with continuation blocks, and version-2 object
+  headers (``OHDR``, continuation blocks ``OCHK``);
 - groups held as a symbol table (a version-1 B-tree of symbol-table nodes
-  and a local heap);
-- contiguous and chunked layouts (layout message version 3), the chunks
-  indexed by a version-1 B-tree;
+  and a local heap), and new-style groups: compact (link messages) or dense
+  (a fractal heap of links, indexed by a version-2 B-tree by name or by
+  creation order);
+- attributes in the object header, or dense (a fractal heap of attribute
+  messages indexed by a version-2 B-tree by name or by creation order);
+  fractal heaps with direct and indirect blocks, their managed, tiny and
+  unfiltered huge objects;
+- contiguous and chunked layouts (layout message versions 3 and 4), the
+  chunks indexed by a version-1 B-tree, a single-chunk index, a fixed array
+  (``FAHD``/``FADB``, paged or not) or an extensible array (``EAHD``,
+  ``EAIB``, ``EASB``, ``EADB``) along an unlimited first axis;
 - integer and floating-point data of either byte order, fixed-length and
   variable-length strings (the latter in the global heap);
 - the deflate and shuffle filters.
 
-Attributes of other types (the object references of dimension scales, for
-example) are skipped. Anything else raises ``NotImplementedError`` naming
-what it found (a superblock of version 2 or 3, a version-2 object header,
-a version-2 B-tree, a fractal heap, ...), so a file is read right or not at
-all.
+Every Jenkins lookup3 checksum of these structures is verified: a mismatch
+raises :class:`ChecksumError`. Attributes of other types (the object
+references of dimension scales, for example) are skipped. Anything else
+raises ``NotImplementedError`` naming what it found (a version-2 B-tree or
+implicit chunk index, a compact layout, another filter, shared messages,
+soft or external links, a filtered fractal heap, ...), so a file is read
+right or not at all.
 
 :class:`File` opens a file for reading. A chunked dataset's index is read
 when the dataset is opened; a slice then reads only the chunks it overlaps.
-:class:`Writer` writes the same structures without filters: raw data as it
-is given, the metadata when it is closed.
+:class:`Writer` writes superblock 0, version-1 object headers and a
+symbol-table root group without filters: raw data as it is given, the
+metadata when it is closed.
 """
 
 from __future__ import annotations
@@ -43,14 +57,22 @@ UNDEF = 0xFFFFFFFFFFFFFFFF
 MSG_NIL, MSG_DATASPACE, MSG_LINK_INFO, MSG_DATATYPE = 0x0, 0x1, 0x2, 0x3
 MSG_FILL_OLD, MSG_FILL, MSG_LINK, MSG_EXTERNAL, MSG_LAYOUT = 0x4, 0x5, 0x6, 0x7, 0x8
 MSG_GROUP_INFO, MSG_FILTERS, MSG_ATTRIBUTE = 0xA, 0xB, 0xC
-MSG_CONTINUATION, MSG_SYMBOL_TABLE, MSG_ATTRIBUTE_INFO = 0x10, 0x11, 0x15
+MSG_SHARED_TABLE, MSG_CONTINUATION, MSG_SYMBOL_TABLE, MSG_ATTRIBUTE_INFO = 0x0F, 0x10, 0x11, 0x15
 
 FILTER_DEFLATE, FILTER_SHUFFLE = 1, 2
+
+# version-2 B-tree record types
+BT2_LINK_NAME, BT2_LINK_ORDER, BT2_ATTR_NAME, BT2_ATTR_ORDER, BT2_HUGE = 5, 6, 8, 9, 1
 
 
 class _Unsupported(Exception):
     """A datatype this reader does not decode (attributes of such types are
     skipped; datasets of such types raise ``NotImplementedError``)."""
+
+
+class ChecksumError(OSError):
+    """A structure's stored checksum differs from its contents' (a damaged
+    file)."""
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +103,45 @@ class _Source:
 
 def _uint(buf: bytes, pos: int, size: int) -> int:
     return int.from_bytes(buf[pos:pos + size], "little")
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _rot(x: int, k: int) -> int:
+    return ((x << k) | (x >> (32 - k))) & _M32
+
+
+def lookup3(data: bytes) -> int:
+    """Bob Jenkins' lookup3 ``hashlittle`` with an initial value of 0, the
+    checksum of HDF5's metadata (``H5_checksum_metadata``)."""
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n) & _M32
+    if n == 0:
+        return c
+    tail = n - ((n - 1) // 12) * 12  # the last 1..12 bytes go to the final mix
+    words = np.frombuffer(bytes(data) + b"\0" * (12 - tail), "<u4").tolist()
+    for i in range(0, len(words) - 3, 3):
+        a, b, c = (a + words[i]) & _M32, (b + words[i + 1]) & _M32, (c + words[i + 2]) & _M32
+        for r1, r2, r3 in ((4, 6, 8), (16, 19, 4)):  # mix(a, b, c)
+            a = ((a - c) & _M32) ^ _rot(c, r1)
+            c = (c + b) & _M32
+            b = ((b - a) & _M32) ^ _rot(a, r2)
+            a = (a + c) & _M32
+            c = ((c - b) & _M32) ^ _rot(b, r3)
+            b = (b + a) & _M32
+    a, b, c = (a + words[-3]) & _M32, (b + words[-2]) & _M32, (c + words[-1]) & _M32
+    for r1, r2, r3 in ((14, 11, 25), (16, 4, 14)):  # final(a, b, c)
+        c = ((c ^ b) - _rot(b, r1)) & _M32
+        a = ((a ^ c) - _rot(c, r2)) & _M32
+        b = ((b ^ a) - _rot(a, r3)) & _M32
+    c = ((c ^ b) - _rot(b, 24)) & _M32
+    return c
+
+
+def _limit_enc_size(n: int) -> int:
+    """Bytes HDF5 uses to encode counts up to ``n`` (``H5VM_limit_enc_size``)."""
+    return (max(n, 1).bit_length() - 1) // 8 + 1
 
 
 # ---------------------------------------------------------------------------
@@ -124,19 +185,24 @@ def _parse_datatype(buf: bytes, pos: int) -> Tuple[_Datatype, int]:
     raise _Unsupported(f"datatype class {cls} ({names.get(cls, 'unknown')})")
 
 
-def _parse_dataspace(buf: bytes, pos: int) -> Optional[Tuple[int, ...]]:
-    """The shape of the dataspace message at ``buf[pos:]``; None for a null
-    dataspace, () for a scalar."""
+def _parse_dataspace(buf: bytes, pos: int) -> Tuple[Optional[Tuple[int, ...]], Optional[tuple]]:
+    """(shape, maximum shape) of the dataspace message at ``buf[pos:]``: None
+    for a null dataspace, () for a scalar; an unlimited axis is None in the
+    maximum shape."""
     version, rank, flags = buf[pos], buf[pos + 1], buf[pos + 2]
     if version == 1:
         start = pos + 8
     elif version == 2:
         if buf[pos + 3] == 2:
-            return None
+            return None, None
         start = pos + 4
     else:
         raise NotImplementedError(f"dataspace message version {version}")
-    return tuple(_uint(buf, start + 8 * i, 8) for i in range(rank))
+    shape = tuple(_uint(buf, start + 8 * i, 8) for i in range(rank))
+    if not flags & 1:
+        return shape, shape
+    top = (_uint(buf, start + 8 * (rank + i), 8) for i in range(rank))
+    return shape, tuple(None if m == UNDEF else m for m in top)
 
 
 # ---------------------------------------------------------------------------
@@ -154,17 +220,22 @@ class _Object:
         self.attrs: Dict[str, object] = {}
         for mtype, data in self.messages:
             if mtype == MSG_ATTRIBUTE:
-                name, value = f._parse_attribute(data)
-                if name is not None:
-                    self.attrs[name] = value
+                self._add_attribute(data)
             elif mtype == MSG_ATTRIBUTE_INFO:
-                raise NotImplementedError("dense attribute storage (attribute info message)")
+                for raw in f._dense_attributes(data):
+                    self._add_attribute(raw)
+
+    def _add_attribute(self, data: bytes) -> None:
+        name, value = self.file._parse_attribute(data)
+        if name is not None:
+            self.attrs[name] = value
 
     def _read_header(self, addr: int) -> None:
         src = self.file._src
         head = src.read(addr, 16)
         if head[:4] == b"OHDR":
-            raise NotImplementedError("version-2 object header (OHDR)")
+            self._read_header_v2(addr)
+            return
         if head[0] != 1:
             raise NotImplementedError(f"object header version {head[0]}")
         n_msgs = _uint(head, 2, 2)
@@ -177,19 +248,51 @@ class _Object:
                 mtype, size, flags = _uint(data, pos, 2), _uint(data, pos + 2, 2), data[pos + 4]
                 body = data[pos + 8:pos + 8 + size]
                 pos += 8 + size
-                if mtype == MSG_CONTINUATION:
-                    blocks.append((_uint(body, 0, 8), _uint(body, 8, 8)))
-                    self.messages.append((mtype, body))
-                    continue
-                if flags & 0x02 and mtype in (MSG_DATATYPE, MSG_FILL, MSG_FILTERS, MSG_ATTRIBUTE):
-                    raise NotImplementedError(f"shared object header message (type {mtype})")
-                self.messages.append((mtype, body))
+                self._add_message(mtype, flags, body, blocks)
+
+    def _read_header_v2(self, addr: int) -> None:
+        """A version-2 object header: the prefix and chunk 0 under one
+        checksum, continuation blocks (``OCHK``) under their own."""
+        src = self.file._src
+        head = src.read(addr, 6)
+        if head[4] != 2:
+            raise NotImplementedError(f"version-2 object header of version {head[4]}")
+        flags = head[5]
+        pos = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)  # times, attribute phase
+        size_len = 1 << (flags & 0x03)
+        chunk0 = _uint(src.read(addr + pos, size_len), 0, size_len)
+        pos += size_len
+        buf = self.file._checked(addr, pos + chunk0 + 4, b"OHDR", "object header")
+        blocks: List[Tuple[int, int]] = []
+        self._messages_v2(buf, pos, pos + chunk0, flags, blocks)
+        while blocks:
+            caddr, length = blocks.pop(0)
+            buf = self.file._checked(caddr, length, b"OCHK", "object header continuation block")
+            self._messages_v2(buf, 4, length - 4, flags, blocks)
+
+    def _messages_v2(self, buf: bytes, pos: int, end: int, flags: int, blocks) -> None:
+        hsize = 6 if flags & 0x04 else 4  # with each message's creation order
+        while pos + hsize <= end:  # what is left below a message header is a gap
+            mtype, size, mflags = buf[pos], _uint(buf, pos + 1, 2), buf[pos + 3]
+            body = buf[pos + hsize:pos + hsize + size]
+            pos += hsize + size
+            self._add_message(mtype, mflags, body, blocks)
+
+    def _add_message(self, mtype: int, flags: int, body: bytes, blocks) -> None:
+        if mtype == MSG_CONTINUATION:
+            blocks.append((_uint(body, 0, 8), _uint(body, 8, 8)))
+        elif flags & 0x02 and mtype in (MSG_DATATYPE, MSG_FILL, MSG_FILTERS, MSG_ATTRIBUTE):
+            raise NotImplementedError(f"shared object header message (type {mtype})")
+        self.messages.append((mtype, body))  # null messages too: version 1 counts them
 
     def find(self, mtype: int) -> Optional[bytes]:
         for t, data in self.messages:
             if t == mtype:
                 return data
         return None
+
+    def find_all(self, mtype: int) -> List[bytes]:
+        return [data for t, data in self.messages if t == mtype]
 
 
 class Group:
@@ -199,12 +302,13 @@ class Group:
     def __init__(self, f: "File", obj: _Object, name: str):
         self.file, self.name, self._obj = f, name, obj
         self.attrs = obj.attrs
-        st = obj.find(MSG_SYMBOL_TABLE)
-        if st is None:
-            if obj.find(MSG_LINK_INFO) is not None or obj.find(MSG_LINK) is not None:
-                raise NotImplementedError("new-style group (link messages)")
+        st, linfo = obj.find(MSG_SYMBOL_TABLE), obj.find(MSG_LINK_INFO)
+        if st is not None:
+            self._members = f._read_symbol_table(_uint(st, 0, 8), _uint(st, 8, 8))
+        elif linfo is not None or obj.find(MSG_LINK) is not None:
+            self._members = f._read_links(obj.find_all(MSG_LINK), linfo, name)
+        else:
             raise ValueError(f"{name}: object is not a group")
-        self._members = f._read_symbol_table(_uint(st, 0, 8), _uint(st, 8, 8))
 
     def keys(self) -> List[str]:
         return list(self._members)
@@ -238,10 +342,12 @@ class Dataset:
         space = obj.find(MSG_DATASPACE)
         dt = obj.find(MSG_DATATYPE)
         layout = obj.find(MSG_LAYOUT)
+        if dt is not None and space is None and layout is None:
+            raise NotImplementedError(f"{name}: committed datatype")
         if space is None or dt is None or layout is None:
             raise ValueError(f"{name}: object is not a dataset")
-        shape = _parse_dataspace(space, 0)
-        self.shape = () if shape is None else shape
+        shape, maxshape = _parse_dataspace(space, 0)
+        self.shape, self._maxshape = ((), ()) if shape is None else (shape, maxshape)
         try:
             self._type, _ = _parse_datatype(dt, 0)
         except _Unsupported as e:
@@ -265,23 +371,59 @@ class Dataset:
 
     def _parse_layout(self, buf: bytes) -> None:
         version, cls = buf[0], buf[1]
-        if version != 3:
+        if version not in (3, 4):
             raise NotImplementedError(f"{self.name}: data layout message version {version}")
         self.chunks = None
         if cls == 1:  # contiguous
             self._addr = _uint(buf, 2, 8)
             self._kind = "contiguous"
-        elif cls == 2:  # chunked, v1 B-tree index
+            return
+        if cls != 2:
+            kind = {0: "compact", 3: "virtual"}.get(cls, "unknown")
+            raise NotImplementedError(f"{self.name}: layout class {cls} ({kind}; only contiguous and chunked)")
+        self._kind = "chunked"
+        self._last_chunk = None
+        rank = len(self.shape)
+        if version == 3:  # a version-1 B-tree index
             dims = buf[2]
-            self._btree = _uint(buf, 3, 8)
-            cdims = tuple(_uint(buf, 11 + 4 * i, 4) for i in range(dims))
-            self.chunks = cdims[:-1]
-            self._kind = "chunked"
-            self._last_chunk = None
-            self._index = self.file._read_chunk_index(self._btree, len(self.shape)) \
-                if self._btree != UNDEF else []
+            btree = _uint(buf, 3, 8)
+            self.chunks = tuple(_uint(buf, 11 + 4 * i, 4) for i in range(dims))[:-1]
+            self._index = self.file._read_chunk_index(btree, rank) if btree != UNDEF else []
+            return
+        flags, dims, enc = buf[2], buf[3], buf[4]
+        self.chunks = tuple(_uint(buf, 5 + enc * i, enc) for i in range(dims))[:-1]
+        pos = 5 + enc * dims
+        itype, pos = buf[pos], pos + 1
+        if flags & 0x01:
+            raise NotImplementedError(f"{self.name}: unfiltered partial edge chunks")
+        nbytes = int(np.prod(self.chunks, dtype=np.int64)) * self._type.size
+        if itype == 1:  # single chunk
+            size, mask = nbytes, 0
+            if flags & 0x02:  # filtered: its stored size and filter mask
+                size, mask, pos = _uint(buf, pos, 8), _uint(buf, pos + 8, 4), pos + 12
+            addr = _uint(buf, pos, 8)
+            self._index = [] if addr == UNDEF else [((0,) * rank, mask, size, addr)]
+        elif itype in (3, 4):  # fixed array; extensible array along an unlimited first axis
+            addr = _uint(buf, pos + (1 if itype == 3 else 5), 8)
+            unlimited = [i for i, m in enumerate(self._maxshape) if m is None]
+            if itype == 4 and unlimited != [0]:
+                raise NotImplementedError(f"{self.name}: extensible-array chunk index over unlimited axes "
+                                          f"{unlimited} (only the first)")
+            # entries in row-major order over the chunk grid of the maximum shape
+            grid = [-(-m // c) if m is not None else 0 for m, c in zip(self._maxshape, self.chunks)]
+            read = self.file._fixed_array if itype == 3 else self.file._extensible_array
+            self._index = []
+            for i, (mask, size, caddr) in enumerate(read(addr, nbytes) if addr != UNDEF else []):
+                scaled = []
+                for g in reversed(grid[1:]):
+                    i, r = divmod(i, g)
+                    scaled.insert(0, r)
+                offset = tuple(s * c for s, c in zip([i] + scaled, self.chunks))
+                if caddr != UNDEF and all(o < n for o, n in zip(offset, self.shape)):
+                    self._index.append((offset, mask, size, caddr))
         else:
-            raise NotImplementedError(f"{self.name}: layout class {cls} (only contiguous and chunked)")
+            kind = {2: "implicit", 5: "version-2 B-tree"}.get(itype, "unknown")
+            raise NotImplementedError(f"{self.name}: {kind} chunk index (type {itype})")
 
     # -- reads ---------------------------------------------------------------
     def _decode(self, raw: bytes, count: int) -> np.ndarray:
@@ -415,6 +557,154 @@ def _unfilter(raw: bytes, filters, mask: int, itemsize: int) -> bytes:
     return raw
 
 
+def _chunk_entries(buf: bytes, client: int, esize: int, nbytes: int) -> List[Tuple[int, int, int]]:
+    """[(filter mask, stored bytes, address)] of the elements of a fixed or
+    extensible array chunk index: an address (client 0), or an address, the
+    filtered chunk's size and its filter mask (client 1)."""
+    if client == 0:
+        return [(0, nbytes, _uint(buf, i, 8)) for i in range(0, len(buf), esize)]
+    if client != 1:
+        raise NotImplementedError(f"array chunk index of client {client}")
+    size_len = esize - 12
+    return [(_uint(buf, i + 8 + size_len, 4), _uint(buf, i + 8, size_len), _uint(buf, i, 8))
+            for i in range(0, len(buf), esize)]
+
+
+def _parse_link(buf: bytes, group: str) -> Tuple[Optional[int], str, int]:
+    """(creation order or None, name, object header address) of a link
+    message; soft, external and user-defined links raise."""
+    if buf[0] != 1:
+        raise NotImplementedError(f"link message version {buf[0]}")
+    flags, pos = buf[1], 2
+    ltype = 0
+    if flags & 0x08:
+        ltype, pos = buf[pos], pos + 1
+    order = None
+    if flags & 0x04:
+        order, pos = _uint(buf, pos, 8), pos + 8
+    if flags & 0x10:
+        pos += 1  # the name's character set: ASCII or UTF-8 both decode as UTF-8
+    size_len = 1 << (flags & 0x03)
+    n, pos = _uint(buf, pos, size_len), pos + size_len
+    name = buf[pos:pos + n].decode("utf-8")
+    if ltype != 0:
+        kind = {1: "soft", 64: "external"}.get(ltype, "user-defined")
+        raise NotImplementedError(f"{group}: {kind} link {name!r} (type {ltype})")
+    return order, name, _uint(buf, pos + n, 8)
+
+
+class _FractalHeap:
+    """A fractal heap (``FRHP``): its objects by heap ID. Managed objects
+    sit in direct blocks (``FHDB``) reached through a tree of indirect
+    blocks (``FHIB``), a doubling table of ``width`` blocks a row; tiny
+    objects sit in the ID itself; unfiltered huge objects are found through
+    a version-2 B-tree of record type 1."""
+
+    def __init__(self, f: "File", addr: int):
+        self.file = f
+        head = f._checked(addr, 146, b"FRHP", "fractal heap header")
+        if head[4] != 0:
+            raise NotImplementedError(f"fractal heap version {head[4]}")
+        if _uint(head, 7, 2):
+            raise NotImplementedError("filtered fractal heap (I/O filters on its blocks)")
+        self.id_len, self.flags = _uint(head, 5, 2), head[9]
+        self.max_man = _uint(head, 10, 4)
+        self.huge_btree = _uint(head, 22, 8)
+        self.width, self.start = _uint(head, 110, 2), _uint(head, 112, 8)
+        self.max_direct, max_bits = _uint(head, 120, 8), _uint(head, 128, 2)
+        root, root_rows = _uint(head, 132, 8), _uint(head, 140, 2)
+        self.off_size = (max_bits + 7) // 8
+        self.len_size = min((self.max_direct.bit_length() - 1 + 7) // 8, _limit_enc_size(self.max_man))
+        self.max_direct_rows = (self.max_direct.bit_length() - self.start.bit_length()) + 2
+        self.blocks: List[Tuple[int, int, int]] = []  # (heap offset, size, address) of each direct block
+        self._cache: Dict[int, bytes] = {}
+        self._huge: Optional[Dict[int, Tuple[int, int]]] = None
+        if root == UNDEF:
+            return
+        if root_rows == 0:
+            self.blocks.append((0, self.start, root))
+        else:
+            self._indirect(root, root_rows, 0)
+        self.blocks.sort()
+
+    def _row_size(self, r: int) -> int:
+        return self.start if r == 0 else self.start << (r - 1)
+
+    def _row_offset(self, r: int) -> int:
+        return 0 if r == 0 else (self.start * self.width) << (r - 1)
+
+    def _indirect(self, addr: int, nrows: int, offset: int) -> None:
+        n_direct = min(nrows, self.max_direct_rows)
+        entries = nrows * self.width
+        size = 4 + 1 + 8 + self.off_size + 8 * entries + 4
+        buf = self.file._checked(addr, size, b"FHIB", "fractal heap indirect block")
+        if _uint(buf, 13, self.off_size) != offset:
+            raise OSError(f"{self.file.filename}: fractal heap indirect block at {addr} has offset "
+                          f"{_uint(buf, 13, self.off_size)}, expected {offset}")
+        pos = 13 + self.off_size
+        for r in range(nrows):
+            for c in range(self.width):
+                child = _uint(buf, pos, 8)
+                pos += 8
+                if child == UNDEF:
+                    continue
+                at = offset + self._row_offset(r) + c * self._row_size(r)
+                if r < n_direct:
+                    self.blocks.append((at, self._row_size(r), child))
+                else:  # an indirect block spanning this entry's share of the heap
+                    rows = (self._row_size(r).bit_length() - 1) - (self.start.bit_length() - 1) \
+                        - (self.width.bit_length() - 1) + 1
+                    self._indirect(child, rows, at)
+
+    def _direct(self, offset: int, size: int, addr: int) -> bytes:
+        if addr not in self._cache:
+            buf = bytearray(self.file._src.read(addr, size))
+            if buf[:4] != b"FHDB":
+                raise OSError(f"{self.file.filename}: no fractal heap direct block at {addr}")
+            if self.flags & 0x02:  # checksummed, over the block with the checksum zeroed
+                at = 13 + self.off_size
+                stored = _uint(buf, at, 4)
+                buf[at:at + 4] = b"\0\0\0\0"
+                if lookup3(bytes(buf)) != stored:
+                    raise ChecksumError(f"{self.file.filename}: checksum mismatch in the fractal heap "
+                                        f"direct block at {addr}")
+            if _uint(buf, 13, self.off_size) != offset:
+                raise OSError(f"{self.file.filename}: fractal heap direct block at {addr} has offset "
+                              f"{_uint(buf, 13, self.off_size)}, expected {offset}")
+            self._cache[addr] = bytes(buf)
+        return self._cache[addr]
+
+    def get(self, hid: bytes) -> bytes:
+        """The object of heap ID ``hid``."""
+        if hid[0] >> 6 != 0:
+            raise NotImplementedError(f"fractal heap ID version {hid[0] >> 6}")
+        kind = (hid[0] >> 4) & 0x03
+        if kind == 0:  # managed: offset and length in the heap's space
+            off = _uint(hid, 1, self.off_size)
+            n = _uint(hid, 1 + self.off_size, self.len_size)
+            for start, size, addr in self.blocks:
+                if start <= off < start + size:
+                    block = self._direct(start, size, addr)
+                    return block[off - start:off - start + n]
+            raise OSError(f"{self.file.filename}: fractal heap object at offset {off} is in no block")
+        if kind == 2:  # tiny: the object is in the ID
+            if self.id_len <= 18:
+                n = (hid[0] & 0x0F) + 1
+                return hid[1:1 + n]
+            n = ((hid[0] & 0x0F) << 8 | hid[1]) + 1
+            return hid[2:2 + n]
+        if kind == 1:  # huge, unfiltered
+            if self.id_len - 1 >= 16:  # the address and length are in the ID
+                return self.file._src.read(_uint(hid, 1, 8), _uint(hid, 9, 8))
+            if self._huge is None:
+                self._huge = {}
+                for rec in self.file._btree2_records(self.huge_btree, BT2_HUGE):
+                    self._huge[_uint(rec, 16, 8)] = (_uint(rec, 0, 8), _uint(rec, 8, 8))
+            addr, n = self._huge[_uint(hid, 1, min(self.id_len - 1, 8))]
+            return self.file._src.read(addr, n)
+        raise NotImplementedError(f"fractal heap object of type {kind}")
+
+
 class File(Group):
     """An HDF5 file opened for reading; the root :class:`Group`. Use as a
     context manager or call :meth:`close`."""
@@ -424,6 +714,7 @@ class File(Group):
             raise ValueError("File opens for reading only; write with Writer")
         self._src = _Source(path)
         self.filename = self._src.path
+        self._heaps: Dict[int, "_FractalHeap"] = {}
         try:
             root = self._read_superblock()
             Group.__init__(self, self, _Object(self, root), "/")
@@ -445,7 +736,7 @@ class File(Group):
         head = self._src.read(base, 24)
         version = head[8]
         if version in (2, 3):
-            raise NotImplementedError(f"superblock version {version} (as netCDF4 or libver='latest' write)")
+            return self._read_superblock_v2(base, head)
         if version not in (0, 1):
             raise NotImplementedError(f"superblock version {version}")
         if head[13] != 8 or head[14] != 8:
@@ -457,11 +748,236 @@ class File(Group):
         entry = self._src.read(pos + 32, 40)
         return _uint(entry, 8, 8)
 
+    def _read_superblock_v2(self, base: int, head: bytes) -> int:
+        """Superblock version 2 or 3 (HDF5 1.8 and later): the root group's
+        object header address; a superblock extension holding a shared
+        message table raises."""
+        if head[9] != 8 or head[10] != 8:
+            raise NotImplementedError(f"offsets of {head[9]} and lengths of {head[10]} bytes")
+        sb = self._checked(base, 48, SIGNATURE, f"superblock version {head[8]}")
+        if _uint(sb, 12, 8) != 0:
+            raise NotImplementedError("superblock base address other than 0")
+        extension = _uint(sb, 20, 8)
+        if extension != UNDEF and _Object(self, extension).find(MSG_SHARED_TABLE) is not None:
+            raise NotImplementedError("shared object header messages (a shared message table)")
+        return _uint(sb, 36, 8)
+
+    def _checked(self, addr: int, size: int, signature: bytes, what: str) -> bytes:
+        """``size`` bytes at ``addr`` that start with ``signature`` and end
+        with the lookup3 checksum of the rest."""
+        buf = self._src.read(addr, size)
+        if buf[:len(signature)] != signature:
+            raise OSError(f"{self.filename}: no {what} at {addr} (signature {buf[:len(signature)]!r})")
+        if lookup3(buf[:-4]) != _uint(buf, size - 4, 4):
+            raise ChecksumError(f"{self.filename}: checksum mismatch in the {what} at {addr}")
+        return buf
+
     def _open(self, addr: int, name: str):
         obj = _Object(self, addr)
         if obj.find(MSG_SYMBOL_TABLE) is not None or obj.find(MSG_LINK_INFO) is not None:
             return Group(self, obj, name)
         return Dataset(self, obj, name)
+
+    # -- new-style groups and dense attributes -----------------------------------
+    def _read_links(self, messages: List[bytes], linfo: Optional[bytes], name: str) -> Dict[str, int]:
+        """{name: object header address} of a new-style group: its link
+        messages, or those in its fractal heap (dense storage), in creation
+        order where the group tracks it."""
+        if linfo is not None:
+            if linfo[0] != 0:
+                raise NotImplementedError(f"link info message version {linfo[0]}")
+            flags = linfo[1]
+            pos = 2 + (8 if flags & 0x01 else 0)
+            heap, by_name = _uint(linfo, pos, 8), _uint(linfo, pos + 8, 8)
+            by_order = _uint(linfo, pos + 16, 8) if flags & 0x02 else UNDEF
+            if heap != UNDEF:
+                messages = self._dense_objects(heap, by_name, by_order, BT2_LINK_NAME, BT2_LINK_ORDER)
+        links = [_parse_link(m, name) for m in messages]
+        links.sort(key=lambda link: (link[0] is None, link[0] or 0, link[1]))
+        return {n: addr for _, n, addr in links}
+
+    def _dense_attributes(self, info: bytes) -> List[bytes]:
+        """The attribute messages of an attribute info message's dense
+        storage (none where the attributes are compact)."""
+        if info[0] != 0:
+            raise NotImplementedError(f"attribute info message version {info[0]}")
+        flags = info[1]
+        pos = 2 + (2 if flags & 0x01 else 0)
+        heap, by_name = _uint(info, pos, 8), _uint(info, pos + 8, 8)
+        by_order = _uint(info, pos + 16, 8) if flags & 0x02 else UNDEF
+        if heap == UNDEF:
+            return []
+        return self._dense_objects(heap, by_name, by_order, BT2_ATTR_NAME, BT2_ATTR_ORDER)
+
+    def _dense_objects(self, heap: int, by_name: int, by_order: int, name_type: int,
+                       order_type: int) -> List[bytes]:
+        """The fractal heap's objects that its version-2 B-trees index: in
+        creation order where that index exists (it must list the objects
+        the name index lists), else in the name index's order."""
+        if heap not in self._heaps:
+            self._heaps[heap] = _FractalHeap(self, heap)
+        ids = self._heap_ids(by_name, name_type)
+        if by_order != UNDEF:
+            ordered = self._heap_ids(by_order, order_type)
+            if sorted(ordered) != sorted(ids):
+                raise OSError(f"{self.filename}: the name and creation-order indexes of the fractal heap at "
+                              f"{heap} disagree")
+            ids = ordered
+        return [self._heaps[heap].get(hid) for hid in ids]
+
+    def _heap_ids(self, btree: int, rtype: int) -> List[bytes]:
+        """The heap IDs in the records of a link (types 5, 6) or attribute
+        (types 8, 9) index."""
+        out = []
+        for rec in self._btree2_records(btree, rtype):
+            if rtype == BT2_LINK_NAME:  # hash, heap ID
+                out.append(rec[4:])
+            elif rtype == BT2_LINK_ORDER:  # creation order, heap ID
+                out.append(rec[8:])
+            else:  # heap ID (8), message flags, creation order [, hash]
+                if rec[8] & 0x02:
+                    raise NotImplementedError("shared attribute message in dense storage")
+                out.append(rec[:8])
+        return out
+
+    # -- version-2 B-trees --------------------------------------------------------
+    def _btree2_records(self, addr: int, rtype: int) -> List[bytes]:
+        """Every record of the version-2 B-tree at ``addr``, in key order;
+        the tree must hold records of type ``rtype``."""
+        head = self._checked(addr, 38, b"BTHD", "version-2 B-tree header")
+        if head[4] != 0:
+            raise NotImplementedError(f"version-2 B-tree header version {head[4]}")
+        if head[5] != rtype:
+            raise OSError(f"{self.filename}: version-2 B-tree of record type {head[5]} at {addr}, "
+                          f"expected {rtype}")
+        node_size, rsize, depth = _uint(head, 6, 4), _uint(head, 10, 2), _uint(head, 12, 2)
+        root, root_n = _uint(head, 16, 8), _uint(head, 24, 2)
+        # per depth: (pointer bytes of a child below, its count bytes, its total-count bytes)
+        leaf_max = (node_size - 10) // rsize
+        n_size = _limit_enc_size(leaf_max)
+        cum, cum_size, ptr = [leaf_max], [0], [0]
+        for d in range(1, depth + 1):
+            ptr.append(8 + n_size + (cum_size[d - 1] if d > 1 else 0))
+            max_n = (node_size - 10 - ptr[d]) // (rsize + ptr[d])
+            cum.append((max_n + 1) * cum[d - 1] + max_n)
+            cum_size.append(_limit_enc_size(cum[d]))
+        out: List[bytes] = []
+
+        def walk(node: int, d: int, n: int) -> None:
+            if node == UNDEF or n == 0 and d == 0:
+                return
+            sig = b"BTLF" if d == 0 else b"BTIN"
+            size = 6 + n * rsize + ((n + 1) * ptr[d] if d else 0) + 4
+            buf = self._checked(node, size, sig, "version-2 B-tree node")
+            if buf[5] != rtype:
+                raise OSError(f"{self.filename}: version-2 B-tree node of record type {buf[5]} at {node}")
+            records = [buf[6 + i * rsize:6 + (i + 1) * rsize] for i in range(n)]
+            if d == 0:
+                out.extend(records)
+                return
+            pos = 6 + n * rsize
+            for i in range(n + 1):
+                child, child_n = _uint(buf, pos, 8), _uint(buf, pos + 8, n_size)
+                pos += ptr[d]
+                walk(child, d - 1, child_n)
+                if i < n:
+                    out.append(records[i])
+
+        walk(root, depth, root_n)
+        return out
+
+    # -- chunk indexes of layout version 4 ----------------------------------------
+    def _fixed_array(self, addr: int, nbytes: int) -> List[Tuple[int, int, int]]:
+        """[(filter mask, stored bytes, address)] of a fixed-array chunk
+        index, one entry per chunk of the grid."""
+        head = self._checked(addr, 28, b"FAHD", "fixed array header")
+        client, esize, page_bits = head[5], head[6], head[7]
+        n, dblock = _uint(head, 8, 8), _uint(head, 16, 8)
+        if dblock == UNDEF:
+            return []
+        page = 1 << page_bits
+        if n <= page:
+            buf = self._checked(dblock, 14 + n * esize + 4, b"FADB", "fixed array data block")
+            return _chunk_entries(buf[14:14 + n * esize], client, esize, nbytes)
+        npages = -(-n // page)
+        prefix = 14 + (npages + 7) // 8 + 4
+        bitmap = self._checked(dblock, prefix, b"FADB", "fixed array data block")[14:prefix - 4]
+        out, pos = [], dblock + prefix
+        for p in range(npages):
+            count = min(page, n - p * page)
+            if bitmap[p // 8] & (0x80 >> (p % 8)):
+                buf = self._checked(pos, count * esize + 4, b"", "fixed array data block page")
+                out += _chunk_entries(buf[:-4], client, esize, nbytes)
+            else:
+                out += [(0, 0, UNDEF)] * count
+            pos += count * esize + 4
+        return out
+
+    def _extensible_array(self, addr: int, nbytes: int) -> List[Tuple[int, int, int]]:
+        """[(filter mask, stored bytes, address)] of an extensible-array
+        chunk index, in element order up to the largest index set."""
+        head = self._checked(addr, 72, b"EAHD", "extensible array header")
+        client, esize, max_bits, iblk_n, dblk_min, sblk_min, page_bits = head[5:12]
+        max_idx, iblock = _uint(head, 44, 8), _uint(head, 60, 8)
+        if iblock == UNDEF or max_idx == 0:
+            return []
+        off_size = (max_bits + 7) // 8
+        nsblks = 1 + max_bits - (dblk_min.bit_length() - 1)
+        # super block u: 2^(u // 2) data blocks of dblk_min * 2^((u + 1) // 2) elements
+        sblks = [(1 << (u // 2), dblk_min << ((u + 1) // 2)) for u in range(nsblks)]
+        i_sblks = 2 * (sblk_min.bit_length() - 1)  # those whose data blocks the index block lists
+        n_dblk_addrs, n_sblk_addrs = 2 * (sblk_min - 1), nsblks - i_sblks
+        size = 14 + iblk_n * esize + 8 * (n_dblk_addrs + n_sblk_addrs) + 4
+        buf = self._checked(iblock, size, b"EAIB", "extensible array index block")
+        out = _chunk_entries(buf[14:14 + iblk_n * esize], client, esize, nbytes)
+        pos = 14 + iblk_n * esize
+        dblk_addrs = [_uint(buf, pos + 8 * i, 8) for i in range(n_dblk_addrs)]
+        sblk_addrs = [_uint(buf, pos + 8 * (n_dblk_addrs + i), 8) for i in range(n_sblk_addrs)]
+        page = 1 << page_bits
+
+        def data_block(daddr: int, count: int, bitmap: Optional[bytes] = None, bit: int = 0) -> list:
+            """A data block's entries; a paged one's pages are set where
+            their bits (from ``bit`` on, in the super block's bitmap) are."""
+            if daddr == UNDEF:
+                return [(0, 0, UNDEF)] * count
+            if bitmap is None:
+                blk = self._checked(daddr, 14 + off_size + count * esize + 4, b"EADB",
+                                    "extensible array data block")
+                return _chunk_entries(blk[14 + off_size:-4], client, esize, nbytes)
+            self._checked(daddr, 14 + off_size + 4, b"EADB", "extensible array data block")
+            entries, at = [], daddr + 14 + off_size + 4
+            for p in range(bit, bit + count // page):
+                if bitmap[p // 8] & (0x80 >> (p % 8)):
+                    blk = self._checked(at, page * esize + 4, b"", "extensible array data block page")
+                    entries += _chunk_entries(blk[:-4], client, esize, nbytes)
+                else:
+                    entries += [(0, 0, UNDEF)] * page
+                at += page * esize + 4
+            return entries
+
+        d = 0
+        for u, (ndblks, count) in enumerate(sblks):
+            if len(out) >= max_idx:
+                break
+            if u < i_sblks:
+                for _ in range(ndblks):
+                    out += data_block(dblk_addrs[d], count)
+                    d += 1
+                continue
+            saddr = sblk_addrs[u - i_sblks]
+            if saddr == UNDEF:
+                out += [(0, 0, UNDEF)] * (ndblks * count)
+                continue
+            npages = count // page if count > page else 0
+            bitmap_len = ndblks * ((npages + 7) // 8)
+            sb = self._checked(saddr, 14 + off_size + bitmap_len + 8 * ndblks + 4, b"EASB",
+                               "extensible array super block")
+            at = 14 + off_size
+            bitmap = sb[at:at + bitmap_len] if npages else None
+            at += bitmap_len
+            for i in range(ndblks):  # the bits of data block i start at i * npages
+                out += data_block(_uint(sb, at + 8 * i, 8), count, bitmap, i * npages)
+        return out[:max_idx]
 
     # -- groups ----------------------------------------------------------------
     def _local_heap_data(self, addr: int) -> bytes:
@@ -552,15 +1068,17 @@ class File(Group):
             pad = lambda n: (n + 7) // 8 * 8  # noqa: E731
             pos = 8
         elif version in (2, 3):
+            if buf[1] & 0x03:
+                raise NotImplementedError("attribute of a shared datatype or dataspace")
             pad = lambda n: n  # noqa: E731
-            pos = 8 if version == 2 else 9
+            pos = 8 if version == 2 else 9  # version 3 adds the name's character set
         else:
             raise NotImplementedError(f"attribute message version {version}")
         name = buf[pos:pos + name_size].split(b"\0", 1)[0].decode("utf-8")
         pos += pad(name_size)
         tpos = pos
         pos += pad(type_size)
-        shape = _parse_dataspace(buf, pos)
+        shape, _ = _parse_dataspace(buf, pos)
         pos += pad(space_size)
         try:
             dtype, _ = _parse_datatype(buf, tpos)
@@ -601,7 +1119,7 @@ class File(Group):
 
 def open_file(path):
     """An HDF5 file opened for reading by :class:`File`; where it raises
-    ``NotImplementedError`` (a netCDF4 file of superblock 2 or 3, say) and
+    ``NotImplementedError`` (a soft link in the root group, say) and
     h5py is installed, by ``h5py.File`` instead. Both give ``keys()``,
     ``[name]``, ``attrs`` and numpy-style reads."""
     try:

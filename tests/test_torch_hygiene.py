@@ -10,7 +10,10 @@ size, its phase-6 ``predict`` from files (written and read through
 ``io/hdf5.py``), its phase-7 training drive and a Winograd call, its
 phase-8 year path, its phase-9 sampler and guidance modes (exact
 gradients, DPM-Solver++(3M), the bilinear prolongation, the sweep and the
-fidelity harness), or its phase-10 multi-process runs (every rank's process
+fidelity harness), its phase-11 data layer (the netCDF-C fixtures, the
+archive drill through the data command line, synth, debias and a guided
+predict from the debiased file, every process it starts blocked itself), or
+its phase-10 multi-process runs (every rank's process
 blocked the same way, by a ``sitecustomize`` on its path) at a tiny size (the
 kernel phases need the card).
 """
@@ -85,6 +88,12 @@ elif mode == "ranks":
            "p10b": {k: p10["10b"][k] for k in ("launches_per_rank", "losses", "expected_per_rank")},
            "p10b_step": p10["10b"]["step_check"]["ranks"], "p10c_equal": p10["10c"]["samples_equal"],
            "p10c_writes": p10["10c"]["writes"], "p10d_events": p10["10d"]["events"]}
+elif mode == "data":
+    # phase 11 at a 40 x 44 archive (a 32 x 32 patch), synth at 32 x 32 for
+    # 96 + 56 hours, 2 training and 2 sampling steps
+    p11 = chip_smoke.phase11_data(snap, cpu, nlat=40, nlon=44, patch=((4, 36), (6, 38)), res=32,
+                                  synth_hours=(96, 56), train_steps=2, predict_steps=2)
+    out = {"p11": chip_smoke.phase11_summary(p11), "p11a": p11["11a"], "p11b": p11["11b"], "p11d": p11["11d"]}
 elif mode == "modes":
     # phase 9 with 4 steps in 9a and 9b, and the year config above a
     # threshold lowered to 16 frames for 31 hours in 9c
@@ -232,6 +241,40 @@ def test_sampler_and_guidance_modes_need_only_stdlib_torch_numpy(tmp_path):
     d, e = p9["9d"], p9["9e"]
     assert d["dirs"] == ["001_sweep", "002_sweep"] and all(d["finite"]) and len(d["trials"]) == 2
     assert e["report"] and e["finite"] and e["rows"] == 24
+
+
+def test_data_layer_phase_needs_only_stdlib_torch_numpy(tmp_path):
+    """Phase 11 on the CPU with the tiny snapshot, with jax, h5py, scipy,
+    click and the rest unimportable here and in every process it starts:
+    the committed netCDF-C fixtures equal their contents and every kind of
+    checksummed structure catches a flipped byte; the archive drill through
+    ``data.cli`` (``extract-patch-folder`` per variable, ``preproc-all``)
+    and ``train`` on its file; ``synth`` and ``debias``; ``experiment
+    predict`` from the debiased file and ``metrics run``."""
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "data", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for name in ("data.cli", "data.processing", "data.debias", "data.synthetic", "io.hdf5"):
+        assert f"climate2weather_tpu_torch.{name}" in out["modules"]
+    a, b, d, p11 = out["p11a"], out["p11b"], out["p11d"], out["p11"]
+    for name in ("v108", "latest"):
+        assert all(a[name]["equal"].values()) and len(a[name]["equal"]) == 12
+    assert a["latest"]["superblock"] == 3 and a["v108"]["superblock"] == 2
+    assert len(a["checksum_faults"]) == 14 and all(a["checksum_faults"].values())
+    assert b["kept"] == dict.fromkeys(["psl", "tas", "uas", "vas"], 3) and b["test_hours"] == 12
+    assert b["train_x_shape"] == [24, 4, 32, 32] and b["nan_audit"] == {"nr_of_times": 1, "which_times": [5]}
+    assert len(b["losses"]) == 2 and b["train_launches"] == {"attention_fwd": 0, "attention_bwd": 0}  # the CPU
+    for v, err in p11["quantile_error_debiased"].items():
+        assert err <= 0.1 * p11["quantile_error_biased"][v]
+    assert d["finite"] and d["A_x_minus_y_max"] <= d["A_tol"] and d["observation_frames"] == 9
+    assert d["metrics_scores"] > 0 and "gen_sample_002.nc" in d["outputs"]
 
 
 SITECUSTOMIZE = r"""
