@@ -158,6 +158,29 @@ Numbered phases, each printing one JSON line with its seconds:
    samples, the written observation the debiased file's frames, A(x) = y
    under phase 4's limit, 6 attention launches per UNet forward; then
    ``metrics run`` on the written directory: finite scores.
+12. the model layer, with jax, flax, PyYAML, msgpack, h5py, ``scripts`` and
+   the JAX package unimportable in this process and in the importer's:
+   (12a) the 72.1M snapshot written as the reference's released pickle
+   ``network-snapshot-0009437-0.999900.pkl`` (an fp16 EMA net of the
+   reference's classes and names, ``tests/_reference_pickle.py``) and
+   imported by ``python -m climate2weather_tpu_torch.import_reference_snapshot``:
+   the inferred architecture the snapshot's plus ``norm_ddof: 1``, 72.1M
+   parameters, every tensor equal, bit for bit, to the snapshot's rounded
+   through fp16; (12b) ``load_net`` on the imported snapshot and one bf16
+   forward at [96, 128, 128, 52], equal bit for bit to a net built from the
+   fp16-rounded weights with ``norm_ddof: 1`` (and unequal with 0), 6
+   attention launches; (12c) ``experiment.main(["predict", ...])`` in this
+   process at a copy of ``s16_t6_spectral.yml`` naming the imported
+   snapshot (49 hours, DPM-Solver++(2M), 8 steps, 3 samples): finite,
+   A(x) = y under phase 4's limit, 6 launches per UNet forward; (12d) the
+   snapshot with ``fused_upsample`` off and on: in fp32 (TF32 off) at
+   batch 8 each against a float64 forward, the fused net within twice the
+   plain one's distance, and both bf16 forwards at [96, 128, 128, 52] timed;
+   (12e) a 1-D ScoreUNet on [8, 1024, 52] and a 3-D one on
+   [2, 64, 64, 64, 52] at the 72.1M net's widths (64 tokens at level 4), one
+   bf16 forward and backward each: every attention launch against the plain
+   version under phase 2's limits, 6 each way, the layout each level's
+   convs see, peak memory and seconds.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -165,7 +188,8 @@ There is no CPU mode: without a card the script exits non-zero at once.
 ``--winograd-only`` stops after phase 2's Winograd part,
 ``--attention-bwd-only`` after phase 2's attention backward part, and
 ``--multi-process-only`` runs phases 0, 1 and 10 alone, ``--data-only``
-phases 0, 1 and 11 (no device line in any). ``--child ...`` is one process of phase 10 (``child_step``,
+phases 0, 1 and 11, ``--model-only`` phases 0, 1 and 12 (no device line in
+any). ``--child ...`` is one process of phase 10 (``child_step``,
 ``child_cli``), not for use by hand.
 """
 
@@ -2676,7 +2700,7 @@ BLOCKED = set(sys.argv[1].split(","))
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
-            raise ImportError(f"blocked in chip_smoke phase 11: {name}")
+            raise ImportError(f"blocked by chip_smoke: {name}")
         return None
 
 
@@ -2691,11 +2715,11 @@ else:
 """
 
 
-def _blocked(kind: str, target: str, *argv) -> list:
+def _blocked(kind: str, target: str, *argv, blocked=PHASE11_BLOCKED) -> list:
     """The command line of ``python -m target ARGS`` (``kind`` "module") or
-    ``python target ARGS`` ("path") with the packages of PHASE11_BLOCKED
+    ``python target ARGS`` ("path") with the packages of ``blocked``
     unimportable."""
-    return [sys.executable, "-c", PHASE11_BLOCKER, ",".join(PHASE11_BLOCKED), kind, str(target), *map(str, argv)]
+    return [sys.executable, "-c", PHASE11_BLOCKER, ",".join(blocked), kind, str(target), *map(str, argv)]
 
 
 def _data_cli(device, label, *argv) -> float:
@@ -2999,6 +3023,433 @@ def phase11_data(snapshot_dir, device, model_config=REPO / "configs" / "tiny_une
     return {"11a": a, "11b": b, "11c": c, "11d": d, "loaded_before": loaded_before}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model layer made whole. The reference's released weight
+# format imported on the card's host with the packages of PHASE12_BLOCKED
+# unimportable (in this process from the phase on, and in the importer's
+# process), the fused nearest-upsample tail, and the 1-D and 3-D nets.
+
+PHASE12_BLOCKED = ("jax", "flax", "yaml", "msgpack", "h5py", "scripts", "climate2weather_tpu")
+REFERENCE_PKL = "network-snapshot-0009437-0.999900.pkl"
+DEFAULT_ARCH = {"noise_features": 32, "forcing_dim": 0}  # build_score_unet's defaults of keys a config may omit
+# (spatial rank, input shape without channels): 64 tokens at level 4 in each
+ND_CASES = ((1, (8, 1024)), (3, (2, 64, 64, 64)))
+FUSED_SLACK = 2.0  # the fused tail's distance from float64 at most this times the plain tail's
+
+
+def _fp16_rounded(tree):
+    """A parameter tree with every leaf rounded through float16 (the
+    reference's snapshot payload) back to float32."""
+    return {k: _fp16_rounded(v) if isinstance(v, dict) else np.asarray(v).astype(np.float16).astype(np.float32)
+            for k, v in tree.items()}
+
+
+def _fixture_goldens(device) -> dict:
+    """The committed reference pickles ``tests/fixtures/torch_snapshot_*.pkl``
+    (made by the reference's code) through the port's importer in this
+    torch, and the port's fp32 forward of each on ``device`` against the
+    reference's own output ``torch_golden_*.npz`` at rtol/atol 2e-4 (the
+    repository's bar): the largest error over that limit's scale."""
+    from climate2weather_tpu_torch import import_reference_snapshot as importer
+
+    out = {}
+    for name in ("tiny", "prod"):
+        sd, _ = importer.load_reference_snapshot(str(FIXTURES / f"torch_snapshot_{name}.pkl"))
+        arch = importer.infer_architecture(sd)
+        net = _built(arch, importer.convert_state_dict(sd, arch), torch.float32, device)
+        golden = np.load(FIXTURES / f"torch_golden_{name}.npz")
+        with torch.no_grad():
+            got = net(torch.from_numpy(golden["x"]).to(device).movedim(1, -1),
+                      torch.from_numpy(golden["t"]).to(device)).movedim(-1, 1).cpu().numpy()
+        out[name] = float((np.abs(got - golden["out"]) / (2e-4 + 2e-4 * np.abs(golden["out"]))).max())
+    return out
+
+
+def phase12a_import(root, snapshot_dir, device) -> dict:
+    """The committed reference pickles against their goldens
+    (:func:`_fixture_goldens`); then the snapshot written as the reference's
+    released pickle (fp16 EMA net, the reference's classes and names;
+    ``tests/_reference_pickle.py``) and ``python -m
+    climate2weather_tpu_torch.import_reference_snapshot`` on it in a process
+    with the packages of PHASE12_BLOCKED unimportable: the inferred
+    architecture the snapshot's plus ``norm_ddof: 1``, the parameter count,
+    and every imported tensor equal, bit for bit, to the snapshot's rounded
+    through float16."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from _reference_pickle import write_reference_pickle
+    from climate2weather_tpu_torch.convert import to_state_dict
+    from climate2weather_tpu_torch.io.snapshot import load_snapshot
+
+    t0 = time.time()
+    goldens = _fixture_goldens(device)
+    params, cfg = load_snapshot(str(snapshot_dir))
+    nk, dk = cfg["network_kwargs"], cfg["dataset_kwargs"]["train"]
+    pkl = root / REFERENCE_PKL
+    t_write = time.time()
+    nbytes = write_reference_pickle(pkl, to_state_dict(params), nk, {
+        "class_name": "dataset.COSMODataset", "window": int(dk["window"]),
+        "num_features": int(dk["num_features"]), "spatial_res": int(dk.get("spatial_res", 128))})
+    write_s = time.time() - t_write
+    out_dir = root / "imported" / pathlib.Path(snapshot_dir).name
+    (out,), import_s, _ = _run_processes(
+        [_blocked("module", "climate2weather_tpu_torch.import_reference_snapshot", "--snapshot", pkl, "--out",
+                  out_dir, blocked=PHASE12_BLOCKED)], [_child_env(device)], label="12a import")
+    imported, icfg = load_snapshot(str(out_dir))
+    want_arch = {**DEFAULT_ARCH, **{k: v for k, v in nk.items() if k != "class_name"}, "norm_ddof": 1}
+    got, want = to_state_dict(imported), to_state_dict(_fp16_rounded(params))
+    n_params = sum(v.numel() for v in want.values())
+    differ = sorted(k for k in want if k not in got or not torch.equal(got[k].view(torch.int32),
+                                                                        want[k].view(torch.int32)))
+    rec = {"fixture_golden_err_over_tol": goldens, "pickle_bytes": nbytes, "write_s": write_s,
+           "import_s": import_s, "params": n_params,
+           "tensors": len(want), "tensors_differ": differ, "extra_tensors": sorted(set(got) - set(want)),
+           "architecture_equal": icfg["network_kwargs"] == want_arch, "norm_ddof": icfg["network_kwargs"]["norm_ddof"],
+           "importer_said": [ln for ln in out.splitlines() if ln.startswith("Converted")],
+           "snapshot": str(out_dir)}
+    emit("12a", t0, **{k: v for k, v in rec.items() if k != "snapshot"})
+    if any(e > 1.0 for e in goldens.values()):
+        raise AssertionError(f"a committed reference pickle misses its golden output: {rec}")
+    if differ or rec["extra_tensors"] or not rec["architecture_equal"]:
+        raise AssertionError(f"the imported snapshot is not the fp16-rounded net: {rec} {icfg['network_kwargs']}")
+    if rec["importer_said"] != [f"Converted {n_params / 1e6:.1f}M parameters"]:
+        raise AssertionError(f"the importer did not report the net's size: {rec}")
+    return rec
+
+
+def _built(network_kwargs, weights, dtype, device):
+    """A ScoreUNet of ``network_kwargs`` made on ``device`` and holding
+    ``weights`` (a flax tree or a state dict), in eval mode without
+    gradients."""
+    from climate2weather_tpu_torch.convert import load_params
+    from climate2weather_tpu_torch.models.score_net import build_score_unet
+
+    with torch.device(device):
+        net = build_score_unet(network_kwargs, dtype=dtype)
+    if any(isinstance(v, torch.Tensor) for v in weights.values()):
+        net.load_state_dict(weights, strict=True)
+    else:
+        load_params(net, weights)
+    return net.eval().requires_grad_(False)
+
+
+def phase12b_forward(imported_dir, snapshot_dir, device, batch=96, res=128, seed=0) -> dict:
+    """``load_net`` on the imported snapshot and one bf16 forward: equal, bit
+    for bit, to the forward of a net built from the snapshot's fp16-rounded
+    weights with ``norm_ddof: 1``, and 6 attention launches; the same
+    weights with the snapshot's own ``norm_ddof: 0`` must differ (the
+    check sees a dropped ddof)."""
+    from climate2weather_tpu_torch.exp.downscaling import load_net
+    from climate2weather_tpu_torch.io.snapshot import load_snapshot
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    net, cfg = load_net(str(imported_dir), device)
+    params, scfg = load_snapshot(str(snapshot_dir))
+    rounded = _fp16_rounded(params)
+
+    def built(ddof):
+        return _built({**scfg["network_kwargs"], "norm_ddof": ddof}, rounded, torch.bfloat16, device)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    channels = int(cfg["network_kwargs"]["channels"])
+    x = torch.randn((batch, res, res, channels), generator=g, device=device)
+    t = torch.rand((batch,), generator=g, device=device)
+    with torch.no_grad():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        for k in launch_counts:
+            launch_counts[k] = 0
+        out = net(x, t)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = launch_counts["attention_fwd"]
+        want = built(1)(x, t)
+        ddof0 = built(0)(x, t)
+    expect = _attention_blocks(cfg["network_kwargs"]) if device.type == "cuda" else 0
+    rec = {"shape": list(out.shape), "dtype": str(out.dtype), "finite": bool(torch.isfinite(out).all()),
+           "bit_equal": torch.equal(out, want), "max_abs_diff": float((out.float() - want.float()).abs().max()),
+           "ddof0_max_abs_diff": float((ddof0.float() - want.float()).abs().max()),
+           "attention_fwd_launches": launches, "expected_launches": expect}
+    emit("12b", t0, **rec)
+    if not rec["finite"] or not rec["bit_equal"] or launches != expect:
+        raise AssertionError(f"the imported net's forward is not the fp16-rounded net's: {rec}")
+    if rec["ddof0_max_abs_diff"] == 0.0:
+        raise AssertionError(f"the forward check cannot see norm_ddof: {rec}")
+    return rec
+
+
+def phase12c_predict(root, imported_dir, device, res=128, hours=49, steps=8, samples=3, seed=0) -> dict:
+    """``experiment predict`` in this process with the imported snapshot, at
+    a copy of ``s16_t6_spectral.yml`` naming it (49 hours, DPM-Solver++(2M),
+    ``steps`` steps, ``samples`` samples) on phase 6's kind of files: finite
+    samples, A(x) = y under phase 4's limit, 6 attention launches per UNet
+    forward on the card."""
+    from climate2weather_tpu_torch import experiment
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    (root / "inputs").mkdir()
+    paths = write_predict_inputs(root / "inputs", res=res, hours=hours, seed=seed)
+    cfg = yaml_load_file(CONFIG)
+    cfg.update(model_path=str(imported_dir), data_path=paths["data"], quantile_path=paths["quantiles"],
+               observation_path=paths["data"], spectral_calibrate=paths["train"], num_hours=hours,
+               num_sampling_steps=steps, num_samples=samples)
+    config_path = root / "imported_predict.yml"
+    yaml_dump_file(cfg, config_path)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    t_run = time.time()
+    experiment.main(["predict", "--save-path", str(root / "predict"), "--config-path", str(config_path),
+                     "--device", device.type])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    predict_s = time.time() - t_run
+    launches = launch_counts["attention_fwd"]
+    snap_cfg = yaml_load_file(pathlib.Path(imported_dir) / "config.yaml")
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    expect = _attention_blocks(snap_cfg["network_kwargs"]) * _expected_forwards(cfg, hours, window) \
+        if device.type == "cuda" else 0
+    (out_dir,) = [p for p in (root / "predict").iterdir() if p.is_dir()]
+    gens = [open_grid(str(out_dir / f"gen_sample_{i:03d}.nc")) for i in range(samples)]
+    finite = all(bool(np.isfinite(v).all()) for gen in gens for v in gen.data_vars.values())
+    consistency, tol = _written_consistency(out_dir, gens, cfg, paths["quantiles"])
+    rec = {"predict_s": predict_s, "inputs_s": t_run - t0, "attention_fwd_launches": launches,
+           "expected_launches": expect, "finite": finite, "A_x_minus_y_max": consistency, "A_tol": tol,
+           "outputs": sorted(p.name for p in out_dir.iterdir())}
+    emit("12c", t0, **rec)
+    if not finite or consistency > tol or launches != expect:
+        raise AssertionError(f"the guided predict from the imported snapshot failed its checks: {rec}")
+    return rec
+
+
+def _norm_f64(x, eps=1e-5, ddof=0, dim=1):
+    """The channel norm with its statistics in x's dtype (float64 here)."""
+    mean = x.mean(dim=dim, keepdim=True)
+    return (x - mean) * torch.rsqrt(x.var(dim=dim, keepdim=True, correction=ddof) + eps)
+
+
+def _attention_f64(q, k, v):
+    s = q.shape[-1] ** (-0.25)
+    return torch.softmax((q.double() * s) @ (k.double() * s).transpose(-1, -2), dim=-1) @ v.double()
+
+
+def _diff(a, b) -> tuple:
+    d = (a.double() - b.double()).abs()
+    return float(d.max()), float(d.mean())
+
+
+def phase12d_fused(snapshot_dir, device, batch=8, timed_batch=96, res=128, seed=0, reps=5) -> dict:
+    """The snapshot with ``fused_upsample`` off and on, same parameters: in
+    fp32 (TF32 off) at ``batch``, each against a float64 forward of the same
+    batch (every conv, norm and attention in float64), the fused net no
+    farther from it than FUSED_SLACK times the plain one, in max and mean;
+    then both bf16 forwards at ``timed_batch`` timed with CUDA events."""
+    from climate2weather_tpu_torch.io.snapshot import load_snapshot
+    from climate2weather_tpu_torch.models import unet
+
+    t0 = time.time()
+    params, cfg = load_snapshot(str(snapshot_dir))
+    nk = cfg["network_kwargs"]
+
+    def built(dtype, fused):
+        return _built({**nk, "fused_upsample": fused}, params, dtype, device)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    channels = int(nk["channels"])
+    x = torch.randn((batch, res, res, channels), generator=g, device=device)
+    t = torch.rand((batch,), generator=g, device=device)
+    with torch.no_grad():
+        plain = built(torch.float32, False)(x, t)
+        fused_net = built(torch.float32, True)
+        fused = fused_net(x, t)
+        n_fused = sum(isinstance(m, unet.NearestUpConv2x) for m in fused_net.modules())
+        del fused_net
+        real = unet.channel_norm, unet.fused_attention
+        unet.channel_norm, unet.fused_attention = _norm_f64, _attention_f64
+        try:
+            ref = built(torch.float64, False)(x, t)
+        finally:
+            unet.channel_norm, unet.fused_attention = real
+    (p_max, p_mean), (f_max, f_mean) = _diff(plain, ref), _diff(fused, ref)
+    rec = {"fp32_batch": batch, "fused_tails": n_fused, "plain_vs_f64": [p_max, p_mean],
+           "fused_vs_f64": [f_max, f_mean], "fused_vs_plain": list(_diff(fused, plain)),
+           "out_scale": float(ref.abs().max()), "slack": FUSED_SLACK,
+           "tf32": torch.backends.cudnn.allow_tf32 if device.type == "cuda" else None}
+    if device.type == "cuda":
+        xb = torch.randn((timed_batch, res, res, channels), generator=g, device=device)
+        tb = torch.rand((timed_batch,), generator=g, device=device)
+        nets = {"plain": built(torch.bfloat16, False), "fused": built(torch.bfloat16, True)}
+        with torch.no_grad():
+            outs = {k: n(xb, tb) for k, n in nets.items()}
+            rec["bf16_fused_vs_plain"] = list(_diff(outs["fused"], outs["plain"]))
+            times = {k: [] for k in nets}
+            for _ in range(2):  # plain, fused, plain, fused
+                for k, n in nets.items():
+                    times[k].append(cuda_time_ms(lambda n=n: n(xb, tb), reps=reps, warmup=1))
+        rec.update(bf16_shape=list(xb.shape), forward_plain_ms=times["plain"], forward_fused_ms=times["fused"])
+        del nets, outs
+    emit("12d", t0, **rec)
+    if n_fused != len(nk["hidden_channels"]) - 1:
+        raise AssertionError(f"fused_upsample built {n_fused} fused tails: {rec}")
+    if f_max > FUSED_SLACK * p_max or f_mean > FUSED_SLACK * p_mean:
+        raise AssertionError(f"the fused tail is farther from float64 than the plain one allows: {rec}")
+    return rec
+
+
+def _layout(x: torch.Tensor) -> str:
+    """The memory layout of a conv's input: channels innermost or not."""
+    if x.dim() >= 4 and x.is_contiguous(memory_format=(torch.channels_last, torch.channels_last_3d)[x.dim() - 4]):
+        return "channels_last" if x.dim() == 4 else "channels_last_3d"
+    if x.dim() == 3 and x.stride(1) == 1 and x.shape[1] > 1:
+        return "channels_last"
+    return "contiguous" if x.is_contiguous() else "strided"
+
+
+def phase12e_nd(device, model_config=MODEL_CONFIG, cases=ND_CASES, channels=52, seed=0) -> dict:
+    """A 1-D and a 3-D ScoreUNet at the widths of ``model_config`` (flax-style
+    init from the seed), one bf16 forward and backward each: finite outputs
+    and gradients, 6 forward and 6 backward attention launches each, every
+    launch against the plain version on its own inputs under phase 2's
+    limits (one bf16 ulp; a dropped key and a dropped row sum outside), the
+    layout each level's convs see, peak memory and seconds."""
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+    from climate2weather_tpu_torch.models.init import init_params
+    from climate2weather_tpu_torch.models.score_net import build_score_unet
+    from climate2weather_tpu_torch.ops import attention
+
+    t0 = time.time()
+    nk = {**yaml_load_file(model_config), "channels": channels}
+    records = {}
+    for spatial, shape in cases:
+        t_case = time.time()
+        net = build_score_unet({**nk, "spatial": spatial}).to(device)
+        init_params(net, torch.Generator(device=device).manual_seed(seed))
+        layouts, hooks = {}, []
+
+        def seen(name):
+            def hook(module, args):
+                layouts.setdefault(name, _layout(args[0]))
+            return hook
+
+        for name, m in net.unet.named_children():
+            if name.startswith(("head", "tail")) or name.endswith("_block0"):
+                conv = m.conv0 if name.endswith("_block0") else m
+                hooks.append(conv.register_forward_pre_hook(seen(name)))
+        g = torch.Generator(device=device).manual_seed(seed + spatial)
+        x = torch.randn((*shape, channels), generator=g, device=device)
+        t = torch.rand((shape[0],), generator=g, device=device)
+        w = torch.randn((*shape, channels), generator=g, device=device)
+        calls = {"fwd": [], "bwd": []}
+        real_fwd, real_bwd = attention.attention_fwd, attention.attention_bwd
+
+        def rec_fwd(q, k, v):
+            out = real_fwd(q, k, v)
+            calls["fwd"].append((q.detach(), k.detach(), v.detach(), out.detach()))
+            return out
+
+        def rec_bwd(q, k, v, do):
+            out = real_bwd(q, k, v, do)
+            calls["bwd"].append((q.detach(), k.detach(), v.detach(), do.detach(), [o.detach() for o in out]))
+            return out
+
+        _peak_reset(device)
+        for k in attention.launch_counts:
+            attention.launch_counts[k] = 0
+        attention.attention_fwd, attention.attention_bwd = rec_fwd, rec_bwd
+        try:
+            t_run = time.time()
+            out = net(x, t)
+            (out.float() * w).sum().backward()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            run_s = time.time() - t_run
+        finally:
+            attention.attention_fwd, attention.attention_bwd = real_fwd, real_bwd
+            for h in hooks:
+                h.remove()
+        launches = dict(attention.launch_counts)
+        peak = _peak(device)
+        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in net.parameters())
+        fwd_checks, bwd_checks = [], []
+        for q, k, v, got in calls["fwd"]:
+            want = attention.attention_reference(q, k, v).float()
+            tol = bf16_ulp(float(want.abs().max()))
+            fwd_checks.append({"shape": list(q.shape), "max_abs_err": float((got.float() - want).abs().max()),
+                               "tol": tol, "key_dropped_err": float((_key_dropped(q, k, v).float() - want).abs().max())})
+        for q, k, v, do, got in calls["bwd"]:
+            want = attention.attention_bwd_reference(q, k, v, do)
+            errs, scales = _grads_err(got, want)
+            fault, _ = _grads_err(_rowsum_dropped(q, k, v, do), want)
+            bwd_checks.append({"shape": list(q.shape), "max_abs_err": errs, "tol": _bwd_tols(scales, q.dtype),
+                               "rowsum_dropped_err": fault})
+        expect = _attention_blocks(nk) if device.type == "cuda" else 0
+        rec = {"spatial": spatial, "input": [*shape, channels], "params": sum(p.numel() for p in net.parameters()),
+               "out_shape": list(out.shape), "finite": bool(torch.isfinite(out).all()), "grads_finite": grads_finite,
+               "launches": launches, "expected_each_way": expect, "run_s": run_s,
+               "case_s": time.time() - t_case, "peak_bytes": peak, "conv_input_layouts": layouts,
+               "fwd_checks": fwd_checks, "bwd_checks": bwd_checks}
+        records[spatial] = rec
+        del net, out, calls
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        if not rec["finite"] or not grads_finite or rec["out_shape"] != [*shape, channels]:
+            raise AssertionError(f"the {spatial}-D net's forward or gradients failed: {rec}")
+        if launches["attention_fwd"] != expect or launches["attention_bwd"] != expect:
+            raise AssertionError(f"the {spatial}-D net launched {launches}, want {expect} each way: {rec}")
+        if len(fwd_checks) != _attention_blocks(nk) or len(bwd_checks) != _attention_blocks(nk):
+            raise AssertionError(f"the {spatial}-D net's attention calls were not all checked: {rec}")
+        for c in fwd_checks:
+            if c["max_abs_err"] > c["tol"] or c["key_dropped_err"] <= c["tol"]:
+                raise AssertionError(f"a forward attention launch of the {spatial}-D net disagrees: {c}")
+        for c in bwd_checks:
+            if any(e > tl for e, tl in zip(c["max_abs_err"], c["tol"])) or \
+                    c["rowsum_dropped_err"][0] <= c["tol"][0] or c["rowsum_dropped_err"][1] <= c["tol"][1]:
+                raise AssertionError(f"a backward attention launch of the {spatial}-D net disagrees: {c}")
+    emit("12e", t0, **{f"{s}d": r for s, r in records.items()})
+    return records
+
+
+def phase12_summary(model: dict) -> dict:
+    """Phase 12's line: each step's seconds and sizes, and the launches."""
+    a, b, c, d, e = (model[k] for k in ("12a", "12b", "12c", "12d", "12e"))
+    return {"pickle_bytes": a["pickle_bytes"], "pickle_write_s": a["write_s"], "import_s": a["import_s"],
+            "params": a["params"], "forward_bit_equal": b["bit_equal"],
+            "forward_launches": b["attention_fwd_launches"], "predict_s": c["predict_s"],
+            "predict_launches": c["attention_fwd_launches"], "A_x_minus_y_max": c["A_x_minus_y_max"],
+            "fused_vs_f64": d["fused_vs_f64"], "plain_vs_f64": d["plain_vs_f64"],
+            "forward_plain_ms": d.get("forward_plain_ms"), "forward_fused_ms": d.get("forward_fused_ms"),
+            "nd": {f"{s}d": {k: r[k] for k in ("input", "params", "launches", "run_s", "peak_bytes",
+                                             "conv_input_layouts")} for s, r in e.items()},
+            "loaded_before": model["loaded_before"]}
+
+
+def phase12_model(snapshot_dir, device, res=128, batch=96, fused_batch=8, predict_steps=8, samples=3,
+                  model_config=MODEL_CONFIG, nd_cases=ND_CASES, seed=0) -> dict:
+    """Phase 12, 12a-12e (see the module docstring), in one scratch
+    directory, with the packages of PHASE12_BLOCKED unimportable in this
+    process and in the importer's. Returns each part's record."""
+    import shutil
+    import tempfile
+
+    loaded_before = sorted(m for m in PHASE12_BLOCKED if sys.modules.get(m) is not None)
+    for name in PHASE12_BLOCKED:
+        sys.modules[name] = None
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-model-"))
+    try:
+        a = phase12a_import(root, snapshot_dir, device)
+        b = phase12b_forward(a["snapshot"], snapshot_dir, device, batch=batch, res=res, seed=seed)
+        c = phase12c_predict(root, a["snapshot"], device, res=res, steps=predict_steps, samples=samples, seed=seed)
+        d = phase12d_fused(snapshot_dir, device, batch=fused_batch, timed_batch=batch, res=res, seed=seed)
+        e = phase12e_nd(device, model_config=model_config, cases=nd_cases, seed=seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"12a": a, "12b": b, "12c": c, "12d": d, "12e": e, "loaded_before": loaded_before}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--child"]:  # one process of phase 10 (see child_step, child_cli)
@@ -3028,6 +3479,9 @@ def main(argv=None) -> int:
     ap.add_argument("--data-only", action="store_true",
                     help="phases 0 and 1, then phase 11 (the offline data layer from the netCDF-C fixtures and a "
                          "raw archive to a guided predict), and stop (no device line)")
+    ap.add_argument("--model-only", action="store_true",
+                    help="phases 0 and 1, then phase 12 (the reference's pickle imported, the fused tail, the 1-D "
+                         "and 3-D nets), and stop (no device line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only",
@@ -3064,6 +3518,11 @@ def main(argv=None) -> int:
         emit(11, t11, **phase11_summary(phase11_data(SNAPSHOT, device, seed=args.seed)))
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
+    if args.model_only:
+        t12 = time.time()
+        emit(12, t12, **phase12_summary(phase12_model(SNAPSHOT, device, seed=args.seed)))
+        print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
+        return 0
     rows, year_fwd, exact_bwd = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
@@ -3083,6 +3542,9 @@ def main(argv=None) -> int:
     t11 = time.time()
     data = phase11_data(SNAPSHOT, device, seed=args.seed)
     emit(11, t11, **phase11_summary(data))
+    t12 = time.time()
+    model = phase12_model(SNAPSHOT, device, seed=args.seed)
+    emit(12, t12, **phase12_summary(model))
     # each kernel's launches on its own path: sampling for the forward (and
     # the year path's, at its own shape), training for the backward, the
     # ModResidualBlock composition for the Winograd conv
@@ -3109,6 +3571,13 @@ def main(argv=None) -> int:
     rows["attention_fwd"]["data_path"] = {"11b_launches": data["11b"]["train_launches"]["attention_fwd"],
                                           "11d_launches": data["11d"]["launches"]["attention_fwd"]}
     rows["attention_bwd"]["data_path"] = {"11b_launches": data["11b"]["train_launches"]["attention_bwd"]}
+    # phase 12: the imported net's forward (12b) and predict (12c), and the
+    # 1-D and 3-D nets' forward and backward (12e)
+    nd = {f"12e_{s}d_launches": model["12e"][s]["launches"] for s in model["12e"]}
+    rows["attention_fwd"]["model_path"] = {"12b_launches": model["12b"]["attention_fwd_launches"],
+                                           "12c_launches": model["12c"]["attention_fwd_launches"],
+                                           **{k: v["attention_fwd"] for k, v in nd.items()}}
+    rows["attention_bwd"]["model_path"] = {k: v["attention_bwd"] for k, v in nd.items()}
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -5,8 +5,9 @@ the port's ``state_dict`` use the same names, those of the snapshot:
 ``map_layer0``/``map_layer1``, ``unet/head{i}``,
 ``unet/{down,up}{i}_block{b}/{project,conv0,conv1}``,
 ``unet/{down,up}{i}_attn{b}/{qkv,proj_out}`` and ``unet/tail{i}``. Layouts
-differ: a flax conv kernel is HWIO and becomes torch's OIHW; a flax Dense
-kernel is ``[in, out]`` and becomes a Linear weight ``[out, in]``.
+differ: a flax conv kernel is WIO, HWIO or DHWIO (1-, 2- or 3-D) and
+becomes torch's OIW, OIHW or OIDHW; a flax Dense kernel is ``[in, out]`` and
+becomes a Linear weight ``[out, in]``.
 :func:`to_flax_params` is the inverse of :func:`to_state_dict`, exact both
 ways, for writing checkpoints and snapshots in the JAX package's layout.
 """
@@ -38,8 +39,8 @@ def to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
         name = module.replace("/", ".")
         if leaf == "bias":
             out[f"{name}.bias"] = torch.tensor(arr, dtype=torch.float32)
-        elif leaf == "kernel" and arr.ndim == 4:  # HWIO -> OIHW
-            w = np.transpose(arr, (3, 2, 0, 1))
+        elif leaf == "kernel" and arr.ndim in (3, 4, 5):  # (D)(H)WIO -> OI(D)(H)W
+            w = np.transpose(arr, (arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2)))
             out[f"{name}.weight"] = torch.tensor(w, dtype=torch.float32)
         elif leaf == "kernel" and arr.ndim == 2:  # [in, out] -> [out, in]
             out[f"{name}.weight"] = torch.tensor(arr.T, dtype=torch.float32)
@@ -58,8 +59,8 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
         arr = tensor.detach().cpu().numpy()
         if leaf == "bias":
             key = "bias"
-        elif leaf == "weight" and arr.ndim == 4:  # OIHW -> HWIO
-            key, arr = "kernel", np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)))
+        elif leaf == "weight" and arr.ndim in (3, 4, 5):  # OI(D)(H)W -> (D)(H)WIO
+            key, arr = "kernel", np.ascontiguousarray(np.transpose(arr, (*range(2, arr.ndim), 1, 0)))
         elif leaf == "weight" and arr.ndim == 2:  # [out, in] -> [in, out]
             key, arr = "kernel", np.ascontiguousarray(arr.T)
         else:

@@ -23,12 +23,13 @@ _TRUNCATED_STD = 0.87962566103423978
 @torch.no_grad()
 def init_params(net: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
     """Re-draw every conv and linear weight of ``net`` as flax's
-    ``lecun_normal`` (fan-in = in-features x kernel area) and zero every
+    ``lecun_normal`` (fan-in = in-features x kernel size, C k^d for a
+    rank-d conv) and zero every
     bias, in module order, from ``generator``. Returns ``net``."""
     for module in net.modules():
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
+        if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
             w = module.weight
-            fan_in = w[0].numel()  # OIHW / [out, in]: everything but the output axis
+            fan_in = w[0].numel()  # OI(D)(H)W / [out, in]: everything but the output axis
             std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
             nn.init.trunc_normal_(w, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std,
                                   generator=generator)

@@ -1,8 +1,9 @@
 """Score network (port of climate2weather_tpu/models/score_net.py).
 
 Sinusoidal noise features -> Linear -> SiLU -> Linear -> SiLU, in fp32,
-modulating the UNet. Inputs and outputs are NHWC ``[B, H, W, channels]`` as
-in the JAX package, with ``channels = num_features * window``.
+modulating the UNet. Inputs and outputs are channels-last
+``[B, *spatial, channels]`` (NHWC for the 2-D net) as in the JAX package,
+with ``channels = num_features * window``.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ class ScoreUNet(nn.Module):
                  forcing_dim: int = 0, hidden_channels: Sequence[int] = (32, 64, 128),
                  hidden_blocks: Sequence[int] = (2, 3, 5),
                  attention_levels: Sequence[int] = (), kernel_size: int = 3,
-                 stride: int = 2, dtype: torch.dtype = torch.bfloat16, norm_ddof: int = 0):
+                 stride: int = 2, dtype: torch.dtype = torch.bfloat16, norm_ddof: int = 0,
+                 spatial: int = 2, fused_upsample: bool = False):
         super().__init__()
         self.noise_features = noise_features
         self.forcing_dim = forcing_dim
@@ -48,13 +50,13 @@ class ScoreUNet(nn.Module):
             self.map_forcing = nn.Linear(forcing_dim, embedding_dim)
         self.unet = UNet(
             channels, channels, embedding_dim, hidden_channels, hidden_blocks,
-            attention_levels, kernel_size, stride, dtype, norm_ddof,
+            attention_levels, kernel_size, stride, dtype, norm_ddof, spatial, fused_upsample,
         )
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 forcing: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: [B, H, W, C] NHWC; t: a float, or a tensor of 1 or B times;
-        returns [B, H, W, C] in the compute dtype."""
+        """x: [B, *spatial, C] channels-last; t: a float, or a tensor of 1 or
+        B times; returns [B, *spatial, C] in the compute dtype."""
         if forcing is not None and self.forcing_dim == 0:
             raise ValueError("forcing given to a net built without forcing_dim")
         if isinstance(t, torch.Tensor):
@@ -68,19 +70,18 @@ class ScoreUNet(nn.Module):
         emb = F.silu(emb)
         if emb.shape[0] == 1 and x.shape[0] != 1:
             emb = emb.expand(x.shape[0], -1)
-        out = self.unet(x.permute(0, 3, 1, 2), emb)  # channels_last NCHW view
-        return out.permute(0, 2, 3, 1)
+        out = self.unet(x.movedim(-1, 1), emb)  # a channels_last(_3d) view
+        return out.movedim(1, -1)
 
 
 def build_score_unet(model_cfg: dict, dtype: torch.dtype = torch.bfloat16) -> ScoreUNet:
     """A ScoreUNet from a config dict (the sda_unet.yml / snapshot surface).
-    Keys as in the JAX ``build_score_unet``; ``fused_upsample`` (a JAX-only
-    rewrite of the same function) and 1-D/3-D nets are not ported."""
+    Keys as in the JAX ``build_score_unet``, ``spatial`` (1, 2 or 3) and
+    ``fused_upsample`` among them."""
     cfg = dict(model_cfg)
-    if int(cfg.get("spatial", 2)) != 2:
-        raise NotImplementedError("the port builds 2-D UNets only")
-    if cfg.get("fused_upsample", False):
-        raise NotImplementedError("fused_upsample is not ported")
+    spatial = int(cfg.get("spatial", 2))
+    if spatial not in (1, 2, 3):
+        raise NotImplementedError(f"the port builds 1-, 2- and 3-D UNets, not spatial={spatial}")
     return ScoreUNet(
         channels=int(cfg["channels"]),
         embedding_dim=int(cfg.get("embedding_dim", 512)),
@@ -93,4 +94,6 @@ def build_score_unet(model_cfg: dict, dtype: torch.dtype = torch.bfloat16) -> Sc
         stride=int(cfg.get("stride", 2)),
         dtype=dtype,
         norm_ddof=int(cfg.get("norm_ddof", 0)),
+        spatial=spatial,
+        fused_upsample=bool(cfg.get("fused_upsample", False)),
     )

@@ -24,6 +24,7 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
 import torch
 
 from _torch_parity import jax_net_and_params, tiny_config, write_snapshot
@@ -34,7 +35,7 @@ CHILD = r"""
 import importlib.abc, json, pathlib, pkgutil, sys
 
 BLOCKED = {"jax", "flax", "optax", "msgpack", "yaml", "h5py", "scipy", "click", "netCDF4", "xarray",
-           "ml_dtypes", "ninja", "matplotlib", "PIL", "climate2weather_tpu"}
+           "ml_dtypes", "ninja", "matplotlib", "PIL", "scripts", "climate2weather_tpu"}
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -94,6 +95,14 @@ elif mode == "data":
     p11 = chip_smoke.phase11_data(snap, cpu, nlat=40, nlon=44, patch=((4, 36), (6, 38)), res=32,
                                   synth_hours=(96, 56), train_steps=2, predict_steps=2)
     out = {"p11": chip_smoke.phase11_summary(p11), "p11a": p11["11a"], "p11b": p11["11b"], "p11d": p11["11d"]}
+elif mode == "model":
+    # phase 12 at 32 x 32: the tiny snapshot as the reference's pickle,
+    # imported; batch 2; 2 steps of predict; tiny_unet's widths in 1-D on
+    # [2, 64] and in 3-D on [1, 16, 16, 16] (512 tokens at level 1)
+    p12 = chip_smoke.phase12_model(snap, cpu, res=32, batch=2, fused_batch=2, predict_steps=2,
+                                   model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
+                                   nd_cases=((1, (2, 64)), (3, (1, 16, 16, 16))))
+    out = {"p12": chip_smoke.phase12_summary(p12), **{k: p12[k] for k in ("12a", "12b", "12c", "12d", "12e")}}
 elif mode == "modes":
     # phase 9 with 4 steps in 9a and 9b, and the year config above a
     # threshold lowered to 16 frames for 31 hours in 9c
@@ -275,6 +284,61 @@ def test_data_layer_phase_needs_only_stdlib_torch_numpy(tmp_path):
         assert err <= 0.1 * p11["quantile_error_biased"][v]
     assert d["finite"] and d["A_x_minus_y_max"] <= d["A_tol"] and d["observation_frames"] == 9
     assert d["metrics_scores"] > 0 and "gen_sample_002.nc" in d["outputs"]
+
+
+def test_model_layer_phase_needs_only_stdlib_torch_numpy(tmp_path):
+    """Phase 12 on the CPU with the tiny snapshot, with jax, flax, yaml,
+    msgpack, h5py, ``scripts`` and the JAX package unimportable here and in
+    the importer's process: the snapshot written as the reference's pickle
+    and imported bit for bit (fp16-rounded), the imported net's forward
+    equal to the rounded net's with ``norm_ddof: 1``, ``experiment predict``
+    from it, the fused tail against float64, and the 1-D and 3-D nets'
+    forward and backward with every attention call checked."""
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "model", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for name in ("import_reference_snapshot", "models.unet", "models.score_net", "models.init", "convert"):
+        assert f"climate2weather_tpu_torch.{name}" in out["modules"]
+    a, b, c, d, e = (out[k] for k in ("12a", "12b", "12c", "12d", "12e"))
+    assert a["architecture_equal"] and a["tensors_differ"] == [] and a["norm_ddof"] == 1 and a["tensors"] == 44
+    assert set(a["fixture_golden_err_over_tol"]) == {"tiny", "prod"}
+    assert all(e <= 1.0 for e in a["fixture_golden_err_over_tol"].values())
+    assert b["bit_equal"] and b["ddof0_max_abs_diff"] > 0 and b["shape"] == [2, 32, 32, 52]
+    assert c["finite"] and c["A_x_minus_y_max"] <= c["A_tol"] and "gen_sample_002.nc" in c["outputs"]
+    assert d["fused_tails"] == 1 and d["fused_vs_f64"][0] <= 2 * d["plain_vs_f64"][0]
+    assert e["1"]["out_shape"] == [2, 64, 52] and e["3"]["out_shape"] == [1, 16, 16, 16, 52]
+    for r in e.values():
+        assert r["finite"] and r["grads_finite"] and len(r["fwd_checks"]) == len(r["bwd_checks"]) == 2
+        assert r["launches"] == {"attention_fwd": 0, "attention_bwd": 0}  # no kernel on the CPU
+    assert set(e["3"]["conv_input_layouts"].values()) == {"channels_last_3d"}
+
+
+# what no module of the port, nor chip_smoke.py and the pickle writer it
+# runs, may import, at any depth of the file (h5py is the HDF5 reader's
+# optional fallback, which the blocked runs above show is never needed)
+FORBIDDEN = {"jax", "flax", "optax", "yaml", "msgpack", "scripts", "climate2weather_tpu"}
+PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "climate2weather_tpu_torch").rglob("*.py")) + [
+    "chip_smoke.py", "tests/_reference_pickle.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_import_of_jax_flax_yaml_msgpack_or_scripts(path):
+    """Every ``import`` and ``from ... import`` statement of the file,
+    functions' bodies included, names none of FORBIDDEN."""
+    import ast
+
+    tree = ast.parse((REPO / path).read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module and node.level == 0]
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], (path, names)
 
 
 SITECUSTOMIZE = r"""

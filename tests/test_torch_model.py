@@ -100,12 +100,19 @@ def test_bf16_compute_keeps_fp32_params_and_bf16_output():
 
 
 def test_build_score_unet_rejects_unported_options():
+    """Only a spatial rank outside 1-3 is refused (torch has no Conv4d);
+    ``fused_upsample`` and the 1-D and 3-D nets are built."""
     from climate2weather_tpu_torch.models.score_net import build_score_unet
+    from climate2weather_tpu_torch.models.unet import NearestUpConv2x
 
-    with pytest.raises(NotImplementedError):
-        build_score_unet({"channels": 4, "spatial": 3})
-    with pytest.raises(NotImplementedError):
-        build_score_unet({"channels": 4, "fused_upsample": True})
+    for spatial in (0, 4):
+        with pytest.raises(NotImplementedError):
+            build_score_unet({"channels": 4, "spatial": spatial})
+    net = build_score_unet({"channels": 4, "fused_upsample": True})
+    assert net.unet.fused_upsample and isinstance(net.unet.tail1, NearestUpConv2x)
+    for spatial in (1, 3):
+        net = build_score_unet({"channels": 4, "spatial": spatial})
+        assert net.unet.head0.weight.dim() == spatial + 2
 
 
 def test_artifact_72m_matches_flax_at_32x32():
