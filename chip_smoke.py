@@ -182,14 +182,43 @@ Numbered phases, each printing one JSON line with its seconds:
    version under phase 2's limits, 6 each way, the layout each level's
    convs see, peak memory and seconds.
 
+13. fill values, the zarr store and the figure data, with jax, flax, h5py,
+   scipy, matplotlib, PIL, click, zarr, numcodecs, xarray and the JAX
+   package unimportable in this process and in the one it starts: (13a) the
+   committed partly written fixtures ``tests/fixtures/fill_{latest,earliest}.nc``
+   (extensible-array, fixed-array and version-1 B-tree chunk indexes, a
+   contiguous dataset never written; fill value and ``_FillValue``
+   9.96921e36) through ``io.hdf5.File`` equal to ``fill_contents.npz`` bit
+   for bit, and through ``open_grid`` NaN exactly where the fill value is;
+   (13b) the blosc codec built anew by the host C++ compiler (named, with
+   its seconds), the public-spec golden chunks decoded, the JAX-written
+   stores ``tests/fixtures/jax_{zlib,blosc-lz4,none}.zarr`` (the last with a
+   missing chunk) read equal to ``zarr_contents.npz`` bit for bit, the same
+   grid written by the port into byte-equal files, and a corrupted blosc
+   chunk raising an error that names the store and the chunk; (13c) phase
+   6's ground truth in a blosc-lz4 store (``write_zarr``) and its coarse
+   observation in a zlib store (``data.cli select-dates`` to a ``.zarr``
+   path), the normalized inputs loaded from them equal to those from the
+   ``.nc`` files bit for bit, ``experiment.main(["predict", ...])`` in this
+   process at a copy of ``s16_t6_spectral.yml`` naming the stores (49 hours,
+   DPM-Solver++(2M), 8 steps, 3 samples): finite, A(x) = y under phase 4's
+   limit, 6 attention launches per UNet forward, then ``metrics run``;
+   (13d) the data of every figure kind of ``exp/figures.KINDS`` from 13c's
+   directory, and of ``downscaled_clim_dist`` against 12c's: finite, in the
+   shapes the drawing takes, each kind's seconds; ``experiment figures``
+   refusing with an error that names matplotlib and writing no file; (13e)
+   ``print_module_summary``'s table of the 72.1M net, its total the
+   snapshot's parameter count.
+
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 There is no CPU mode: without a card the script exits non-zero at once.
 ``--winograd-only`` stops after phase 2's Winograd part,
 ``--attention-bwd-only`` after phase 2's attention backward part, and
 ``--multi-process-only`` runs phases 0, 1 and 10 alone, ``--data-only``
-phases 0, 1 and 11, ``--model-only`` phases 0, 1 and 12 (no device line in
-any). ``--child ...`` is one process of phase 10 (``child_step``,
+phases 0, 1 and 11, ``--model-only`` phases 0, 1 and 12, ``--store-only``
+phases 0, 1 and 13 (13d then compares 13c's directory with itself; no
+device line in any). ``--child ...`` is one process of phase 10 (``child_step``,
 ``child_cli``), not for use by hand.
 """
 
@@ -3223,7 +3252,7 @@ def phase12c_predict(root, imported_dir, device, res=128, hours=49, steps=8, sam
     emit("12c", t0, **rec)
     if not finite or consistency > tol or launches != expect:
         raise AssertionError(f"the guided predict from the imported snapshot failed its checks: {rec}")
-    return rec
+    return {**rec, "out_dir": str(out_dir)}
 
 
 def _norm_f64(x, eps=1e-5, ddof=0, dim=1):
@@ -3428,10 +3457,12 @@ def phase12_summary(model: dict) -> dict:
 
 
 def phase12_model(snapshot_dir, device, res=128, batch=96, fused_batch=8, predict_steps=8, samples=3,
-                  model_config=MODEL_CONFIG, nd_cases=ND_CASES, seed=0) -> dict:
+                  model_config=MODEL_CONFIG, nd_cases=ND_CASES, seed=0, keep_predict=None) -> dict:
     """Phase 12, 12a-12e (see the module docstring), in one scratch
     directory, with the packages of PHASE12_BLOCKED unimportable in this
-    process and in the importer's. Returns each part's record."""
+    process and in the importer's. Returns each part's record; 12c's
+    experiment directory is moved to ``keep_predict`` where one is given
+    (phase 13 compares its figure data with it)."""
     import shutil
     import tempfile
 
@@ -3445,9 +3476,369 @@ def phase12_model(snapshot_dir, device, res=128, batch=96, fused_batch=8, predic
         c = phase12c_predict(root, a["snapshot"], device, res=res, steps=predict_steps, samples=samples, seed=seed)
         d = phase12d_fused(snapshot_dir, device, batch=fused_batch, timed_batch=batch, res=res, seed=seed)
         e = phase12e_nd(device, model_config=model_config, cases=nd_cases, seed=seed)
+        if keep_predict is not None:
+            shutil.move(c["out_dir"], str(keep_predict))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"12a": a, "12b": b, "12c": c, "12d": d, "12e": e, "loaded_before": loaded_before}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: fill values in the HDF5 reader, the zarr store with its blosc
+# codec, and the paper's figure data, on the card's host; a guided predict
+# from zarr stores on the card. From the phase on, the packages of
+# PHASE13_BLOCKED are unimportable in this process and in the processes it
+# starts.
+
+PHASE13_BLOCKED = ("jax", "flax", "h5py", "scipy", "matplotlib", "PIL", "click", "zarr", "numcodecs", "xarray",
+                   "climate2weather_tpu")
+FILL_VALUE = np.float32(9.96921e36)  # netCDF-C's default float fill, the fixtures' fill value
+ZARR_COMPRESSORS = ("zlib", "blosc-lz4", "none")
+
+
+def _bits_equal(got, want) -> bool:
+    got, want = np.asarray(got), np.asarray(want)
+    return got.shape == want.shape and got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def _tree_bytes(root: pathlib.Path) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def phase13a_fill() -> dict:
+    """The committed partly written fixtures ``tests/fixtures/fill_{latest,earliest}.nc``
+    (extensible-array, fixed-array and version-1 B-tree chunk indexes, a
+    contiguous dataset never written; written by h5py) through
+    ``io.hdf5.File``: every dataset equal to ``fill_contents.npz`` bit for
+    bit, the unwritten storage the fill value; through ``open_grid``: NaN
+    exactly where the goldens hold the fill value."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io import hdf5
+
+    t0 = time.time()
+    goldens = np.load(FIXTURES / "fill_contents.npz")
+    rec = {}
+    for libver in ("latest", "earliest"):
+        path = FIXTURES / f"fill_{libver}.nc"
+        with hdf5.File(path) as f:
+            equal = {k: _bits_equal(f[k][()], goldens[f"{libver}/{k}"]) for k in f.keys()}
+            fills = {k: None if f[k].fillvalue is None else float(f[k].fillvalue) for k in f.keys()}
+        ds = open_grid(str(path))
+        nan_where_fill = {v: bool((np.isnan(x) == (goldens[f"{libver}/{v}"] == FILL_VALUE)).all())
+                          for v, x in ds.data_vars.items()}
+        unwritten = {v: int((goldens[f"{libver}/{v}"] == FILL_VALUE).all(axis=(1, 2)).sum()) for v in ds.data_vars}
+        rec[libver] = {"equal": equal, "fill_values": fills, "nan_where_fill": nan_where_fill,
+                       "unwritten_frames": unwritten, "bytes": path.stat().st_size}
+    emit("13a", t0, **rec)
+    for libver, r in rec.items():
+        if len(r["equal"]) != 7 or not all(r["equal"].values()) or not all(r["nan_where_fill"].values()) \
+                or not any(r["unwritten_frames"].values()) or r["fill_values"]["tas"] != float(FILL_VALUE):
+            raise AssertionError(f"the {libver} fill-value fixture did not read as its goldens: {r}")
+    return rec
+
+
+def _golden_chunks() -> dict:
+    """The public-spec blosc chunks of ``tests/test_blosc.py``: (chunk,
+    payload) of a memcpy chunk, an all-literals LZ4 stream, and a match
+    whose offset is below its length."""
+    import struct
+
+    def header(flags, typesize, nbytes, blocksize, cbytes):
+        return bytes([2, 1, flags, typesize]) + struct.pack("<III", nbytes, blocksize, cbytes)
+
+    def one_stream(stream, payload):
+        return (header(1 << 5, 1, len(payload), len(payload), 24 + len(stream)) + struct.pack("<I", 20)
+                + struct.pack("<I", len(stream)) + stream, payload)
+
+    return {"memcpy": (header(0x2 | (1 << 5), 1, 8, 8, 24) + bytes(range(8)), bytes(range(8))),
+            "literals": one_stream(bytes([8 << 4]) + b"abcdefgh", b"abcdefgh"),
+            "match": one_stream(bytes([0x44]) + b"abab" + struct.pack("<H", 2), b"abab" + b"ab" * 4)}
+
+
+def phase13b_stores(root) -> dict:
+    """The codec built anew by the host C++ compiler (its name and seconds);
+    the golden chunks decoded; the committed JAX-written stores
+    ``tests/fixtures/jax_{zlib,blosc-lz4,none}.zarr`` (the last with a
+    missing chunk) read equal to ``zarr_contents.npz`` bit for bit; the same
+    grid written by the port into files byte-equal to the fixtures'; a
+    corrupted byte of a blosc chunk raising an error that names the store
+    and the chunk."""
+    import shutil
+    import struct
+
+    from climate2weather_tpu_torch.data import native_blosc, zarr_store
+    from climate2weather_tpu_torch.data.grid import GridDataset, open_grid
+
+    t0 = time.time()
+    native_blosc.load(rebuild=True)
+    build = {k: native_blosc.build_info[k] for k in ("compiler", "version", "command", "seconds")}
+    print(f"blosc codec built by {build['version']} ({build['compiler']}) in {build['seconds']:.3f} s", flush=True)
+    goldens = {k: native_blosc.decompress(chunk) == payload for k, (chunk, payload) in _golden_chunks().items()}
+    contents = np.load(FIXTURES / "zarr_contents.npz")
+    reads, writes, timing = {}, {}, {}
+    for comp in ZARR_COMPRESSORS:
+        store = FIXTURES / f"jax_{comp}.zarr"
+        t_read = time.time()
+        ds = open_grid(str(store))
+        timing[f"read_{comp}_s"] = time.time() - t_read
+        reads[comp] = {v: _bits_equal(ds.data_vars[v], contents[f"{comp}/{v}"]) for v in ds.var_names()}
+        reads[comp]["time"] = _bits_equal(ds.time, contents[f"{comp}/time"])
+        grid = GridDataset({v: contents[v] for v in ds.var_names()}, dict(ds.coords), dict(ds.attrs))
+        out = root / f"port_{comp}.zarr"
+        t_write = time.time()
+        zarr_store.write_zarr(grid, str(out), compressor=comp)
+        timing[f"write_{comp}_s"] = time.time() - t_write
+        want = {str(p.relative_to(store)): p.read_bytes() for p in store.rglob("*") if p.is_file()}
+        got = {str(p.relative_to(out)): p.read_bytes() for p in out.rglob("*") if p.is_file()}
+        writes[comp] = {"files": len(want), "extra": sorted(set(got) - set(want)),
+                        "differ": sorted(k for k in want if got.get(k) != want[k]), "bytes": _tree_bytes(store)}
+    bad = root / "corrupt.zarr"
+    shutil.copytree(FIXTURES / "jax_blosc-lz4.zarr", bad)
+    chunk = bad / "tas" / "0.0.0"
+    raw = bytearray(chunk.read_bytes())
+    raw[struct.unpack_from("<I", raw, 16)[0] + 3] ^= 0x40  # its first stream's size, past the chunk's end
+    chunk.write_bytes(bytes(raw))
+    try:
+        open_grid(str(bad))
+        corrupt = "no error"
+    except ValueError as e:
+        corrupt = str(e)
+    rec = {"build": build, "goldens": goldens, "reads": reads, "writes": writes, "corrupt_error": corrupt, **timing}
+    emit("13b", t0, **rec)
+    if not all(goldens.values()) or not all(all(r.values()) and len(r) == 5 for r in reads.values()):
+        raise AssertionError(f"a golden chunk or a JAX-written store did not read bit for bit: {rec}")
+    if any(w["differ"] or w["extra"] not in ([], ["tas/1.0.0"]) for w in writes.values()) \
+            or writes["none"]["extra"] != ["tas/1.0.0"]:
+        raise AssertionError(f"the port's stores are not byte-equal to the JAX package's: {rec}")
+    if str(bad) not in corrupt or str(chunk) not in corrupt or "blosc decompress failed" not in corrupt:
+        raise AssertionError(f"a corrupted blosc chunk did not raise naming the store and the chunk: {rec}")
+    return rec
+
+
+def _normed_inputs(path, cfg) -> np.ndarray:
+    """The [C, L, H, W] normalized grid ``exp/downscaling.run`` loads from
+    ``path`` for ``cfg``."""
+    from climate2weather_tpu_torch.data import pipeline
+
+    names = sorted(cfg["data_vars"])
+    ds = pipeline.load_processed(str(path), names, str(cfg["start_time"]), int(cfg["num_hours"]))
+    return pipeline.ds_to_sorted_np(pipeline.normalize_ds(ds, cfg["quantile_path"], cfg["data_norm_mode"]), names)
+
+
+def phase13c_predict(root, snapshot_dir, device, res=128, hours=49, steps=8, samples=3, seed=0) -> dict:
+    """Phase 6's ground truth written to a blosc-lz4 store by ``write_zarr``
+    and its coarse observation to a zlib store by ``python -m
+    climate2weather_tpu_torch.data.cli select-dates`` (a ``.zarr`` output);
+    the normalized inputs loaded from the stores equal those from the
+    ``.nc`` files bit for bit; ``experiment.main(["predict", ...])`` in this
+    process at a copy of ``s16_t6_spectral.yml`` naming the stores (49 hours,
+    DPM-Solver++(2M), ``steps`` steps, ``samples`` samples): finite samples,
+    A(x) = y under phase 4's limit, 6 attention launches per UNet forward on
+    the card; then ``metrics run``: finite scores."""
+    from climate2weather_tpu_torch import experiment
+    from climate2weather_tpu_torch.data import zarr_store
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    (root / "inputs").mkdir()
+    paths = write_predict_inputs(root / "inputs", res=res, hours=hours, seed=seed)
+    t_stores = time.time()
+    stores = {"data": root / "merged-allvars.zarr", "obs": root / "observation-coarse.zarr"}
+    zarr_store.write_zarr(open_grid(paths["data"]), str(stores["data"]), compressor="blosc-lz4")
+    obs_nc = open_grid(paths["obs"])
+    span = [str(t.astype("datetime64[h]")).replace("T", "-") for t in (obs_nc.time[0], obs_nc.time[-1])]
+    _, select_s, _ = _run_processes([_blocked("module", "climate2weather_tpu_torch.data.cli", "select-dates",
+                                              "--in-path", paths["obs"], "--out-path", stores["obs"],
+                                              "--start", span[0], "--end", span[1], blocked=PHASE13_BLOCKED)],
+                                    [_child_env(device)], label="13c select-dates")
+    stores_s = time.time() - t_stores
+    compressors = {k: json.loads((v / "tas" / ".zarray").read_text())["compressor"]["id"] for k, v in stores.items()}
+    cfg = yaml_load_file(CONFIG)
+    cfg.update(model_path=str(snapshot_dir), data_path=str(stores["data"]), quantile_path=paths["quantiles"],
+               observation_path=str(stores["obs"]), spectral_calibrate=paths["train"], num_hours=hours,
+               num_sampling_steps=steps, num_samples=samples)
+    inputs_equal = {k: _bits_equal(_normed_inputs(stores[k], cfg), _normed_inputs(paths[k], cfg))
+                    for k in ("data", "obs")}
+    config_path = root / "zarr_predict.yml"
+    yaml_dump_file(cfg, config_path)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    t_run = time.time()
+    experiment.main(["predict", "--save-path", str(root / "predict"), "--config-path", str(config_path),
+                     "--device", device.type])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    predict_s = time.time() - t_run
+    launches = launch_counts["attention_fwd"]
+    snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    expect = _attention_blocks(snap_cfg["network_kwargs"]) * _expected_forwards(cfg, hours, window) \
+        if device.type == "cuda" else 0
+    (out_dir,) = [p for p in (root / "predict").iterdir() if p.is_dir()]
+    gens = [open_grid(str(out_dir / f"gen_sample_{i:03d}.nc")) for i in range(samples)]
+    finite = all(bool(np.isfinite(v).all()) for gen in gens for v in gen.data_vars.values())
+    consistency, tol = _written_consistency(out_dir, gens, cfg, paths["quantiles"])
+    metrics = phase8d_metrics(out_dir, label="13c metrics")
+    rec = {"predict_s": predict_s, "inputs_s": t_stores - t0, "stores_s": stores_s, "select_dates_s": select_s,
+           "store_bytes": {k: _tree_bytes(v) for k, v in stores.items()},
+           "nc_bytes": {k: os.path.getsize(paths[k]) for k in stores}, "compressors": compressors,
+           "inputs_equal": inputs_equal, "attention_fwd_launches": launches, "expected_launches": expect,
+           "finite": finite, "A_x_minus_y_max": consistency, "A_tol": tol, "metrics_scores": metrics["scores"],
+           "metrics_s": metrics["metrics_s"], "outputs": sorted(p.name for p in out_dir.iterdir())}
+    emit("13c", t0, **rec)
+    if compressors != {"data": "blosc", "obs": "zlib"} or not all(inputs_equal.values()):
+        raise AssertionError(f"the stores did not load the .nc files' inputs bit for bit: {rec}")
+    if not finite or consistency > tol or launches != expect:
+        raise AssertionError(f"the guided predict from zarr stores failed its checks: {rec}")
+    return {**rec, "out_dir": str(out_dir)}
+
+
+def _figure_shapes(kind: str, data, S: int, T: int, To: int, hw: tuple, ohw: tuple) -> dict:
+    """(got, want) shapes of the arrays the drawing of ``kind`` takes."""
+    per_var = {
+        "kde_and_pmf": lambda d: {"grid": (256,), "kde_gt": (256,), "kde_samples": (256,),
+                                  "kde_members": (min(S, 5), 256), "bins": (80,), "hist_gt": (79,),
+                                  "hist_samples": (79,)},
+        "rapsd": lambda d: {"gt": d["freq"].shape, "samples": d["freq"].shape, "interp_obs": d["freq"].shape},
+        "calibration": lambda d: {"freq": (S + 1,), "spread_skill": (To,)},
+        "big_grid": lambda d: {"gt": (min(8, T), *hw), "sample": (min(8, T), *hw)},
+    }
+    whole = {
+        "timeseries": lambda d: {"t_gt": (T,), "t_obs": (To,), **{
+            f"{v}/{k}": (To if k == "obs" else T,) for v in d["vars"] for k in d["vars"][v]}},
+        "storm_grid": lambda d: {"obs": (6, *ohw), "gt": (6, *hw), "samples": (min(S, 3), 6, *hw)},
+        "climate_grid": lambda d: {"obs": (min(5, To), *ohw), "samples": (min(S, 3), min(5, To), *hw)},
+        "windpower": lambda d: {"t": (T,), "ens": (S, T), "gt": (T,)},
+        "windpower_dist": lambda d: {"grid": (256,), "kde_gt": (256,), "kde_samples": (256,),
+                                     "kde_members": (min(S, 5), 256), "hist_gt": (59,), "hist_samples": (59,)},
+    }
+
+    def get(d, key):
+        for part in key.split("/"):
+            d = d["vars"][part] if "vars" in d and part in d["vars"] else d[part]
+        return tuple(np.shape(d))
+
+    if kind in per_var:
+        want = {f"{v}/{k}": s for v, d in data.items() for k, s in per_var[kind](d).items()}
+    else:
+        want = whole[kind](data)
+    return {k: get(data, k) for k in want}, want
+
+
+def _all_finite(x) -> bool:
+    if isinstance(x, dict):
+        return all(_all_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_all_finite(v) for v in x)
+    if isinstance(x, np.ndarray) and x.dtype.kind == "f":
+        return bool(np.isfinite(x).all())
+    return True
+
+
+def phase13d_figures(exp_dir, compare_dir) -> dict:
+    """Every kind of ``figures.KINDS`` computed from 13c's directory, and
+    ``downscaled_clim_dist`` against ``compare_dir``: finite, in the shapes
+    the drawing takes, each kind's seconds; then ``experiment figures
+    kde_and_pmf`` refusing with an error that names matplotlib, writing no
+    file."""
+    from climate2weather_tpu_torch import experiment
+    from climate2weather_tpu_torch.exp import exputil, figures
+
+    t0 = time.time()
+    samples, gt, obs = exputil.setup(str(exp_dir))
+    S, T, To = len(samples), gt.sizes["time"], obs.sizes["time"]
+    hw, ohw = (gt.sizes["rlat"], gt.sizes["rlon"]), (obs.sizes["rlat"], obs.sizes["rlon"])
+    kinds, seconds = {}, {}
+    for kind in figures.KINDS:
+        t_kind = time.time()
+        data = figures.kind_data(kind, samples, gt, obs)
+        seconds[kind] = time.time() - t_kind
+        got, want = _figure_shapes(kind, data, S, T, To, hw, ohw)
+        kinds[kind] = {"finite": _all_finite(data), "shapes_ok": got == want, "arrays": len(want)}
+    t_kind = time.time()
+    clim = figures.figure_data("downscaled_clim_dist", str(exp_dir), [str(compare_dir)])
+    seconds["downscaled_clim_dist"] = time.time() - t_kind
+    kinds["downscaled_clim_dist"] = {"finite": _all_finite(clim), "arrays": len(clim),
+                                     "shapes_ok": all(d["kde"].shape == (2, 256) for d in clim.values())}
+    try:
+        experiment.main(["figures", "kde_and_pmf", str(exp_dir)])
+        refusal = "no error"
+    except ImportError as e:
+        refusal = str(e)
+    written = sorted(p.name for p in pathlib.Path(exp_dir).iterdir())
+    rec = {"kinds": kinds, "kind_seconds": seconds, "members": S, "frames": T, "compare_dir": str(compare_dir),
+           "refusal": refusal, "figures_dir_written": "figures" in written}
+    emit("13d", t0, **rec)
+    if not all(k["finite"] and k["shapes_ok"] for k in kinds.values()) or len(kinds) != len(figures.KINDS) + 1:
+        raise AssertionError(f"a figure kind's data is not finite or not in the drawing's shapes: {rec}")
+    if "matplotlib" not in refusal or rec["figures_dir_written"]:
+        raise AssertionError(f"drawing without matplotlib did not refuse cleanly: {rec}")
+    return rec
+
+
+def phase13e_summary(snapshot_dir) -> dict:
+    """``print_module_summary`` of the 72.1M net (built on the meta device:
+    shapes only), its total the snapshot's parameter count."""
+    from climate2weather_tpu_torch.io.snapshot import load_snapshot
+    from climate2weather_tpu_torch.models.score_net import build_score_unet
+    from climate2weather_tpu_torch.utils.summary import param_counts, print_module_summary
+
+    t0 = time.time()
+    params, cfg = load_snapshot(str(snapshot_dir))
+
+    def leaves(tree):
+        return sum(leaves(v) if isinstance(v, dict) else int(np.asarray(v).size) for v in tree.values())
+
+    with torch.device("meta"):
+        net = build_score_unet(cfg["network_kwargs"])
+    total = print_module_summary(net, name="score_unet")
+    rec = {"total": total, "snapshot_params": leaves(params), "groups": len(param_counts(net))}
+    emit("13e", t0, **rec)
+    if total != rec["snapshot_params"]:
+        raise AssertionError(f"the summary's total is not the snapshot's parameter count: {rec}")
+    return rec
+
+
+def phase13_summary(store: dict) -> dict:
+    """Phase 13's line: each step's seconds and sizes, and the launches."""
+    b, c, d = store["13b"], store["13c"], store["13d"]
+    return {"codec_build_s": b["build"]["seconds"], "compiler": b["build"]["version"],
+            "store_read_s": {k: b[f"read_{k}_s"] for k in ZARR_COMPRESSORS},
+            "store_write_s": {k: b[f"write_{k}_s"] for k in ZARR_COMPRESSORS},
+            "predict_s": c["predict_s"], "stores_s": c["stores_s"], "store_bytes": c["store_bytes"],
+            "nc_bytes": c["nc_bytes"], "predict_launches": c["attention_fwd_launches"],
+            "A_x_minus_y_max": c["A_x_minus_y_max"], "figure_data_s": d["kind_seconds"],
+            "summary_total": store["13e"]["total"], "loaded_before": store["loaded_before"]}
+
+
+def phase13_store(snapshot_dir, device, res=128, hours=49, steps=8, samples=3, seed=0, compare_dir=None,
+                  summary_snapshot=SNAPSHOT) -> dict:
+    """Phase 13, 13a-13e (see the module docstring), in one scratch
+    directory, with the packages of PHASE13_BLOCKED unimportable in this
+    process and in the one it starts. ``compare_dir`` is the experiment
+    directory ``downscaled_clim_dist`` compares 13c's with (12c's on the
+    full run; 13c's own where none is given). Returns each part's record."""
+    import shutil
+    import tempfile
+
+    loaded_before = sorted(m for m in PHASE13_BLOCKED if sys.modules.get(m) is not None)
+    for name in PHASE13_BLOCKED:
+        sys.modules[name] = None
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-store-"))
+    try:
+        a = phase13a_fill()
+        b = phase13b_stores(root)
+        c = phase13c_predict(root, snapshot_dir, device, res=res, hours=hours, steps=steps, samples=samples,
+                             seed=seed)
+        d = phase13d_figures(c["out_dir"], compare_dir or c["out_dir"])
+        e = phase13e_summary(summary_snapshot)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"13a": a, "13b": b, "13c": c, "13d": d, "13e": e, "loaded_before": loaded_before}
 
 
 def main(argv=None) -> int:
@@ -3482,6 +3873,9 @@ def main(argv=None) -> int:
     ap.add_argument("--model-only", action="store_true",
                     help="phases 0 and 1, then phase 12 (the reference's pickle imported, the fused tail, the 1-D "
                          "and 3-D nets), and stop (no device line)")
+    ap.add_argument("--store-only", action="store_true",
+                    help="phases 0 and 1, then phase 13 (fill values, the zarr store and its codec, a predict from "
+                         "zarr stores, the figure data), and stop (no device line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only",
@@ -3523,6 +3917,11 @@ def main(argv=None) -> int:
         emit(12, t12, **phase12_summary(phase12_model(SNAPSHOT, device, seed=args.seed)))
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
+    if args.store_only:
+        t13 = time.time()
+        emit(13, t13, **phase13_summary(phase13_store(SNAPSHOT, device, seed=args.seed)))
+        print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
+        return 0
     rows, year_fwd, exact_bwd = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
@@ -3542,9 +3941,19 @@ def main(argv=None) -> int:
     t11 = time.time()
     data = phase11_data(SNAPSHOT, device, seed=args.seed)
     emit(11, t11, **phase11_summary(data))
-    t12 = time.time()
-    model = phase12_model(SNAPSHOT, device, seed=args.seed)
-    emit(12, t12, **phase12_summary(model))
+    import shutil
+    import tempfile
+
+    kept = pathlib.Path(tempfile.mkdtemp(prefix="c2w-12c-"))
+    try:
+        t12 = time.time()
+        model = phase12_model(SNAPSHOT, device, seed=args.seed, keep_predict=kept / "12c")
+        emit(12, t12, **phase12_summary(model))
+        t13 = time.time()
+        store = phase13_store(SNAPSHOT, device, seed=args.seed, compare_dir=kept / "12c")
+        emit(13, t13, **phase13_summary(store))
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
     # each kernel's launches on its own path: sampling for the forward (and
     # the year path's, at its own shape), training for the backward, the
     # ModResidualBlock composition for the Winograd conv
@@ -3578,6 +3987,8 @@ def main(argv=None) -> int:
                                            "12c_launches": model["12c"]["attention_fwd_launches"],
                                            **{k: v["attention_fwd"] for k, v in nd.items()}}
     rows["attention_bwd"]["model_path"] = {k: v["attention_bwd"] for k, v in nd.items()}
+    # phase 13: the guided predict from zarr stores
+    rows["attention_fwd"]["store_path"] = {"13c_launches": store["13c"]["attention_fwd_launches"]}
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

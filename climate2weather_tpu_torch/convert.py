@@ -55,21 +55,30 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
     inverse of :func:`to_state_dict`."""
     tree: dict = {}
     for name, tensor in state_dict.items():
-        module, _, leaf = name.rpartition(".")
         arr = tensor.detach().cpu().numpy()
-        if leaf == "bias":
-            key = "bias"
-        elif leaf == "weight" and arr.ndim in (3, 4, 5):  # OI(D)(H)W -> (D)(H)WIO
-            key, arr = "kernel", np.ascontiguousarray(np.transpose(arr, (*range(2, arr.ndim), 1, 0)))
-        elif leaf == "weight" and arr.ndim == 2:  # [out, in] -> [in, out]
-            key, arr = "kernel", np.ascontiguousarray(arr.T)
-        else:
-            raise ValueError(f"no flax counterpart for {name} of shape {tuple(arr.shape)}")
+        *modules, key = flax_path(name, arr.shape)
+        if key == "kernel" and arr.ndim in (3, 4, 5):  # OI(D)(H)W -> (D)(H)WIO
+            arr = np.ascontiguousarray(np.transpose(arr, (*range(2, arr.ndim), 1, 0)))
+        elif key == "kernel":  # [out, in] -> [in, out]
+            arr = np.ascontiguousarray(arr.T)
         node = tree
-        for part in module.split("."):
+        for part in modules:
             node = node.setdefault(part, {})
         node[key] = arr
     return {"params": tree}
+
+
+def flax_path(name: str, shape) -> tuple:
+    """The flax path of the port's parameter ``name`` of ``shape``, below
+    ``params``: ``unet.head0.weight`` -> ``("unet", "head0", "kernel")``."""
+    module, _, leaf = name.rpartition(".")
+    if leaf == "bias":
+        key = "bias"
+    elif leaf == "weight" and len(shape) in (2, 3, 4, 5):
+        key = "kernel"
+    else:
+        raise ValueError(f"no flax counterpart for {name} of shape {tuple(shape)}")
+    return (*module.split("."), key)
 
 
 def fit_state_dict(params: Mapping, like: Mapping[str, torch.Tensor],

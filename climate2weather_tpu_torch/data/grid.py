@@ -2,16 +2,16 @@
 
 - :class:`GridDataset`: named [time, rlat, rlon] variables with coordinates,
   time selection, spatial coarsening and HDF5 round-tripping;
-- :func:`open_grid`: a grid file (``.nc`` names, HDF5 inside) into a
-  :class:`GridDataset`;
+- :func:`open_grid`: a grid file (``.nc`` names, HDF5 inside) or a zarr-v2
+  store (a directory holding ``.zgroup``) into a :class:`GridDataset`;
 - :class:`QuantileDataset`: per-variable quantiles over (time, rlat, rlon);
 - the CF time helpers.
 
 Files are read and written through ``io/hdf5.py``, so no h5py is needed.
 The writer leaves out the dimension-scale attachments that h5py adds (the
-JAX readers and the port's do not read them). The zarr store and the
-netCDF4-library branch of the JAX module are not ported: a ``.zarr`` path
-raises.
+JAX readers and the port's do not read them). Zarr stores go through
+``data/zarr_store.py``. The netCDF4-library branch of the JAX module is not
+ported: the port always writes HDF5 through its own writer.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from climate2weather_tpu_torch.data import zarr_store
 from climate2weather_tpu_torch.io import hdf5
 
 _NS = "datetime64[ns]"
@@ -68,10 +69,6 @@ def _encode_cf_time(times: np.ndarray) -> tuple:
 
 def _text(value) -> str:
     return value.decode() if isinstance(value, bytes) else str(value)
-
-
-def _is_zarr(path) -> bool:
-    return str(path).rstrip("/").endswith(".zarr")
 
 
 @dataclass
@@ -163,9 +160,12 @@ class GridDataset:
         """Write an HDF5 file as the JAX ``GridDataset.to_file`` does through
         h5py: ``time`` (hours, CF ``units``), ``rlat``, ``rlon``, one
         [time, rlat, rlon] dataset per variable with a ``dims`` attribute,
-        and the ``grid_attrs`` JSON attribute."""
-        if _is_zarr(path):
-            raise NotImplementedError("the zarr store is not ported")
+        and the ``grid_attrs`` JSON attribute. Paths ending in ``.zarr``
+        write a zarr-v2 directory store (:func:`~climate2weather_tpu_torch.data.zarr_store.write_zarr`,
+        zlib chunks)."""
+        if str(path).rstrip("/").endswith(".zarr"):
+            zarr_store.write_zarr(self, str(path), dtype)
+            return
         hours, units = _encode_cf_time(self.time)
         with hdf5.Writer(path) as w:
             w.create_dataset("time", data=hours, attrs={"units": units, "standard_name": "time"})
@@ -179,9 +179,10 @@ class GridDataset:
 def open_grid(path: str, data_vars: Optional[Sequence[str]] = None) -> GridDataset:
     """Open an HDF5/netCDF4 grid file into a :class:`GridDataset`: files of
     :meth:`GridDataset.to_file` and CF files of per-variable
-    [time, rlat, rlon] datasets with coordinate variables."""
-    if _is_zarr(path):
-        raise NotImplementedError("the zarr store is not ported")
+    [time, rlat, rlon] datasets with coordinate variables; a directory
+    holding ``.zgroup`` is read as a zarr-v2 store, whatever its name."""
+    if zarr_store.is_zarr(path):
+        return zarr_store.read_zarr(path, data_vars)
     f = hdf5.open_file(path)
     try:
         keys = list(f.keys())

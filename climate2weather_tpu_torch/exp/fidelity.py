@@ -8,16 +8,18 @@ One command runs the on-model-eval protocol on a snapshot:
 2. an unconditional ensemble of the same shape, the control that guided
    sampling must beat on W2 and SSIM;
 3. the metrics of both (:func:`climate2weather_tpu_torch.exp.metrics.run`);
-4. a ``FIDELITY.md`` table.
+4. the guided run's figures (``exp/figures.py``: seven kinds, into
+   ``guided/<run>/figures/``), unless ``skip_figures``; a figure that fails
+   (matplotlib absent, say) is printed and the numbers stand;
+5. a ``FIDELITY.md`` table.
 
 Both runs go through the port's :func:`~climate2weather_tpu_torch.exp.downscaling.run`,
-their configs written with the stdlib YAML writer. The JAX harness also
-draws figures with ``exp/figures.py`` (matplotlib), which the port does not
-have: :func:`run` raises ``NotImplementedError`` before any sampling unless
-``skip_figures`` is set.
+their configs written with the stdlib YAML writer.
 
     python -m climate2weather_tpu_torch.exp.fidelity --snapshot SNAP --data-nc DATA.nc \\
-        --quantiles Q.nc --out OUT --start-time 2014-01-07-00 --skip-figures [--device cpu]
+        --quantiles Q.nc --out OUT --start-time 2014-01-07-00 [--skip-figures] [--device cpu]
+
+(also ``python -m climate2weather_tpu_torch.experiment fidelity ...``).
 """
 
 from __future__ import annotations
@@ -31,9 +33,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from climate2weather_tpu_torch.exp import downscaling, metrics
+from climate2weather_tpu_torch.exp import downscaling, figures, metrics
 from climate2weather_tpu_torch.io.snapshot import yaml_dump_file
 
+# the figure kinds drawn for the guided run, in JAX's order
+FIGURE_KINDS = ("kde_and_pmf", "rapsd", "timeseries", "storm_grid", "windpower_dist", "climate_grid",
+                "calibration")
 # the reference-tuned likelihood hyperparameters (s16_t6.yml)
 DEFAULT_STD = [0.1692666615037876, 0.0425178630338289, 0.3268027589410125, 0.3268027589410125]
 DEFAULT_GAMMA = 0.0007196856730011522
@@ -85,15 +90,11 @@ def run(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> dict:
     """The guided run and the unconditional control under ``out``, the
-    metrics of both, and ``out/FIDELITY.md``; returns ``{"guided": scores,
-    "uncond": scores, "guided_dir": ..., "uncond_dir": ...}``. Arguments as
-    in JAX; both runs are on the card unless ``device="cpu"``, with the
-    network in ``compute_dtype``."""
-    if not skip_figures:
-        raise NotImplementedError(
-            "the fidelity figures come from exp/figures.py (matplotlib), which the port does "
-            "not have; pass skip_figures=True (--skip-figures) for the runs, metrics and FIDELITY.md"
-        )
+    metrics of both, the guided run's figures (unless ``skip_figures``) and
+    ``out/FIDELITY.md``; returns ``{"guided": scores, "uncond": scores,
+    "guided_dir": ..., "uncond_dir": ...}``. Arguments as in JAX; both runs
+    are on the card unless ``device="cpu"``, with the network in
+    ``compute_dtype``."""
     out_path = pathlib.Path(out)
     out_path.mkdir(parents=True, exist_ok=True)
     base = dict(
@@ -157,6 +158,13 @@ def run(
     print("=== metrics: unconditional ===")
     m_uncond = metrics.run(str(uncond_dir))
 
+    if not skip_figures:
+        for kind in FIGURE_KINDS:
+            try:
+                figures.make(kind, str(guided_dir))
+            except Exception as e:  # figures must not block the numbers
+                print(f"figure {kind} failed: {type(e).__name__}: {e}")
+
     lines = [
         "# Statistical fidelity report",
         "",
@@ -209,9 +217,8 @@ def run(
     return {"guided": m_guided, "uncond": m_uncond, "guided_dir": str(guided_dir), "uncond_dir": str(uncond_dir)}
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="python -m climate2weather_tpu_torch.exp.fidelity",
-                                 description=__doc__.splitlines()[0])
+def add_arguments(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The harness's options (JAX's, and the port's ``--device``) on ``ap``."""
     ap.add_argument("--snapshot", required=True)
     ap.add_argument("--data-nc", required=True)
     ap.add_argument("--quantiles", required=True)
@@ -228,7 +235,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--uncond-samples", default=None, type=int)
     ap.add_argument("--seed", default=0, type=int)
     ap.add_argument("--skip-figures", action="store_true",
-                    help="required: the port draws no figures (exp/figures.py is not ported)")
+                    help="draw no figures (they need matplotlib on this host)")
     ap.add_argument("--denoise-final", action="store_true",
                     help="an extra score pass at t=0 removes the sigma(0) = eta residual noise")
     ap.add_argument("--sampler-kind", default="pc", choices=["pc", "dpmpp2m", "dpmpp3m"],
@@ -255,12 +262,21 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> int:
-    kw = vars(build_parser().parse_args(argv))
+def build_parser() -> argparse.ArgumentParser:
+    return add_arguments(argparse.ArgumentParser(prog="python -m climate2weather_tpu_torch.exp.fidelity",
+                                                 description=__doc__.splitlines()[0]))
+
+
+def run_from_args(kw: dict) -> dict:
+    """:func:`run` from the parsed options of :func:`add_arguments`."""
     std = kw.pop("likelihood_std") or None
     gamma = kw.pop("likelihood_gamma") or []
     gamma = DEFAULT_GAMMA if not gamma else float(gamma[0]) if len(gamma) == 1 else list(gamma)
-    run(likelihood_std=list(std) if std else None, likelihood_gamma=gamma, **kw)
+    return run(likelihood_std=list(std) if std else None, likelihood_gamma=gamma, **kw)
+
+
+def main(argv=None) -> int:
+    run_from_args(vars(build_parser().parse_args(argv)))
     return 0
 
 

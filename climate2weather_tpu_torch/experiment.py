@@ -1,5 +1,5 @@
-"""Experiment command line of the port (the ``predict``, ``hparam-sweep``
-and ``metrics`` commands of the JAX package's ``experiment.py``):
+"""Experiment command line of the port (the commands of the JAX package's
+``experiment.py``):
 
     python -m climate2weather_tpu_torch.experiment predict \\
         --save-path OUT --config-path CONFIG.yml [--num-samples N] ... [--device cpu]
@@ -7,6 +7,11 @@ and ``metrics`` commands of the JAX package's ``experiment.py``):
         --save-path OUT --config-path CONFIG.yml [--trials 10] [--base-seed 99] [--device cpu]
     python -m climate2weather_tpu_torch.experiment metrics run EXP_DIR [--time-stride N]
     python -m climate2weather_tpu_torch.experiment metrics load EXP_DIR
+    python -m climate2weather_tpu_torch.experiment figures KIND EXP_DIR [--out-dir D] [--compare DIR ...]
+    python -m climate2weather_tpu_torch.experiment fidelity --snapshot SNAP --data-nc DATA.nc \\
+        --quantiles Q.nc --out OUT --start-time YYYY-MM-DD-HH [...] [--device cpu]
+    python -m climate2weather_tpu_torch.experiment animation EXP_DIR [--var tas] [--out-path P] [--fps 6] \\
+        [--max-frames 72]
 
 ``predict`` runs :func:`climate2weather_tpu_torch.exp.downscaling.run` with the
 flags given as overrides of the config, on the card unless ``--device cpu``;
@@ -18,8 +23,16 @@ own card (``--dist-backend`` as for ``train``).
 (one ``predict`` per trial at a random likelihood (sigma, gamma)), likewise.
 ``metrics run`` scores an experiment directory on the host
 (:func:`climate2weather_tpu_torch.exp.metrics.run`), ``metrics load`` prints
-the scores it saved. ``hparam-sweep`` and ``metrics`` run in one process and
-refuse a torchrun world above one.
+the scores it saved. ``figures`` draws one of the paper's figures of an
+experiment directory (:func:`climate2weather_tpu_torch.exp.figures.make`:
+``kde_and_pmf``, ``timeseries``, ``storm_grid``, ``climate_grid``,
+``big_grid``, ``rapsd``, ``calibration``, ``windpower``, ``windpower_dist``,
+or ``downscaled_clim_dist`` over it and the ``--compare`` directories),
+``fidelity`` runs the acceptance harness (:mod:`climate2weather_tpu_torch.exp.fidelity`)
+and ``animation`` writes a GIF of the ground truth and the first two samples
+over time; the drawing needs matplotlib (and Pillow for the GIF) on the
+host. Every command but ``predict`` runs in one process and refuses a
+torchrun world above one.
 """
 
 from __future__ import annotations
@@ -73,7 +86,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="score every Nth observed frame (the year-scale protocol; recorded in the pickle)")
     ld = msub.add_parser("load", help="print the scores of an earlier metrics run")
     ld.add_argument("exp_dir")
+    f = sub.add_parser("figures", help="one of the paper's figures of an experiment directory (exp/figures.make)")
+    f.add_argument("kind", help="kde_and_pmf | timeseries | storm_grid | climate_grid | big_grid | rapsd | "
+                                "calibration | windpower | windpower_dist | downscaled_clim_dist")
+    f.add_argument("exp_dir")
+    f.add_argument("--out-dir", default=None, help="(default EXP_DIR/figures)")
+    f.add_argument("--compare", action="append", default=[],
+                   help="another experiment directory (downscaled_clim_dist); repeat for more")
+    from climate2weather_tpu_torch.exp.fidelity import add_arguments
+
+    add_arguments(sub.add_parser("fidelity", help="guided + unconditional ensembles, their metrics, the "
+                                                  "figures and FIDELITY.md (exp/fidelity.run)"))
+    an = sub.add_parser("animation", help="GIF of the ground truth and the first two samples over time")
+    an.add_argument("exp_dir")
+    an.add_argument("--var", default="tas")
+    an.add_argument("--out-path", default=None, help="(default EXP_DIR/figures/animation_VAR.gif)")
+    an.add_argument("--fps", type=int, default=6)
+    an.add_argument("--max-frames", type=int, default=72)
     return ap
+
+
+def animation(exp_dir: str, var: str = "tas", out_path=None, fps: int = 6, max_frames: int = 72) -> str:
+    """The ``animation`` command: a GIF of the ground truth and the first
+    two samples of ``exp_dir`` (reference plotting_util.create_animation)."""
+    from climate2weather_tpu_torch.exp import exputil
+    from climate2weather_tpu_torch.exp.plotting_util import create_animation
+
+    samples, gt, _ = exputil.setup(exp_dir)
+    out_path = out_path or os.path.join(exp_dir, "figures", f"animation_{var}.gif")
+    if os.path.dirname(out_path):
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    labels = ["ground truth"] + [f"sample {i}" for i in range(min(2, len(samples)))]
+    create_animation([gt] + samples[:2], var, labels, out_path, fps=fps, max_frames=max_frames)
+    print(f"Saved {out_path}")
+    return out_path
 
 
 def main(argv=None) -> int:
@@ -98,6 +144,16 @@ def main(argv=None) -> int:
 
         downscaling.sweep_likelihood_hparams(args["save_path"], args["config_path"], args["trials"],
                                              args["base_seed"], device=args["device"])
+    elif command == "figures":
+        from climate2weather_tpu_torch.exp import figures
+
+        figures.make(args["kind"], args["exp_dir"], args["out_dir"], compare=args["compare"])
+    elif command == "fidelity":
+        from climate2weather_tpu_torch.exp import fidelity
+
+        fidelity.run_from_args(args)
+    elif command == "animation":
+        animation(**args)
     else:
         from climate2weather_tpu_torch.exp import metrics
 

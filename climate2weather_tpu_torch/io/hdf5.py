@@ -24,6 +24,10 @@ low bound; h5py's ``libver='latest'`` goes further). This module covers:
   ``EAIB``, ``EASB``, ``EADB``) along an unlimited first axis;
 - integer and floating-point data of either byte order, fixed-length and
   variable-length strings (the latter in the global heap);
+- the fill value (the fill value message, versions 1-3, or the old one):
+  storage never written, an unallocated chunk or a contiguous dataset with
+  no address, reads as it, or as zeros where the file defines none, as
+  h5py reads it;
 - the deflate and shuffle filters.
 
 Every Jenkins lookup3 checksum of these structures is verified: a mismatch
@@ -358,6 +362,7 @@ class Dataset:
         if obj.find(MSG_EXTERNAL) is not None:
             raise NotImplementedError(f"{name}: external storage")
         self._filters = _parse_filters(obj.find(MSG_FILTERS))
+        self.fillvalue = _parse_fill(obj.find(MSG_FILL), obj.find(MSG_FILL_OLD), self.dtype, name)
         self._parse_layout(layout)
 
     @property
@@ -481,11 +486,11 @@ class Dataset:
                     idx = (slice(None),) + tuple(slice(a, b) for a, b in ranges[1:])
                     return np.ascontiguousarray(full[idx])
                 raw = self.file._src.read(self._addr, n_total * self._type.size)
-            if raw is None:
-                return np.zeros(sel_shape, self.dtype)
+            if raw is None:  # never written
+                return self._filled(sel_shape)
             full = self._decode(raw, n_total).reshape(self.shape)
             return np.ascontiguousarray(full[tuple(slice(a, b) for a, b in ranges)])
-        out = np.zeros(sel_shape, self.dtype)
+        out = self._filled(sel_shape)  # what no allocated chunk covers reads as the fill value
         csize = int(np.prod(self.chunks, dtype=np.int64))
         for offset, mask, nbytes, addr in self._index:
             lo = [max(a, o) for (a, _), o in zip(ranges, offset)]
@@ -498,6 +503,13 @@ class Dataset:
             out[dst] = chunk[src]
         return out
 
+    def _filled(self, shape) -> np.ndarray:
+        """Storage never written, as HDF5 returns it: the dataset's fill
+        value, or zeros where the file defines none."""
+        if self.fillvalue is None:
+            return np.zeros(shape, self.dtype)
+        return np.full(shape, self.fillvalue, self.dtype)
+
     def _chunk(self, addr: int, nbytes: int, mask: int, count: int) -> np.ndarray:
         """The decoded chunk at ``addr``; the last one is kept, so reads of
         neighbouring rows decode each chunk once."""
@@ -508,6 +520,42 @@ class Dataset:
         chunk = self._decode(raw, count).reshape(self.chunks)
         self._last_chunk = (addr, chunk)
         return chunk
+
+
+FILL_TIME_NEVER = 1  # the fill value's write time: never written to unwritten storage
+
+
+def _parse_fill(new: Optional[bytes], old: Optional[bytes], dtype: np.dtype, name: str):
+    """The value that storage never written reads as, from the fill value
+    message (type 0x5, versions 1-3) or, where a file has only that, the old
+    one (0x4, a size and the value, with no flags); None where the file
+    defines no value (undefined or the library's default, both read as
+    zeros) or never writes it (fill time "never": HDF5 then leaves the
+    reader's buffer, which h5py fills with zeros). The value is in the
+    dataset's datatype."""
+    if new is not None:
+        version = new[0]
+        if version in (1, 2):
+            fill_time, has_value, pos = new[2], bool(new[3]), 4
+        elif version == 3:
+            flags = new[1]
+            fill_time, has_value, pos = (flags >> 2) & 0x3, bool(flags & 0x20), 2
+        else:
+            raise NotImplementedError(f"{name}: fill value message version {version}")
+        if not has_value or fill_time == FILL_TIME_NEVER:
+            return None
+        size = _uint(new, pos, 4)
+        raw = new[pos + 4:pos + 4 + size]
+    elif old is not None:
+        size = _uint(old, 0, 4)
+        raw = old[4:4 + size]
+    else:
+        return None
+    if size == 0:  # defined as the library's default: zeros
+        return None
+    if dtype is None or size != dtype.itemsize or len(raw) != size:
+        raise NotImplementedError(f"{name}: a fill value of {size} bytes for {dtype}")
+    return np.frombuffer(raw, dtype=dtype, count=1)[0]
 
 
 def _parse_filters(buf: Optional[bytes]) -> List[Tuple[int, Tuple[int, ...]]]:

@@ -66,6 +66,7 @@ from climate2weather_tpu_torch.utils.logging import (
 )
 from climate2weather_tpu_torch.utils.registry import construct_class_by_name
 from climate2weather_tpu_torch.utils.seeding import derive_seed, set_random_seed
+from climate2weather_tpu_torch.utils.summary import print_module_summary
 
 
 def _device_data_dtype(device_data, data_nbytes: int, budget: int):
@@ -152,7 +153,8 @@ def training_loop(
     print(f"Data shape: {train_dataset[0].shape}")
     init_params(net, torch.Generator().manual_seed(derive_seed(seed, "global-train-stream", "init")))
     net = net.to(dev)
-    print(f"score_unet: {sum(p.numel() for p in net.parameters()):,} parameters")
+    if main_rank:
+        print_module_summary(net, name="score_unet")
 
     # -- process / optimizer / EMA / state ---------------------------------
     process = construct_class_by_name(**pipeline_kwargs)

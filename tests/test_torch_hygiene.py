@@ -12,7 +12,9 @@ phase-8 year path, its phase-9 sampler and guidance modes (exact
 gradients, DPM-Solver++(3M), the bilinear prolongation, the sweep and the
 fidelity harness), its phase-11 data layer (the netCDF-C fixtures, the
 archive drill through the data command line, synth, debias and a guided
-predict from the debiased file, every process it starts blocked itself), or
+predict from the debiased file, every process it starts blocked itself), its
+phase-13 stores and figure data (fill values, the zarr store and its codec,
+a predict from zarr stores, every figure kind's data), or
 its phase-10 multi-process runs (every rank's process
 blocked the same way, by a ``sitecustomize`` on its path) at a tiny size (the
 kernel phases need the card).
@@ -103,6 +105,11 @@ elif mode == "model":
                                    model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
                                    nd_cases=((1, (2, 64)), (3, (1, 16, 16, 16))))
     out = {"p12": chip_smoke.phase12_summary(p12), **{k: p12[k] for k in ("12a", "12b", "12c", "12d", "12e")}}
+elif mode == "store":
+    # phase 13 at 32 x 32 with the tiny snapshot, 2 steps of predict; 13d
+    # compares 13c's directory with itself; 13e sums the 72.1M snapshot
+    p13 = chip_smoke.phase13_store(snap, cpu, res=32, steps=2)
+    out = {"p13": chip_smoke.phase13_summary(p13), **{k: p13[k] for k in ("13a", "13b", "13c", "13d", "13e")}}
 elif mode == "modes":
     # phase 9 with 4 steps in 9a and 9b, and the year config above a
     # threshold lowered to 16 frames for 31 hours in 9c
@@ -318,6 +325,42 @@ def test_model_layer_phase_needs_only_stdlib_torch_numpy(tmp_path):
         assert r["finite"] and r["grads_finite"] and len(r["fwd_checks"]) == len(r["bwd_checks"]) == 2
         assert r["launches"] == {"attention_fwd": 0, "attention_bwd": 0}  # no kernel on the CPU
     assert set(e["3"]["conv_input_layouts"].values()) == {"channels_last_3d"}
+
+
+def test_store_and_figures_phase_needs_only_stdlib_torch_numpy(tmp_path):
+    """Phase 13 on the CPU with the tiny snapshot, with jax, h5py, scipy,
+    matplotlib, PIL, click and the rest unimportable here and in the
+    ``data.cli`` process it starts: the fill-value fixtures, the codec built
+    and the JAX-written stores read and rewritten byte for byte, a corrupted
+    chunk named, ``experiment predict`` from zarr stores loading the ``.nc``
+    files' bits, every figure kind's data, the refusal to draw, and the
+    72.1M summary."""
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "store", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for name in ("data.zarr_store", "data.native_blosc", "exp.figures", "exp.plotting_util", "exp.windpower",
+                 "exp.geodata", "utils.summary"):
+        assert f"climate2weather_tpu_torch.{name}" in out["modules"]
+    a, b, c, d, e = (out[k] for k in ("13a", "13b", "13c", "13d", "13e"))
+    for libver in ("latest", "earliest"):
+        assert all(a[libver]["equal"].values()) and all(a[libver]["nan_where_fill"].values())
+        assert a[libver]["unwritten_frames"] == {"psl": 8, "tas": 8, "uas": 0, "vas": 12}
+    assert all(b["goldens"].values()) and all(all(r.values()) for r in b["reads"].values())
+    assert all(not w["differ"] for w in b["writes"].values()) and b["writes"]["none"]["extra"] == ["tas/1.0.0"]
+    assert "corrupt.zarr" in b["corrupt_error"] and b["build"]["seconds"] > 0
+    assert c["inputs_equal"] == {"data": True, "obs": True} and c["compressors"] == {"data": "blosc", "obs": "zlib"}
+    assert c["finite"] and c["A_x_minus_y_max"] <= c["A_tol"] and c["attention_fwd_launches"] == 0  # the CPU
+    assert c["metrics_scores"] > 0 and "gen_sample_002.nc" in c["outputs"]
+    assert all(k["finite"] and k["shapes_ok"] for k in d["kinds"].values()) and len(d["kinds"]) == 10
+    assert "matplotlib" in d["refusal"] and not d["figures_dir_written"]
+    assert e["total"] == e["snapshot_params"] and 72.0e6 < e["total"] < 72.2e6
 
 
 # what no module of the port, nor chip_smoke.py and the pickle writer it

@@ -222,13 +222,35 @@ def test_fidelity_matches_jax(inputs, fp32_jax_net, port_run_with_jax_noise, tmp
             assert g == w
 
 
-def test_fidelity_refuses_figures_before_sampling(inputs, tmp_path, monkeypatch):
+def test_fidelity_refuses_figures_before_sampling(inputs, tmp_path, monkeypatch, capsys):
+    """Kept under its first name, from when the port refused to draw before
+    sampling: the figures now come after both runs' metrics, one kind at a
+    time, and a figure that fails is printed while the numbers and
+    ``FIDELITY.md`` stand, as in JAX."""
     _, snap, paths = inputs
-    monkeypatch.setattr(downscaling, "run", lambda *a, **k: pytest.fail("sampled before refusing"))
-    with pytest.raises(NotImplementedError, match="figures.py"):
-        fidelity.run(snap, paths["data"], paths["quantiles"], str(tmp_path / "out"), "2014-04-07-04",
-                     device="cpu")
-    assert not (tmp_path / "out").exists()
+    events, real_metrics = [], fidelity.metrics.run
+
+    def metrics_run(exp_dir, **kw):
+        events.append(("metrics", pathlib.Path(exp_dir).parent.name))
+        return real_metrics(exp_dir, **kw)
+
+    def make(kind, exp_dir, *args, **kw):
+        events.append(("figure", kind))
+        if kind == "rapsd":
+            raise RuntimeError("no spectrum today")
+        return str(pathlib.Path(exp_dir) / "figures" / f"{kind}.png")
+
+    monkeypatch.setattr(fidelity.metrics, "run", metrics_run)
+    monkeypatch.setattr(fidelity.figures, "make", make)
+    out = fidelity.run(snap, paths["data"], paths["quantiles"], str(tmp_path / "out"), "2014-04-07-04",
+                       num_hours=13, num_samples=2, uncond_samples=2, num_sampling_steps=2, device="cpu")
+    assert events == [("metrics", "guided"), ("metrics", "uncond")] + [
+        ("figure", k) for k in ("kde_and_pmf", "rapsd", "timeseries", "storm_grid", "windpower_dist",
+                                "climate_grid", "calibration")]
+    assert "figure rapsd failed: RuntimeError: no spectrum today" in capsys.readouterr().out
+    assert (tmp_path / "out" / "FIDELITY.md").exists()
+    assert np.isfinite(out["guided"]["wasserstein"]["tas"]["global"]).all()
+    assert tuple(fidelity.FIGURE_KINDS) == tuple(k for kind, k in events[2:])
 
 
 def test_fidelity_command_line(monkeypatch):
