@@ -209,6 +209,29 @@ Numbered phases, each printing one JSON line with its seconds:
    refusing with an error that names matplotlib and writing no file; (13e)
    ``print_module_summary``'s table of the 72.1M net, its total the
    snapshot's parameter count.
+14. the host-streaming tier (``diffusion/host_stream.py``), h5py
+   unimportable, with the 72.1M snapshot in bf16 at 128 x 128 and chunks
+   of 128 windows: (14a) ``HostStreamingScoreFn``'s eps on a 523-frame
+   trajectory (511 windows, 4 chunks) against the device ``WindowScoreFn``'s
+   bit for bit, a chunk staged one frame late as the planted fault, 6
+   attention launches per chunk; (14b) DPM-Solver++(2M) at eta 0 with the
+   final denoise and COSMO guidance for 4 steps from one noise on the host
+   tier and on the device long path: finite, both guidance residuals, both
+   window-evals/s, the host tier's copy and numpy-update seconds an
+   evaluation, host RSS growth, and the largest difference, printed only
+   (bf16 rounding is chaotic under the COSMO gain); (14b-fp32) the same
+   with the net in fp32 on the first 33 frames in 3 chunks of 8 windows:
+   the largest difference within JAX's host-against-device bar, 5e-3 of
+   the sample's standard deviation, which two planted faults must exceed
+   (the second-order term dropped at the last step; the guidance's sign
+   flipped); (14c) 140 frames (one chunk): the SDE form (eta 0.3, final
+   denoise, 2 steps) twice with one seed, equal bit for bit, and a PC step
+   with one corrector step, finite; (14d) the host tier's peak device
+   memory at 523 frames within 2 % of its peak at 140 and below the device
+   path's; (14e) ``experiment.main(["predict", ...])`` at a copy of
+   ``s16_t6_spectral.yml`` on phase 6's files with ``host_streaming: true``,
+   eta 0.3, the final denoise, no calibration or projection, 8 steps, 2
+   samples: finite samples written, 6 launches per UNet forward.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -217,8 +240,8 @@ There is no CPU mode: without a card the script exits non-zero at once.
 ``--attention-bwd-only`` after phase 2's attention backward part, and
 ``--multi-process-only`` runs phases 0, 1 and 10 alone, ``--data-only``
 phases 0, 1 and 11, ``--model-only`` phases 0, 1 and 12, ``--store-only``
-phases 0, 1 and 13 (13d then compares 13c's directory with itself; no
-device line in any). ``--child ...`` is one process of phase 10 (``child_step``,
+phases 0, 1 and 13 (13d then compares 13c's directory with itself),
+``--host-stream-only`` phases 0, 1 and 14 (no device line in any). ``--child ...`` is one process of phase 10 (``child_step``,
 ``child_cli``), not for use by hand.
 """
 
@@ -3841,6 +3864,509 @@ def phase13_store(snapshot_dir, device, res=128, hours=49, steps=8, samples=3, s
     return {"13a": a, "13b": b, "13c": c, "13d": d, "13e": e, "loaded_before": loaded_before}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the host-streaming tier (diffusion/host_stream.py): the
+# trajectory in host memory, window chunks of the 72.1M net on the card
+
+STREAM_HOURS = (523, 140)  # 511 windows in 4 chunks of 128 (the last shifted back); 128 windows, one chunk
+STREAM_BATCH = 128  # windows a chunk, the year config's batch_size
+STREAM_STEPS = (4, 2)  # 14b's steps; 14c's
+# 14b-fp32's frames and windows a chunk: 21 windows in 3 chunks of 8, the
+# last shifted back (the fp32 net takes ~10x the bf16 one's time)
+STREAM_EXACT = (33, 8)
+STREAM_T = 0.5  # the time of 14a's eps
+# 14b-fp32's limit: the JAX package's host-against-device bar in the
+# sample's standard deviations (tests/test_host_stream.py:129-130, an fp32
+# net)
+JAX_BAR = 5e-3
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _host_peak(fn):
+    """``(fn(), growth)``: the largest resident set seen while ``fn`` ran
+    (sampled every 5 ms), less the one before it, in bytes."""
+    import threading
+
+    before, peak, stop = _rss_bytes(), [0], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], _rss_bytes())
+            time.sleep(0.005)
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        stop.set()
+        th.join()
+    return out, max(peak[0], _rss_bytes()) - before
+
+
+def _chunk_off_by_one(chunk: int, *args, **kwargs):
+    """14a's planted fault: a ``HostStreamingScoreFn`` that stages the frames
+    of chunk ``chunk`` one frame late."""
+    from climate2weather_tpu_torch.diffusion.host_stream import HostStreamingScoreFn
+
+    class OffByOne(HostStreamingScoreFn):
+        def _upload(self, x, start, stage):
+            return super()._upload(x, start + 1 if start == chunk * self.batch_size else start, stage)
+
+    return OffByOne(*args, **kwargs)
+
+
+def _stream_setup(snapshot_dir, device, res, hours, seed, overrides=None, compute_dtype=torch.bfloat16,
+                  sample_dtype=torch.float32):
+    """The 72.1M net in ``compute_dtype`` (``net``) and in ``sample_dtype``
+    (``net_sample``, 14b-fp32's), its process and guidance at ``s16_t6_spectral.yml``'s
+    COSMO setting (``overrides`` change the config) with the observation y
+    of a synthetic ground truth of ``hours`` frames, and a noise trajectory
+    of ``hours`` frames drawn on the device and kept on the host."""
+    from climate2weather_tpu_torch.diffusion.guidance import GaussianGuidance, SpatioTemporalCoarsening, per_channel
+    from climate2weather_tpu_torch.diffusion.process import construct_process
+    from climate2weather_tpu_torch.exp.downscaling import load_net
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+
+    net, snap_cfg = load_net(str(snapshot_dir), device, compute_dtype)
+    net_sample = net if sample_dtype == compute_dtype else load_net(str(snapshot_dir), device, sample_dtype)[0]
+    cfg = {**yaml_load_file(CONFIG), **(overrides or {})}
+    C = int(snap_cfg["dataset_kwargs"]["train"]["num_features"])
+    A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
+    # the synthetic ground truth made at its observed frames alone
+    observed, _ = synthetic_inputs(A.out_times(hours), res, res, C, 1, seed)
+    y = SpatioTemporalCoarsening(A.s_step, 1)(torch.from_numpy(observed).to(device))
+    guidance = GaussianGuidance(A=A, y=y, std=per_channel(cfg["likelihood_std"], C, device),
+                                gamma=per_channel(cfg["likelihood_gamma"], C, device))
+    noise = torch.randn((hours, res, res, C), generator=torch.Generator(device=device).manual_seed(seed),
+                        device=device).cpu().numpy()
+    return {"net": net, "net_sample": net_sample, "process": construct_process(**snap_cfg["pipeline_kwargs"]),
+            "guidance": guidance,
+            "noise": noise, "markov_order": int(snap_cfg["dataset_kwargs"]["train"]["window"]) // 2,
+            "n_attn": _attention_blocks(snap_cfg["network_kwargs"])}
+
+
+def _host_guidance(s) -> dict:
+    from climate2weather_tpu_torch.diffusion.host_stream import NumpyCoarsening
+
+    g = s["guidance"]
+    return dict(guidance_A=NumpyCoarsening(g.A.s_step, g.A.t_step), guidance_y=g.y.cpu().numpy(),
+                guidance_std=g.std.cpu().numpy(), guidance_gamma=g.gamma.cpu().numpy())
+
+
+def phase14a_eps(s, device, batch) -> dict:
+    """eps of ``HostStreamingScoreFn`` on the noise trajectory at
+    ``STREAM_T`` against the device ``WindowScoreFn``'s on the same frames:
+    equal bit for bit (both give the net the same window batches); one chunk
+    staged a frame late must differ; the attention launches of one host
+    evaluation, 6 per chunk."""
+    from climate2weather_tpu_torch.diffusion.host_stream import HostStreamingScoreFn
+    from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    x, k = s["noise"], s["markov_order"]
+    L = x.shape[0]
+    n = L - 2 * k
+    chunks = -(-n // min(n, batch))
+    with torch.no_grad():
+        for name in launch_counts:
+            launch_counts[name] = 0
+        host = HostStreamingScoreFn(s["net"], k, batch_size=batch, device=device)(x, STREAM_T)
+        launches = launch_counts["attention_fwd"]
+        dev = WindowScoreFn(s["net"], k, chunk_size=batch)(torch.from_numpy(x).to(device), STREAM_T).cpu().numpy()
+        faulty = _chunk_off_by_one(min(1, chunks - 1), s["net"], k, batch_size=batch, device=device)(x, STREAM_T)
+    rec = {"L": L, "windows": n, "chunks": chunks, "bits_equal": _bits_equal(host, dev),
+           "max_abs_diff": float(np.abs(host - dev).max()), "fault_max_abs_diff": float(np.abs(faulty - dev).max()),
+           "attention_launches": launches, "expected_launches": s["n_attn"] * chunks if device.type == "cuda" else 0}
+    emit("14a", t0, **rec)
+    if not rec["bits_equal"] or rec["fault_max_abs_diff"] == 0.0:
+        raise AssertionError(f"the host tier's eps is not the device path's, or the planted fault passed: {rec}")
+    if launches != rec["expected_launches"]:
+        raise AssertionError(f"attention launches {launches} != 6 per chunk: {rec}")
+    return rec
+
+
+def _residual(guidance, x: np.ndarray) -> float:
+    """max |A(x) - y| of a sample."""
+    return float((guidance.A(torch.from_numpy(x).to(guidance.y.device)) - guidance.y).abs().max())
+
+
+class _Replay:
+    """14b's score function: the host tier's, each evaluation's eps kept,
+    so that the planted faults rerun the sampler on the very eps of the good
+    run (14a holds those bits to the device path's) and differ from it by
+    the sampler's arithmetic alone, without a forward."""
+
+    def __init__(self, score):
+        self.score, self.kept, self.at = score, [], None
+
+    def __call__(self, x, t):
+        if self.at is None:
+            eps = self.score(x, t)
+            self.kept.append((t, eps.copy()))
+            return eps
+        t_kept, eps = self.kept[self.at]
+        if t_kept != t:
+            raise AssertionError(f"replay out of step: t {t} where the good run had {t_kept}")
+        self.at += 1
+        return eps.copy()
+
+    def replay(self):
+        self.at = 0
+        return self
+
+
+def _second_order_dropped(process, score, x, at, **kw):
+    """14b's first planted fault: the host tier's DPM-Solver++(2M) with the
+    second-order term dropped at step ``at`` (c_cur = 1, c_prev = 0: a
+    first-order step there)."""
+    from climate2weather_tpu_torch.diffusion import steprules
+    from climate2weather_tpu_torch.diffusion.host_stream import sample_host_dpm
+
+    real, calls = steprules.dpm_scalar_coeffs, []
+
+    def coeffs(*args):
+        h, sigma_ratio, growth, c_cur, c_prev = real(*args)
+        calls.append(1)
+        return (h, sigma_ratio, growth, 1.0, 0.0) if len(calls) - 1 == at else (h, sigma_ratio, growth, c_cur, c_prev)
+
+    steprules.dpm_scalar_coeffs = coeffs
+    try:
+        return sample_host_dpm(process, score, x, **kw)
+    finally:
+        steprules.dpm_scalar_coeffs = real
+
+
+def _sign_flipped(guidance_A):
+    """14b's second planted fault: the coarsening whose adjoint has the wrong
+    sign, so that guidance pushes away from y."""
+    from climate2weather_tpu_torch.diffusion.host_stream import NumpyCoarsening
+
+    class Flipped(NumpyCoarsening):
+        def adjoint(self, v, out_len):
+            return -super().adjoint(v, out_len)
+
+    return Flipped(guidance_A.s_step, guidance_A.t_step)
+
+
+def _first_frames(s, hours):
+    """The noise's first ``hours`` frames, and ``s`` with its guidance cut
+    to the observation rows of those frames."""
+    from climate2weather_tpu_torch.diffusion.guidance import GaussianGuidance
+
+    g = s["guidance"]
+    cut = GaussianGuidance(A=g.A, y=g.y[: g.A.out_times(hours)], std=g.std, gamma=g.gamma)
+    return np.ascontiguousarray(s["noise"][:hours]), dict(s, guidance=cut)
+
+
+def phase14b_against_device(s, device, batch, steps) -> dict:
+    """DPM-Solver++(2M), eta = 0, the final denoise and COSMO guidance for
+    ``steps`` steps from the same noise, the net in 14a's bf16: the host
+    tier and the device long path side by side. Their largest difference
+    is printed, not held to a limit: in bf16 a one-ulp difference of the
+    two tiers' fp32 updates flips the rounding of some of the net's inputs,
+    and the COSMO gamma's gain carries that far past any bar (14b-fp32
+    holds the samplers to JAX's). Checked: finite, the attention launches,
+    and the host tier's peak device memory below the long path's. Also the
+    guidance residual of both; window-evals/s of both, the host tier's
+    seconds an evaluation in copies and in the numpy update; the peak device
+    memory of each sampler call (the host tier's with the statistics reset
+    after its noise is on the host); host RSS growth."""
+    from climate2weather_tpu_torch.diffusion.host_stream import HostStreamingScoreFn, sample_host_dpm
+    from climate2weather_tpu_torch.diffusion.long_sampler import sample_dpmpp2m_long
+    from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    x, k, process = s["noise"], s["markov_order"], s["process"]
+    L = x.shape[0]
+    n = L - 2 * k
+    per_call = min(n, batch)
+    window_evals = (steps + 1) * -(-n // per_call) * per_call
+    score = HostStreamingScoreFn(s["net"], k, batch_size=batch, device=device)
+    for name in launch_counts:
+        launch_counts[name] = 0
+    _peak_reset(device)
+    t_host = time.time()
+    host, rss = _host_peak(lambda: sample_host_dpm(process, score, x, steps=steps, sde_eta=0.0, denoise_final=True,
+                                                   **_host_guidance(s)))
+    host_s = time.time() - t_host
+    host_peak = _peak(device)
+    launches = launch_counts["attention_fwd"]
+    x_dev = torch.from_numpy(x).to(device)
+    _peak_reset(device)
+    t_dev = time.time()
+    dev, nan = sample_dpmpp2m_long(process, WindowScoreFn(s["net"], k, chunk_size=batch), x_dev,
+                                   guidance=s["guidance"], steps=steps, denoise_final=True)
+    dev = dev.cpu().numpy()
+    dev_s = time.time() - t_dev
+    dev_peak = _peak(device)
+    del x_dev
+    scale = float(dev.std())
+    evals = score.timings["evals"]
+    traj = x.nbytes
+    diff = float(np.abs(host - dev).max())
+    rec = {"L": L, "steps": steps, "finite": bool(np.isfinite(host).all()) and not bool(nan),
+           "max_abs_diff": diff, "scale_std": scale, "diff_in_std": diff / scale,
+           "residual_host": _residual(s["guidance"], host), "residual_device": _residual(s["guidance"], dev),
+           "window_evals": window_evals, "host_s": host_s, "device_s": dev_s,
+           "window_evals_per_s_host": window_evals / host_s, "window_evals_per_s_device": window_evals / dev_s,
+           "evals": evals, "score_s_per_eval": score.timings["eval_s"] / evals,
+           "copy_s_per_eval": score.timings["copy_s"] / evals,
+           "update_s_per_eval": (host_s - score.timings["eval_s"]) / evals,
+           "attention_launches": launches,
+           "expected_launches": s["n_attn"] * evals * -(-n // per_call) if device.type == "cuda" else 0,
+           "peak_host_tier": host_peak, "peak_device_path": dev_peak,
+           "host_rss_growth": rss, "host_rss_growth_trajectories": rss / traj, "trajectory_bytes": traj}
+    emit("14b", t0, **rec)
+    if not rec["finite"]:
+        raise AssertionError(f"the host tier's sample is not finite: {rec}")
+    if launches != rec["expected_launches"]:
+        raise AssertionError(f"attention launches {launches} != 6 per chunk and evaluation: {rec}")
+    if host_peak is not None and not host_peak < dev_peak:
+        raise AssertionError(f"the host tier's peak device memory is not below the device path's: {rec}")
+    return rec
+
+
+class _Replay:
+    """14b-fp32's score function: the host tier's, each evaluation's eps
+    kept, so that the planted faults rerun the sampler on the very eps of
+    the good run and differ from it by the sampler's arithmetic alone,
+    without a forward."""
+
+    def __init__(self, score):
+        self.score, self.kept, self.at = score, [], None
+
+    def __call__(self, x, t):
+        if self.at is None:
+            eps = self.score(x, t)
+            self.kept.append((t, eps.copy()))
+            return eps
+        t_kept, eps = self.kept[self.at]
+        if t_kept != t:
+            raise AssertionError(f"replay out of step: t {t} where the good run had {t_kept}")
+        self.at += 1
+        return eps.copy()
+
+    def replay(self):
+        self.at = 0
+        return self
+
+
+def _second_order_dropped(process, score, x, at, **kw):
+    """14b-fp32's first planted fault: the host tier's DPM-Solver++(2M) with
+    the second-order term dropped at step ``at`` (c_cur = 1, c_prev = 0: a
+    first-order step there)."""
+    from climate2weather_tpu_torch.diffusion import steprules
+    from climate2weather_tpu_torch.diffusion.host_stream import sample_host_dpm
+
+    real, calls = steprules.dpm_scalar_coeffs, []
+
+    def coeffs(*args):
+        h, sigma_ratio, growth, c_cur, c_prev = real(*args)
+        calls.append(1)
+        return (h, sigma_ratio, growth, 1.0, 0.0) if len(calls) - 1 == at else (h, sigma_ratio, growth, c_cur, c_prev)
+
+    steprules.dpm_scalar_coeffs = coeffs
+    try:
+        return sample_host_dpm(process, score, x, **kw)
+    finally:
+        steprules.dpm_scalar_coeffs = real
+
+
+def _sign_flipped(guidance_A):
+    """14b-fp32's second planted fault: the coarsening whose adjoint has the
+    wrong sign, so that guidance pushes away from y."""
+    from climate2weather_tpu_torch.diffusion.host_stream import NumpyCoarsening
+
+    class Flipped(NumpyCoarsening):
+        def adjoint(self, v, out_len):
+            return -super().adjoint(v, out_len)
+
+    return Flipped(guidance_A.s_step, guidance_A.t_step)
+
+
+def phase14b_exact(s, device, hours, batch, steps) -> dict:
+    """14b's run held to a limit, on the first ``hours`` frames in chunks
+    of ``batch`` windows (the last shifted back, as at 523 frames in chunks
+    of 128) with the net in fp32 (``net_sample``): the host tier's sample
+    against the device long path's from the same noise within JAX's bar,
+    ``JAX_BAR`` times the device sample's standard deviation. The two tiers
+    give the net the same batches, so in fp32 they differ by the rounding of
+    their updates and guidance alone. Two planted faults, rerun on the good
+    run's eps, must exceed the bar: the second-order term dropped at the
+    last step, and the guidance's sign flipped. Also both residuals."""
+    from climate2weather_tpu_torch.diffusion.host_stream import HostStreamingScoreFn, sample_host_dpm
+    from climate2weather_tpu_torch.diffusion.long_sampler import sample_dpmpp2m_long
+    from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+
+    t0 = time.time()
+    k, process, net = s["markov_order"], s["process"], s["net_sample"]
+    x, short = _first_frames(s, hours)
+    guided = _host_guidance(short)
+    replay = _Replay(HostStreamingScoreFn(net, k, batch_size=batch, device=device))
+    kw = dict(steps=steps, sde_eta=0.0, denoise_final=True)
+    host = sample_host_dpm(process, replay, x, **kw, **guided)
+    dev, nan = sample_dpmpp2m_long(process, WindowScoreFn(net, k, chunk_size=batch), torch.from_numpy(x).to(device),
+                                   guidance=short["guidance"], steps=steps, denoise_final=True)
+    dev = dev.cpu().numpy()
+    faults = {
+        "second_order_dropped": _second_order_dropped(process, replay.replay(), x, steps - 1, **kw, **guided),
+        "guidance_sign_flipped": sample_host_dpm(process, replay.replay(), x, **kw,
+                                                 **dict(guided, guidance_A=_sign_flipped(guided["guidance_A"]))),
+    }
+    scale = float(dev.std())
+    diff = float(np.abs(host - dev).max())
+    n = hours - 2 * k
+    rec = {"L": hours, "chunks": -(-n // min(n, batch)), "steps": steps,
+           "finite": bool(np.isfinite(host).all()) and not bool(nan), "max_abs_diff": diff, "scale_std": scale,
+           "diff_in_std": diff / scale, "limit": JAX_BAR * scale,
+           **{f"fault_{name}": float(np.abs(f - dev).max()) for name, f in faults.items()},
+           "residual_host": _residual(short["guidance"], host), "residual_device": _residual(short["guidance"], dev)}
+    emit("14b-fp32", t0, **rec)
+    if not rec["finite"] or rec["max_abs_diff"] > rec["limit"]:
+        raise AssertionError(f"the host tier's sample is not the device path's: {rec}")
+    if not all(rec[f"fault_{name}"] > rec["limit"] for name in faults):
+        raise AssertionError(f"a planted fault of the host sampler passed 14b's check: {rec}")
+    return rec
+
+
+def phase14c_short(s, device, batch, steps, hours) -> dict:
+    """The first ``hours`` frames (one chunk of 128 windows): ``steps``
+    steps of DPM-Solver++(2M) SDE (eta 0.3, the confirmed setting) with the
+    final denoise, twice with one seed: equal bit for bit and finite, and its
+    peak device memory; one PC step with one corrector step: finite."""
+    from climate2weather_tpu_torch.diffusion.host_stream import HostStreamingScoreFn, sample_host, sample_host_dpm
+
+    t0 = time.time()
+    k, process = s["markov_order"], s["process"]
+    x, short = _first_frames(s, hours)
+    guided = _host_guidance(short)
+    score = HostStreamingScoreFn(s["net"], k, batch_size=batch, device=device)
+    _peak_reset(device)
+    first = sample_host_dpm(process, score, x, steps=steps, sde_eta=0.3, denoise_final=True, seed=7, **guided)
+    peak = _peak(device)
+    second = sample_host_dpm(process, score, x, steps=steps, sde_eta=0.3, denoise_final=True, seed=7, **guided)
+    pc = sample_host(process, score, x, steps=1, corrections=1, tau=0.5, seed=7, **guided)
+    rec = {"L": hours, "sde_equal": _bits_equal(first, second), "sde_finite": bool(np.isfinite(first).all()),
+           "pc_finite": bool(np.isfinite(pc).all()), "residual_sde": _residual(short["guidance"], first),
+           "residual_pc": _residual(short["guidance"], pc), "peak_host_tier": peak}
+    emit("14c", t0, **rec)
+    if not (rec["sde_equal"] and rec["sde_finite"] and rec["pc_finite"]):
+        raise AssertionError(f"the host tier's SDE run is not reproducible or a sample is not finite: {rec}")
+    return rec
+
+
+def phase14e_predict(root, snapshot_dir, device, res, hours, steps, samples, seed) -> dict:
+    """``experiment.main(["predict", ...])`` in this process at a copy of
+    ``s16_t6_spectral.yml`` on phase 6's files with ``host_streaming: true``,
+    DPM-Solver++(2M) SDE 0.3, the final denoise and no calibration or
+    projection: finite samples written, 6 attention launches per UNet forward
+    (one sample at a time)."""
+    from climate2weather_tpu_torch import experiment
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    t0 = time.time()
+    paths = write_predict_inputs(root, res=res, hours=hours, seed=seed)
+    cfg = {**yaml_load_file(CONFIG), "model_path": str(snapshot_dir), "data_path": paths["data"],
+           "quantile_path": paths["quantiles"], "observation_path": paths["data"], "num_hours": hours,
+           "host_streaming": True, "sampler_kind": "dpmpp2m", "sde_eta": 0.3, "denoise_final": True,
+           "spectral_calibrate": "", "t0_project": "", "num_sampling_steps": steps, "num_samples": samples}
+    config_path = root / "stream.yml"
+    yaml_dump_file(cfg, config_path)
+    for k in launch_counts:
+        launch_counts[k] = 0
+    t_run = time.time()
+    experiment.main(["predict", "--save-path", str(root / "predict"), "--config-path", str(config_path),
+                     "--device", device.type])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    predict_s = time.time() - t_run
+    snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+    window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+    expect = _attention_blocks(snap_cfg["network_kwargs"]) * _expected_forwards(
+        {**cfg, "ensemble_batch": 1}, hours, window) if device.type == "cuda" else 0
+    (out_dir,) = [p for p in (root / "predict").iterdir() if p.is_dir()]
+    gens = [open_grid(str(out_dir / f"gen_sample_{i:03d}.nc")) for i in range(samples)]
+    rec = {"predict_s": predict_s, "finite": all(bool(np.isfinite(v).all()) for g in gens for v in g.data_vars.values()),
+           "attention_launches": launch_counts["attention_fwd"], "expected_launches": expect,
+           "outputs": sorted(p.name for p in out_dir.iterdir())}
+    emit("14e", t0, **rec)
+    if not rec["finite"] or rec["attention_launches"] != expect:
+        raise AssertionError(f"the host-streamed predict failed its checks: {rec}")
+    return rec
+
+
+def phase14d_memory(b, c, device) -> dict:
+    """The bound the tier exists for, from 14b's and 14c's runs: the host
+    tier's peak device memory at 523 frames equal to its peak at 140 within
+    2 % (both run full chunks of 128 windows), below the device long path's;
+    the device path's excess over it in trajectory buffers (the slope its
+    length limit follows); host RSS growth in trajectory buffers."""
+    t0 = time.time()
+    rec = {"peak_long": b["peak_host_tier"], "peak_short": c["peak_host_tier"], "peak_device_path": b["peak_device_path"],
+           "host_rss_growth_trajectories": b["host_rss_growth_trajectories"], "trajectory_bytes": b["trajectory_bytes"]}
+    if device.type == "cuda":
+        rec.update(peak_ratio=rec["peak_long"] / rec["peak_short"],
+                   device_path_excess_trajectories=(rec["peak_device_path"] - rec["peak_long"]) / b["trajectory_bytes"],
+                   total_memory=torch.cuda.get_device_properties(device).total_memory)
+    emit("14d", t0, **rec)
+    if device.type == "cuda" and not (abs(rec["peak_ratio"] - 1.0) <= 0.02 and rec["peak_long"] < rec["peak_device_path"]):
+        raise AssertionError(f"the host tier's peak device memory grows with the trajectory or is not below "
+                             f"the device path's: {rec}")
+    return rec
+
+
+def phase14_summary(stream: dict) -> dict:
+    """Phase 14's line: the checks' readings, the rates and the peaks."""
+    a, b, x, c, d, e = (stream[k] for k in ("14a", "14b", "14b-fp32", "14c", "14d", "14e"))
+    return {"eps_bits_equal": a["bits_equal"], "eps_launches": a["attention_launches"],
+            "sample_max_abs_diff": b["max_abs_diff"], "sample_fp32_max_abs_diff": x["max_abs_diff"],
+            "sample_fp32_limit": x["limit"], "fault_second_order_dropped": x["fault_second_order_dropped"],
+            "fault_guidance_sign_flipped": x["fault_guidance_sign_flipped"],
+            "window_evals_per_s_host": b["window_evals_per_s_host"],
+            "window_evals_per_s_device": b["window_evals_per_s_device"],
+            "copy_s_per_eval": b["copy_s_per_eval"], "update_s_per_eval": b["update_s_per_eval"],
+            "sde_equal": c["sde_equal"], "peak_long": d["peak_long"], "peak_short": d["peak_short"],
+            "peak_device_path": d["peak_device_path"], "predict_s": e["predict_s"],
+            "predict_launches": e["attention_launches"]}
+
+
+def phase14_host_stream(snapshot_dir, device, res=128, hours=STREAM_HOURS, batch=STREAM_BATCH, steps=STREAM_STEPS,
+                        exact=STREAM_EXACT, predict_hours=49, predict_steps=8, predict_samples=2, seed=0,
+                        overrides=None, compute_dtype=torch.bfloat16, sample_dtype=torch.float32) -> dict:
+    """Phase 14, 14a-14e (see the module docstring), h5py unimportable, in
+    one scratch directory. ``hours`` and ``steps`` are 14b's and 14c's,
+    ``exact`` 14b-fp32's frames and windows a chunk; ``overrides`` change
+    the guidance config of 14a-14c, ``compute_dtype`` the net's of all but
+    14b-fp32, which runs it in ``sample_dtype``. Returns each part's
+    record."""
+    import shutil
+    import tempfile
+
+    sys.modules["h5py"] = None
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-stream-"))
+    try:
+        s = _stream_setup(snapshot_dir, device, res, hours[0], seed, overrides, compute_dtype, sample_dtype)
+        a = phase14a_eps(s, device, batch)
+        b = phase14b_against_device(s, device, batch, steps[0])
+        x = phase14b_exact(s, device, *exact, steps[0])
+        c = phase14c_short(s, device, batch, steps[1], hours[1])
+        d = phase14d_memory(b, c, device)
+        del s
+        e = phase14e_predict(root, snapshot_dir, device, res, predict_hours, predict_steps, predict_samples, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"14a": a, "14b": b, "14b-fp32": x, "14c": c, "14d": d, "14e": e}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--child"]:  # one process of phase 10 (see child_step, child_cli)
@@ -3876,11 +4402,33 @@ def main(argv=None) -> int:
     ap.add_argument("--store-only", action="store_true",
                     help="phases 0 and 1, then phase 13 (fill values, the zarr store and its codec, a predict from "
                          "zarr stores, the figure data), and stop (no device line)")
+    ap.add_argument("--host-stream-only", action="store_true",
+                    help="phases 0 and 1, then phase 14 (the host-streaming tier against the device path, its "
+                         "memory bound, a host-streamed predict), and stop (no device line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only",
               file=sys.stderr)
         return 2
+    import shutil
+    import tempfile
+
+    # The card's host sets PYTHONDONTWRITEBYTECODE and ships torch without
+    # bytecode, so every process would compile torch's sources anew, most
+    # of a child's start. This run and the processes it starts share one
+    # bytecode cache instead.
+    pycache = tempfile.mkdtemp(prefix="c2w-pycache-")
+    sys.pycache_prefix, sys.dont_write_bytecode = pycache, False
+    os.environ["PYTHONPYCACHEPREFIX"] = pycache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    try:
+        return _run(args)
+    finally:
+        shutil.rmtree(pycache, ignore_errors=True)
+
+
+def _run(args) -> int:
+    """The phases ``args`` select, on the card."""
     sys.path.insert(0, str(REPO))
     from climate2weather_tpu_torch.utils.device import set_reference_numerics
 
@@ -3922,6 +4470,11 @@ def main(argv=None) -> int:
         emit(13, t13, **phase13_summary(phase13_store(SNAPSHOT, device, seed=args.seed)))
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
+    if args.host_stream_only:
+        t14 = time.time()
+        emit(14, t14, **phase14_summary(phase14_host_stream(SNAPSHOT, device, seed=args.seed)))
+        print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
+        return 0
     rows, year_fwd, exact_bwd = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
@@ -3954,6 +4507,9 @@ def main(argv=None) -> int:
         emit(13, t13, **phase13_summary(store))
     finally:
         shutil.rmtree(kept, ignore_errors=True)
+    t14 = time.time()
+    stream = phase14_host_stream(SNAPSHOT, device, seed=args.seed)
+    emit(14, t14, **phase14_summary(stream))
     # each kernel's launches on its own path: sampling for the forward (and
     # the year path's, at its own shape), training for the backward, the
     # ModResidualBlock composition for the Winograd conv
@@ -3989,6 +4545,10 @@ def main(argv=None) -> int:
     rows["attention_bwd"]["model_path"] = {k: v["attention_bwd"] for k, v in nd.items()}
     # phase 13: the guided predict from zarr stores
     rows["attention_fwd"]["store_path"] = {"13c_launches": store["13c"]["attention_fwd_launches"]}
+    # phase 14: one host-streamed evaluation at 523 frames (14a), the
+    # host tier's DPM-Solver++(2M) run there (14b) and its predict (14e)
+    rows["attention_fwd"]["host_stream_path"] = {f"{k}_launches": stream[k]["attention_launches"]
+                                                 for k in ("14a", "14b", "14e")}
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

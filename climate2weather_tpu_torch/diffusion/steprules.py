@@ -5,7 +5,10 @@ and SDE, and DPM-Solver++(3M).
 
 The coefficient functions compute fp32 scalars from the schedule (host
 tensors); the step functions are plain arithmetic on the state with those
-coefficients given as Python floats or tensors of the state's dtype.
+coefficients given as Python floats or tensors of the state's dtype. The
+``*_inplace`` forms update numpy arrays in place with Python-float
+coefficients, for the host-resident trajectories of
+``diffusion/host_stream.py``.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ __all__ = [
     "predict_x0",
     "ddim_renoise",
     "ddim_step",
+    "ddim_step_inplace",
     "langevin_delta",
     "langevin_noise_scale",
     "langevin_step",
+    "langevin_step_inplace",
     "dpm_scalar_coeffs",
     "dpm_data_estimate",
     "dpm_step",
@@ -48,6 +53,27 @@ def ddim_step(x, eps, mu, sigma, mu2, sigma2, proc_x0=None):
     return ddim_renoise(x0, eps, mu2, sigma2)
 
 
+def ddim_step_inplace(x, eps, mu, sigma, mu2, sigma2, proc_x0=None):
+    """:func:`ddim_step` with no trajectory-sized temporary: mutates and
+    consumes both ``x`` and ``eps`` (``eps`` is garbage afterwards) and
+    returns ``x``. The same algebra in JAX's order:
+    x <- x - sigma eps (= mu x0); x <- x mu2 / mu (``proc_x0`` applied to
+    x0 between the two factors); x <- x + sigma2 eps."""
+    eps *= sigma
+    x -= eps  # x = mu * x0
+    if proc_x0 is not None:
+        x /= mu
+        x0 = proc_x0(x)
+        if x0 is not x:
+            x[...] = x0
+        x *= mu2
+    else:
+        x *= mu2 / mu
+    eps *= sigma2 / sigma
+    x += eps
+    return x
+
+
 def langevin_delta(tau, mean_sq_eps):
     """Adaptive corrector step size delta = tau / mean(eps^2)."""
     return tau / mean_sq_eps
@@ -69,6 +95,19 @@ def langevin_step(x, eps, z, delta, sigma2, sqrt2delta=None):
     if sqrt2delta is None:
         sqrt2delta = (2.0 * delta) ** 0.5
     return x - (delta * eps + sqrt2delta * z) * sigma2
+
+
+def langevin_step_inplace(x, eps, z, delta, sigma2, noise_scale=None):
+    """:func:`langevin_step` in place: mutates and consumes ``eps`` and
+    ``z`` and returns ``x`` - (delta eps + noise_scale z) sigma2, with
+    ``noise_scale`` sqrt(2 delta) unless given."""
+    if noise_scale is None:
+        noise_scale = (2.0 * delta) ** 0.5
+    eps *= delta * sigma2
+    z *= noise_scale * sigma2
+    x -= eps
+    x -= z
+    return x
 
 
 def _lambda(process, t) -> torch.Tensor:

@@ -46,7 +46,15 @@ writes ``config_freeze.yaml``, ``ground_truth.nc`` and ``observation.nc``;
 each rank writes its samples and resume files. Nothing in the sample loop
 waits on another rank.
 
-Not ported, and refused before any sampling: the host-streaming sampler.
+With ``host_streaming: true`` (``pc`` or ``dpmpp2m``) each sample runs on
+the host tier of ``diffusion/host_stream.py``, as in JAX: one sample at a
+time, its trajectory in host memory and only window chunks of
+``batch_size`` on the card. The initial noise is the device path's draw
+for the sample, moved to the host; the per-step noise comes from
+``np.random.RandomState(derive_seed(seed, "host", sid))``. The tier takes
+no calibration, projection or ``guidance_off`` (JAX refuses them) and no
+exact, prolonged or annealed guidance (JAX asserts against them inside its
+sample loop; the port refuses them with the rest, before any output).
 """
 
 from __future__ import annotations
@@ -72,6 +80,12 @@ from climate2weather_tpu_torch.diffusion.guidance import (
     SpatioTemporalCoarsening,
     per_channel,
 )
+from climate2weather_tpu_torch.diffusion.host_stream import (
+    HostStreamingScoreFn,
+    NumpyCoarsening,
+    sample_host,
+    sample_host_dpm,
+)
 from climate2weather_tpu_torch.diffusion.long_sampler import sample_dpmpp2m_long, sample_guided_long
 from climate2weather_tpu_torch.diffusion.process import construct_process
 from climate2weather_tpu_torch.diffusion.sampler import SAMPLERS, sample, sample_dpmpp2m, sample_dpmpp3m
@@ -83,6 +97,11 @@ from climate2weather_tpu_torch.utils.device import resolve_device, set_reference
 from climate2weather_tpu_torch.utils.seeding import derive_seed, set_random_seed
 
 _T0_METHODS = ("", "spectral", "block")
+# the host-streaming tier: its samplers, and the settings it refuses (the
+# first three as JAX does up front, the others JAX asserts against later)
+_HOST_SAMPLERS = ("pc", "dpmpp2m")
+_NOT_ON_HOST = ("t0_project", "guidance_off", "spectral_calibrate", "use_exact_grad", "guidance_prolong",
+                "guidance_anneal")
 # the long path: steps per sampler call, and the length above which
 # DPM-Solver++ keeps its trajectory buffers in bf16 (JAX _run_impl)
 _STEPS_PER_CALL = 8
@@ -107,7 +126,11 @@ def _check_config(cfg: dict, L: int, calib_frames, observation_given: bool = Fal
         raise ValueError("prolong guidance is a detached-mode preconditioner; "
                          "use_exact_grad has no prolonged counterpart")
     if cfg.get("host_streaming", False):
-        raise NotImplementedError("the host-streaming sampler is not ported (the long-trajectory one is)")
+        if kind not in _HOST_SAMPLERS:
+            raise ValueError(f"host_streaming implements the pc and dpmpp2m samplers only (got {kind!r})")
+        for key in _NOT_ON_HOST:
+            if cfg.get(key):
+                raise ValueError(f"{key} is not implemented for the host-streaming tier (got {cfg[key]!r})")
     if str(cfg.get("t0_project", "") or "") not in _T0_METHODS:
         raise ValueError(f"t0_project must be one of {_T0_METHODS}, got {cfg['t0_project']!r}")
     if bool(cfg.get("spectral_calibrate")) != (calib_frames is not None):
@@ -153,7 +176,9 @@ def run_arrays(
     tests inject both instead through ``noise`` ``[num_samples, L, H, W, C]``
     and ``z`` ``[num_samples, draws, L, H, W, C]`` (one draw per step for
     DPM-Solver++(2M) with ``sde_eta > 0``, one per corrector step for PC;
-    on the long path each frame chunk takes its frames of the draw).
+    on the long path each frame chunk takes its frames of the draw; under
+    ``host_streaming`` ``z`` holds no draws: the tier's numpy draws are
+    JAX's numbers).
     The run is on the card unless ``device="cpu"``; ``compute_dtype`` is the
     network's (bf16 as in JAX). ``stats`` as for :func:`iter_samples`.
     """
@@ -213,16 +238,16 @@ def iter_samples(
     post-processed. On the long path a group is one sample, and with
     ``sample_resume_every > 0`` in ``cfg`` its resume file lives in
     ``resume_dir``. ``stats``, a dict, gets ``long_path`` and
-    ``traj_dtype``. With ``world > 1`` only the ``num_samples // world``
-    ids of block ``rank`` are sampled (``noise`` and ``z`` stay indexed by
-    sample id)."""
+    ``traj_dtype`` (and ``host_streaming`` when the config sets it). With
+    ``world > 1`` only the ``num_samples // world`` ids of block ``rank``
+    are sampled (``noise`` and ``z`` stay indexed by sample id)."""
     num_samples = int(cfg.get("num_samples", 1))
     if num_samples % world:
         raise ValueError(f"num_samples {num_samples} is not a multiple of the {world} ranks")
     num_local = num_samples // world
     dev = resolve_device(device)
     set_reference_numerics()
-    gt = torch.as_tensor(np.asarray(ground_truth_lhwc, np.float32), device=dev)
+    gt = np.asarray(ground_truth_lhwc, np.float32)
     L, H, W, C = gt.shape
     _check_config(cfg, L, calib_frames, observation is not None)
     steps = int(cfg.get("num_sampling_steps", 256))
@@ -231,18 +256,21 @@ def iter_samples(
     seed = int(cfg.get("seed", 0))
     markov_order = int(snap_config["dataset_kwargs"]["train"]["window"]) // 2
     process = construct_process(**snap_config["pipeline_kwargs"])
-    use_long = L > int(cfg.get("long_trajectory_threshold", 512))
+    host = bool(cfg.get("host_streaming", False))
+    use_long = not host and L > int(cfg.get("long_trajectory_threshold", 512))
     kind = cfg.get("sampler_kind", "pc")
     traj_dtype = torch.bfloat16 if use_long and kind != "pc" and L > _BF16_TRAJECTORY_ABOVE else None
     if stats is not None:
         stats.update(long_path=use_long, traj_dtype=str(traj_dtype or torch.float32))
+        if host:
+            stats["host_streaming"] = True
 
     A = SpatioTemporalCoarsening(s_step=s_step, t_step=t_step)
     obs_path = cfg.get("observation_path")
     if obs_path is None:
         y = None
     elif obs_path == cfg.get("data_path"):
-        y = A(gt)
+        y = A(torch.as_tensor(gt, device=dev))  # the ground truth visits the card only for this
     else:
         y = torch.as_tensor(np.asarray(observation, np.float32), device=dev)
     calib_target = None
@@ -250,24 +278,42 @@ def iter_samples(
         calib_target = torch.as_tensor(climatological_annulus_psd(calib_frames, s_step=s_step),
                                        device=dev)
 
-    score = WindowScoreFn(net, markov_order, chunk_size=int(cfg.get("batch_size", 16)))
-    guidance = None
-    if y is not None and not cfg.get("guidance_off", False):
-        guidance = GaussianGuidance(
-            A=A, y=y,
-            std=per_channel(cfg.get("likelihood_std", 1e-2), C, dev),
-            gamma=per_channel(cfg.get("likelihood_gamma", 1e-2), C, dev),
-            exact_grad=bool(cfg.get("use_exact_grad", False)),
-            prolong=cfg.get("guidance_prolong", False),
-            anneal=float(cfg.get("guidance_anneal", 0.0)),
-        )
+    guided = y is not None and not cfg.get("guidance_off", False)
+    score = guidance = None
+    if not host:  # the host tier guides in numpy (below)
+        score = WindowScoreFn(net, markov_order, chunk_size=int(cfg.get("batch_size", 16)))
+        if guided:
+            guidance = GaussianGuidance(
+                A=A, y=y,
+                std=per_channel(cfg.get("likelihood_std", 1e-2), C, dev),
+                gamma=per_channel(cfg.get("likelihood_gamma", 1e-2), C, dev),
+                exact_grad=bool(cfg.get("use_exact_grad", False)),
+                prolong=cfg.get("guidance_prolong", False),
+                anneal=float(cfg.get("guidance_anneal", 0.0)),
+            )
 
     def score_fn(x, t):
         return score(x, t) if guidance is None else guidance.guided_eps(score, process, x, t)
 
     denoise_final = bool(cfg.get("denoise_final", False))
     resume_every = int(cfg.get("sample_resume_every", 0))
-    if kind == "pc":
+    if host:
+        host_score = HostStreamingScoreFn(net, markov_order, batch_size=int(cfg.get("batch_size", 16)),
+                                          device=dev)
+        host_kw = dict(steps=steps, denoise_final=denoise_final, verbose=rank == 0)
+        if guided:
+            host_kw.update(guidance_A=NumpyCoarsening(s_step, t_step), guidance_y=y.cpu().numpy(),
+                           guidance_std=per_channel(cfg.get("likelihood_std", 1e-2), C).numpy(),
+                           guidance_gamma=per_channel(cfg.get("likelihood_gamma", 1e-2), C).numpy())
+
+        def run_host(x_init, sid):
+            kw = dict(host_kw, seed=derive_seed(seed, "host", sid))
+            if kind == "pc":
+                return sample_host(process, host_score, x_init, corrections=int(cfg.get("num_corrections", 2)),
+                                   tau=float(cfg.get("correction_tau", 0.5)),
+                                   corrector_variance_exact=bool(cfg.get("corrector_variance_exact", False)), **kw)
+            return sample_host_dpm(process, host_score, x_init, sde_eta=float(cfg.get("sde_eta", 0.0)), **kw)
+    elif kind == "pc":
         corrections = int(cfg.get("num_corrections", 2))
         n_draws = steps * corrections
         pc = dict(steps=steps, corrections=corrections, tau=float(cfg.get("correction_tau", 0.5)),
@@ -312,18 +358,26 @@ def iter_samples(
             out = A.project(out, y, iters=int(cfg.get("t0_project_iters", 3)), method=t0_project)
         return out
 
-    # the long path runs one sample at a time, as in JAX
-    eb = 1 if use_long else max(1, int(cfg.get("ensemble_batch", 1)))
+    def generator(sid):
+        return torch.Generator(device=dev).manual_seed(derive_seed(seed, "sample", sid))
+
+    # the long path and the host tier run one sample at a time, as in JAX
+    eb = 1 if use_long or host else max(1, int(cfg.get("ensemble_batch", 1)))
     for start in range(0, num_local, eb):
         sids = [rank * num_local + g for g in range(start, min(start + eb, num_local))]
+        if host:  # the sample's draw on the card, as the device path's, kept on the host only
+            sid = sids[0]
+            if z is not None and np.shape(z)[1]:
+                raise ValueError("the host-streaming tier draws its per-step noise itself; z must hold no draws")
+            x_init = np.asarray(noise[sid], np.float32) if noise is not None else torch.randn(
+                (L, H, W, C), generator=generator(sid), device=dev).cpu().numpy()
+            yield sids, run_host(x_init, sid)[None], np.zeros(1, bool)  # a non-finite step raises
+            continue
         if noise is not None:
             x_init = torch.as_tensor(np.asarray(noise[sids], np.float32), device=dev)
             gens = None
         else:
-            gens = [
-                torch.Generator(device=dev).manual_seed(derive_seed(seed, "sample", sid))
-                for sid in sids
-            ]
+            gens = [generator(sid) for sid in sids]
             x_init = torch.stack([torch.randn((L, H, W, C), generator=g, device=dev) for g in gens])
         zs = None
         if z is not None and n_draws:

@@ -19,9 +19,11 @@ PyYAML:
   ``2014-04-07-04`` is a string). Anything else raises.
 
 Their writers, :func:`msgpack_dumps` (the bytes flax's ``to_bytes`` writes
-for the same tree) and :func:`yaml_dump` (block YAML of the same subset,
-keys sorted as PyYAML's ``safe_dump`` sorts them), write the training
-checkpoints and snapshots in the JAX package's formats.
+for the same tree; :func:`msgpack_dump_parts` gives them as a list of
+buffers with every array's data uncopied, for files) and :func:`yaml_dump`
+(block YAML of the same subset, keys sorted as PyYAML's ``safe_dump`` sorts
+them), write the training checkpoints and snapshots in the JAX package's
+formats.
 """
 
 from __future__ import annotations
@@ -150,7 +152,32 @@ def msgpack_loads(data: bytes) -> Any:
     return out
 
 
-def _pack_length(out: bytearray, n: int, fix, fixmax: int, codes) -> None:
+class _Parts:
+    """msgpack output as a list of buffers: small pieces gather in a
+    bytearray, large ones (array data) join as they are, uncopied."""
+
+    def __init__(self):
+        self.parts, self._buf = [], bytearray()
+
+    def append(self, byte: int) -> None:
+        self._buf.append(byte)
+
+    def __iadd__(self, data):
+        if len(data) < 1 << 16:
+            self._buf += data
+        else:
+            self.close()
+            self.parts.append(data)
+        return self
+
+    def close(self) -> list:
+        if self._buf:
+            self.parts.append(self._buf)
+            self._buf = bytearray()
+        return self.parts
+
+
+def _pack_length(out: _Parts, n: int, fix, fixmax: int, codes) -> None:
     """Header of a str/bin/array/map/ext of length n: the shortest form, as
     msgpack-python's packer chooses it."""
     if fix is not None and n <= fixmax:
@@ -163,7 +190,7 @@ def _pack_length(out: bytearray, n: int, fix, fixmax: int, codes) -> None:
     raise ValueError(f"msgpack: object of length {n} too long")
 
 
-def _pack_int(out: bytearray, v: int) -> None:
+def _pack_int(out: _Parts, v: int) -> None:
     if 0 <= v < 0x80:
         out.append(v)
     elif -0x20 <= v < 0:
@@ -186,23 +213,30 @@ def _pack_int(out: bytearray, v: int) -> None:
         raise ValueError(f"msgpack: int {v} out of range")
 
 
-def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
-    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    if len(payload) in fixext:
-        out.append(fixext[len(payload)])
-    else:
-        _pack_length(out, len(payload), None, 0, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
-    out += struct.pack(">b", code)
-    out += payload
-
-
-def _ndarray_payload(arr: np.ndarray) -> bytes:
+def _pack_ndarray(out: _Parts, code: int, arr: np.ndarray) -> None:
+    """Extension ``code`` holding the msgpack triple (shape, dtype name,
+    C-order bytes); the bytes join ``out`` as a view of the array."""
     if arr.dtype.name not in _ARRAY_DTYPES:
         raise ValueError(f"msgpack: unsupported array dtype {arr.dtype}")
-    return msgpack_dumps([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    data = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    head = _Parts()  # the triple, up to its bytes
+    head.append(0x93)
+    _pack(head, list(arr.shape))
+    _pack(head, arr.dtype.name)
+    _pack_length(head, data.size, None, 0, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+    head = b"".join(head.close())
+    n = len(head) + data.size
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _pack_length(out, n, None, 0, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+    out += struct.pack(">b", code)
+    out += head
+    out += memoryview(data)
 
 
-def _pack(out: bytearray, obj: Any) -> None:
+def _pack(out: _Parts, obj: Any) -> None:
     if obj is None:
         out.append(0xC0)
     elif obj is True or obj is False:
@@ -229,9 +263,9 @@ def _pack(out: bytearray, obj: Any) -> None:
             _pack(out, key)
             _pack(out, val)
     elif isinstance(obj, np.ndarray):
-        _pack_ext(out, _EXT_NDARRAY, _ndarray_payload(obj))
+        _pack_ndarray(out, _EXT_NDARRAY, obj)
     elif isinstance(obj, np.generic):
-        _pack_ext(out, _EXT_NPSCALAR, _ndarray_payload(np.asarray(obj)))
+        _pack_ndarray(out, _EXT_NPSCALAR, np.asarray(obj))
     else:
         raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
 
@@ -241,9 +275,16 @@ def msgpack_dumps(obj: Any) -> bytes:
     ``msgpack_serialize`` does: an array is extension 1 holding the msgpack
     triple ``(shape, dtype name, C-order bytes)``, a numpy scalar extension
     3. Arrays above flax's 1 GiB chunking limit are not supported."""
-    out = bytearray()
+    return b"".join(msgpack_dump_parts(obj))
+
+
+def msgpack_dump_parts(obj: Any) -> list:
+    """:func:`msgpack_dumps` as a list of buffers whose concatenation is its
+    bytes: each array's data a view of the array, for writing to a file
+    without copying the tree into one ``bytes``."""
+    out = _Parts()
     _pack(out, obj)
-    return bytes(out)
+    return out.close()
 
 
 # --------------------------------------------------------------------------

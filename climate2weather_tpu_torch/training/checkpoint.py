@@ -32,7 +32,7 @@ import torch
 from climate2weather_tpu_torch.convert import fit_state_dict, to_flax_params
 from climate2weather_tpu_torch.io.snapshot import (  # noqa: F401 (re-exported)
     load_snapshot,
-    msgpack_dumps,
+    msgpack_dump_parts,
     msgpack_loads,
     yaml_dump_file,
 )
@@ -136,17 +136,18 @@ class CheckpointIO:
         if verbose:
             print(f"Saving {path} ... ", end="", flush=True)
         payload = {
-            name: msgpack_dumps(_to_host(obj))
+            name: msgpack_dump_parts(_to_host(obj))
             for name, obj in self.state_objs.items()
             if obj is not None
         }
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
-            header = json.dumps({k: len(v) for k, v in payload.items()}).encode()
+            header = json.dumps({k: sum(len(p) for p in v) for k, v in payload.items()}).encode()
             f.write(len(header).to_bytes(8, "little"))
             f.write(header)
             for k in sorted(payload):
-                f.write(payload[k])
+                for part in payload[k]:
+                    f.write(part)
         os.replace(tmp, path)
         if verbose:
             print("done.")
@@ -262,6 +263,7 @@ def save_snapshot(run_dir: str, kdata: int, rate_suffix: str, params, config: di
     snap_dir = os.path.join(run_dir, f"{SNAPSHOT_PREFIX}{kdata:07d}-{rate_suffix}")
     os.makedirs(snap_dir, exist_ok=True)
     with open(os.path.join(snap_dir, "params.msgpack"), "wb") as f:
-        f.write(msgpack_dumps(cast(params)))
+        for part in msgpack_dump_parts(cast(params)):
+            f.write(part)
     yaml_dump_file(config, os.path.join(snap_dir, "config.yaml"))
     return snap_dir

@@ -104,6 +104,26 @@ def test_msgpack_dumps_writes_flax_bytes():
     assert io.msgpack_loads(blob)["i"] == scalars["i"]
 
 
+@pytest.mark.parametrize("tree", [
+    # scalars whose extension payload takes each fixext size and none, a
+    # strided view, an empty array, booleans, and arrays past the 64 KiB at
+    # which the parts hold the array's own memory
+    {"f4": np.float32(2.5), "f2": np.float16(1.0), "f8": np.float64(3.0), "i1": np.int8(-3),
+     "u8": np.uint64(7), "b": np.bool_(True)},
+    {"view": np.arange(48, dtype=np.float32).reshape(6, 8)[::2, 1::3], "empty": np.zeros((0, 5), np.float32),
+     "mask": np.arange(10) % 3 == 0, "big": np.arange(70000, dtype=np.float32).reshape(350, 200),
+     "bigT": np.arange(40000, dtype=np.float16).reshape(200, 200).T, "n": [1, "x", None]},
+])
+def test_msgpack_dump_parts_join_to_flax_bytes(tree):
+    """``msgpack_dump_parts``, which checkpoints and snapshots are written
+    from, joins to the bytes of ``msgpack_dumps`` and of flax's serializer."""
+    parts = io.msgpack_dump_parts(tree)
+    joined = b"".join(bytes(p) for p in parts)
+    assert joined == io.msgpack_dumps(tree) == serialization.msgpack_serialize(copy.deepcopy(tree), in_place=True)
+    if "big" in tree:
+        assert any(isinstance(p, memoryview) and len(p) == tree["big"].nbytes for p in parts)
+
+
 YAML_FILES = sorted(str(p.relative_to(REPO)) for pattern in ("configs/*.yml", "exp/configs/**/*.yml")
                     for p in REPO.glob(pattern))
 

@@ -240,10 +240,11 @@ def test_long_path_ignores_ensemble_batch(setup):
 @pytest.mark.parametrize("override,error", [
     # what the JAX package refuses too: the SDE form with DPM-Solver++(3M),
     # exact-gradient guidance with a prolongation (short and long path), and
-    # the host-streaming sampler, which the port does not have
+    # the host-streaming tier at the confirmed setting, whose calibration and
+    # projection it does not run (each refusal alone: the test below)
     ({"sampler_kind": "dpmpp3m", "sde_eta": 0.3}, ValueError),
     ({"use_exact_grad": True, "guidance_prolong": "bilinear"}, ValueError),
-    ({"host_streaming": True}, NotImplementedError),
+    ({"host_streaming": True}, ValueError),
     ({"long_trajectory_threshold": 4, "use_exact_grad": True, "guidance_prolong": True}, ValueError),
     ({"observation_path": "/elsewhere.nc"}, NotImplementedError),
     ({"t0_project": "bilinear"}, ValueError),
@@ -253,6 +254,51 @@ def test_run_arrays_rejects_unported_settings_before_sampling(setup, override, e
     snap, gt, frames, _ = setup
     with pytest.raises(error):
         run_arrays(snap, _config(**override), gt, calib_frames=frames, device="cpu")
+
+
+@pytest.mark.parametrize("override,match", [
+    ({"sampler_kind": "dpmpp3m", "sde_eta": 0.0}, "host_streaming implements"),
+    ({"t0_project": "block"}, "t0_project"),
+    ({"guidance_off": True}, "guidance_off"),
+    ({"spectral_calibrate": "train_normed.h5"}, "spectral_calibrate"),
+    ({"use_exact_grad": True}, "use_exact_grad"),
+    ({"guidance_prolong": "spectral"}, "guidance_prolong"),
+    ({"guidance_anneal": 1.0}, "guidance_anneal"),
+])
+def test_run_arrays_refuses_what_the_host_tier_does_not_run(setup, override, match):
+    """Each setting alone, on a config the host tier otherwise runs."""
+    snap, gt, frames, h5 = setup
+    cfg = _config(**{"host_streaming": True, "t0_project": "", "spectral_calibrate": "", **override})
+    with pytest.raises(ValueError, match=match):
+        run_arrays(snap, cfg, gt, calib_frames=frames if cfg["spectral_calibrate"] else None, device="cpu")
+
+
+def test_run_arrays_host_streaming_draws_as_the_device_path(setup, monkeypatch):
+    """Under ``host_streaming`` each sample's initial noise is the device
+    path's draw for it (moved to the host), its per-step seed
+    ``derive_seed(seed, "host", sid)``, and the samples are the host
+    sampler's, one at a time whatever ``ensemble_batch`` says."""
+    from climate2weather_tpu_torch.exp import downscaling
+    from climate2weather_tpu_torch.utils.seeding import derive_seed
+
+    snap, gt, frames, _ = setup
+    cfg = _config(host_streaming=True, t0_project="", spectral_calibrate="", num_sampling_steps=2, seed=5)
+    seen, real = [], downscaling.sample_host_dpm
+
+    def recording(process, score, noise, **kw):
+        seen.append((noise.copy(), kw["seed"], kw["sde_eta"], kw["guidance_y"].shape))
+        return real(process, score, noise, **kw)
+
+    monkeypatch.setattr(downscaling, "sample_host_dpm", recording)
+    stats = {}
+    got, nan = run_arrays(snap, cfg, gt, device="cpu", compute_dtype=torch.float32, stats=stats)
+    assert stats == {"long_path": False, "traj_dtype": "torch.float32", "host_streaming": True}
+    assert got.shape == (2, L, H, W, C) and np.isfinite(got).all() and not nan.any()
+    assert [s[1] for s in seen] == [derive_seed(5, "host", sid) for sid in (0, 1)]
+    assert all(s[2] == 0.3 and s[3] == (3, 2, 2, C) for s in seen)
+    for sid, (noise, *_) in enumerate(seen):
+        want = torch.randn((L, H, W, C), generator=torch.Generator().manual_seed(derive_seed(5, "sample", sid)))
+        np.testing.assert_array_equal(noise, want.numpy())
 
 
 def test_run_arrays_needs_a_card_unless_asked_for_the_cpu(setup, monkeypatch):

@@ -14,7 +14,9 @@ fidelity harness), its phase-11 data layer (the netCDF-C fixtures, the
 archive drill through the data command line, synth, debias and a guided
 predict from the debiased file, every process it starts blocked itself), its
 phase-13 stores and figure data (fill values, the zarr store and its codec,
-a predict from zarr stores, every figure kind's data), or
+a predict from zarr stores, every figure kind's data), its phase-14
+host-streaming tier (eps against the device path, a sample against the long
+path, a host-streamed predict), or
 its phase-10 multi-process runs (every rank's process
 blocked the same way, by a ``sitecustomize`` on its path) at a tiny size (the
 kernel phases need the card).
@@ -110,6 +112,15 @@ elif mode == "store":
     # compares 13c's directory with itself; 13e sums the 72.1M snapshot
     p13 = chip_smoke.phase13_store(snap, cpu, res=32, steps=2)
     out = {"p13": chip_smoke.phase13_summary(p13), **{k: p13[k] for k in ("13a", "13b", "13c", "13d", "13e")}}
+elif mode == "stream":
+    # phase 14 at 32 x 32: 31 frames (19 windows in chunks of 8, the last
+    # shifted back) and 20 (8 windows, one chunk), 2 steps, a 2-step
+    # predict; 14b-fp32 on 23 frames (11 windows in 3 chunks of 4); the
+    # net in fp32 throughout
+    p14 = chip_smoke.phase14_host_stream(snap, cpu, res=32, hours=(31, 20), batch=8, steps=(2, 2), exact=(23, 4),
+                                         predict_steps=2, compute_dtype=torch.float32)
+    out = {"p14": chip_smoke.phase14_summary(p14),
+           **{k: p14[k] for k in ("14a", "14b", "14b-fp32", "14c", "14d", "14e")}}
 elif mode == "modes":
     # phase 9 with 4 steps in 9a and 9b, and the year config above a
     # threshold lowered to 16 frames for 31 hours in 9c
@@ -361,6 +372,35 @@ def test_store_and_figures_phase_needs_only_stdlib_torch_numpy(tmp_path):
     assert all(k["finite"] and k["shapes_ok"] for k in d["kinds"].values()) and len(d["kinds"]) == 10
     assert "matplotlib" in d["refusal"] and not d["figures_dir_written"]
     assert e["total"] == e["snapshot_params"] and 72.0e6 < e["total"] < 72.2e6
+
+
+def test_host_stream_phase_needs_only_stdlib_torch_numpy(tmp_path):
+    """Phase 14 on the CPU with the tiny snapshot, with jax, h5py, scipy and
+    the rest unimportable: the host tier's eps equal to the device path's bit
+    for bit and the off-by-one chunk caught, its DPM-Solver++(2M) sample
+    within JAX's bar of the long path's and both planted faults outside it,
+    the seeded SDE run reproducible, PC finite, and ``experiment predict``
+    under ``host_streaming`` writing finite samples."""
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "stream", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=600, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    assert "climate2weather_tpu_torch.diffusion.host_stream" in out["modules"]
+    a, b, x, c, d, e = (out[k] for k in ("14a", "14b", "14b-fp32", "14c", "14d", "14e"))
+    assert a["bits_equal"] and a["fault_max_abs_diff"] > 0 and a["chunks"] == 3
+    assert a["attention_launches"] == a["expected_launches"] == 0  # no kernel on the CPU
+    assert b["finite"] and b["evals"] == 3
+    assert x["finite"] and x["max_abs_diff"] <= x["limit"] and x["chunks"] == 3
+    assert x["fault_second_order_dropped"] > x["limit"] and x["fault_guidance_sign_flipped"] > x["limit"]
+    assert b["peak_host_tier"] is None and d["peak_long"] is None  # device memory is the card's
+    assert c["sde_equal"] and c["sde_finite"] and c["pc_finite"] and c["L"] == 20
+    assert e["finite"] and "gen_sample_001.nc" in e["outputs"] and "observation.nc" in e["outputs"]
 
 
 # what no module of the port, nor chip_smoke.py and the pickle writer it

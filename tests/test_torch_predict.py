@@ -93,10 +93,12 @@ def _jax_draws(cfg):
     steps = int(cfg["num_sampling_steps"])
     n_draws = steps * int(cfg.get("num_corrections", 2)) if kind == "pc" else (
         steps if cfg.get("sde_eta", 0) else 0)
+    if cfg.get("host_streaming"):  # the host tier's numpy draws are the same numbers on both sides
+        n_draws = 0
     noises, zs = [], []
     for sid in range(int(cfg["num_samples"])):
         nk, sk = jax.random.split(jax.random.PRNGKey(derive_seed(int(cfg["seed"]), "sample", sid)))
-        if L > int(cfg.get("long_trajectory_threshold", 512)):
+        if L > int(cfg.get("long_trajectory_threshold", 512)) and not cfg.get("host_streaming"):
             # the long path: NCHW noise, and each step's z drawn per frame
             # chunk with fold_in (one chunk of 256 frames covers L)
             noises.append(np.moveaxis(np.asarray(jax.random.normal(nk, (L, C, HW, HW), jnp.float32)), 1, 3))
@@ -161,6 +163,14 @@ CASES = {
     "long_exact_dpmpp3m": ("s16_t6_spectral.yml", dict(num_samples=1, ensemble_batch=1, num_sampling_steps=24,
                                                        long_trajectory_threshold=8, sampler_kind="dpmpp3m",
                                                        sde_eta=0.0, use_exact_grad=True)),
+    # the host-streaming tier, one sample at a time whatever ensemble_batch
+    # says, the per-step draws numpy's on both sides: DPM-Solver++(2M) SDE
+    # with the final denoise (no calibration or projection, which the tier
+    # refuses), and PC with a corrector step
+    "stream_dpmpp2m": ("s16_t6_spectral.yml", dict(num_samples=2, ensemble_batch=2, num_sampling_steps=16,
+                                                   host_streaming=True, t0_project="", spectral_calibrate="")),
+    "stream_pc": ("s16_t6.yml", dict(num_samples=2, ensemble_batch=2, num_sampling_steps=4, num_corrections=1,
+                                     host_streaming=True)),
 }
 
 
@@ -237,14 +247,43 @@ def test_experiment_cli_runs_predict(inputs, tmp_path):
 
 def test_run_refuses_unported_settings_before_sampling(inputs, tmp_path):
     tmp, snap, paths = inputs
-    # what the JAX package refuses too, and the host-streaming sampler
+    # what the JAX package refuses too (the host-streaming tier's refusals
+    # are the cases of the test below)
     for name, over, error in (
             ("dpmpp3m", {"sampler_kind": "dpmpp3m", "sde_eta": 0.3}, ValueError),
             ("exact", {"use_exact_grad": True, "guidance_prolong": "bilinear"}, ValueError),
             ("long", {"long_trajectory_threshold": 4, "use_exact_grad": True, "guidance_prolong": True},
-             ValueError),
-            ("stream", {"host_streaming": True}, NotImplementedError)):
+             ValueError)):
         config_path, _ = _config(tmp_path, snap, paths, name, "s16_t6_spectral.yml", **over)
         with pytest.raises(error):
             downscaling.run(str(tmp_path / name), str(config_path), device="cpu")
         assert not list((tmp_path / name).glob("*/gen_sample_*.nc"))
+
+
+# What the host-streaming tier refuses, one setting at a time on a config it
+# otherwise runs: the samplers other than pc and dpmpp2m, the calibration,
+# the projection and guidance_off as JAX does before sampling, and exact,
+# prolonged and annealed guidance, which JAX asserts against inside its
+# sample loop (ROADMAP reference caveat 7)
+STREAM_REFUSALS = {
+    "sampler_kind": {"sampler_kind": "dpmpp3m", "sde_eta": 0.0},
+    "t0_project": {"t0_project": "spectral"},
+    "guidance_off": {"guidance_off": True},
+    "spectral_calibrate": {"spectral_calibrate": "train"},
+    "use_exact_grad": {"use_exact_grad": True},
+    "guidance_prolong": {"guidance_prolong": "bilinear"},
+    "guidance_anneal": {"guidance_anneal": 0.5},
+}
+
+
+@pytest.mark.parametrize("key", sorted(STREAM_REFUSALS))
+def test_run_refuses_host_streaming_settings_before_any_output(inputs, tmp_path, key):
+    tmp, snap, paths = inputs
+    over = {"host_streaming": True, "t0_project": "", "spectral_calibrate": "", "num_sampling_steps": 2,
+            **STREAM_REFUSALS[key]}
+    if over["spectral_calibrate"]:
+        over["spectral_calibrate"] = paths["train"]
+    config_path, _ = _config(tmp_path, snap, paths, key, "s16_t6_spectral.yml", **over)
+    with pytest.raises(ValueError, match="host_streaming implements" if key == "sampler_kind" else key):
+        downscaling.run(str(tmp_path / key), str(config_path), device="cpu")
+    assert not list((tmp_path / key).glob("*/*.nc"))

@@ -44,3 +44,14 @@ def test_profile_vjp_rehearsal_on_cpu(capsys):
     for ln in lines:
         assert ln["device"] == "cpu" and ln["forward_s"] > 0 and ln["vjp_s"] > 0
         assert ln["vjp_peak_bytes_over_base"] is None  # a device number, not measured on the CPU
+
+
+def test_profile_host_stream_rehearsal_on_cpu(capsys):
+    from climate2weather_tpu_torch.exp import profile_host_stream
+
+    profile_host_stream.main(["--device", "cpu", "--res", "32", "--hours", "16", "--batch", "2", "--reps", "1"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()[-3:]]
+    assert [ln.get("slots") for ln in lines] == [2, 1, None]
+    for ln in lines[:2]:
+        assert ln["device"] == "cpu" and ln["chunks"] == 2 and len(ln["eval_s"]) == 1 and ln["eval_s_mean"] > 0
+    assert lines[2]["bits_equal"] and lines[2]["spread_s"] >= 0
