@@ -58,8 +58,9 @@ Numbered phases, each printing one JSON line with its seconds:
    49-hour 128 x 128 grid, its quantiles, a training file and a coarse
    observation grid with the port's writers, then runs
    ``exp/downscaling.run`` on copies of ``s16_t6_spectral.yml`` and
-   ``s16_t6.yml`` (3 samples each) and on the external-observation and
-   ``guidance_off`` modes (8 steps), reading every ``.nc`` back: finite,
+   ``s16_t6.yml`` (3 samples each, the PC run cut to 64 steps) and on the
+   external-observation and ``guidance_off`` modes (8 steps), reading every
+   ``.nc`` back: finite,
    A(x) = y where the config projects, 6 attention launches per forward;
 7. the canonical training drive, ``python -m climate2weather_tpu_torch.train``
    with ``configs/tiny_unet.yml`` at 32 x 32 (attention over 256 tokens,
@@ -67,8 +68,9 @@ Numbered phases, each printing one JSON line with its seconds:
    and one step's attention launches against the plain versions;
 8. the year path, h5py unimportable: (8a) ``exp/downscaling.run`` on
    ``exp/configs/001_clim-downscaling/year2014_meso128_winning.yml`` cut to
-   523 hours (above the long path's 512) and one sample, from files the port
-   wrote: the long path taken, a finite sample, A(x) = y, the resume file
+   523 hours (above the long path's 512), 32 steps and one sample, from
+   files the port wrote: the long path taken, a finite sample, A(x) = y, the
+   resume file
    written every 2 calls of 8 steps and removed, 6 attention launches per
    UNet forward, with sampling, I/O and peak memory; (8b) the long
    DPM-Solver++(2M) at 523 frames for 16 steps, crashed in its second call
@@ -90,7 +92,7 @@ Numbered phases, each printing one JSON line with its seconds:
    ``sampler_kind: dpmpp3m`` (16 steps) and ``guidance_prolong: bilinear``
    (8 steps), checked as phase 6; (9c) the year config at 523 frames:
    DPM-Solver++(3M) crashed in its second call and resumed, bit for bit,
-   then exact guidance for 2 steps and the final denoise at chunks of 128
+   then exact guidance for 1 step and the final denoise at chunks of 128
    windows; (9d) ``experiment hparam-sweep`` with 2 trials (8 steps): two
    numbered directories of finite samples; (9e) ``exp/fidelity.run`` with
    ``skip_figures`` (3 guided, 8 unconditional samples, 8 steps):
@@ -122,11 +124,24 @@ Numbered phases, each printing one JSON line with its seconds:
    ``s16_t6_spectral.yml`` cut to 6 samples (3 a rank, one group each) and 8
    steps, on 2 ranks over gloo and in this process: the six samples equal
    file for file, ``ground_truth.nc`` and ``observation.nc`` written by rank
-   0 alone, A(x) = y, 6 attention launches per UNet forward on each rank.
+   0 alone, A(x) = y, 6 attention launches per UNet forward on each rank;
+   (10e, 10c beside its ranks) one sample split over the 2 ranks of one
+   sample group, each rank evaluating its share of every evaluation's
+   windows, against the same run in this process: the year config at 523
+   hours and 2 steps through ``experiment predict`` (4 chunks of 128
+   windows, 2 dealt to a rank) equal bit for bit, launches 36 + 36 against
+   72; ``s16_t6_spectral.yml`` at 49 hours and 2 steps (37 windows cut 19 /
+   18) and with exact guidance at 19 hours and 2 steps (7 cut 4 / 3,
+   forward and VJP), the net in fp32, within 5e-3 of the one-process
+   sample's standard deviation, each rank's launches the one-process count
+   and the windows split; rank 0 alone writing; planted on rank 1, windows
+   shifted by one (bits broken, the limit exceeded) and a kept share (both
+   ranks raise the group's disagreement error).
    Its line: step ms of the plain, world-of-one and 2-rank runs (two ranks
    time-slice the card, beside 10d: no production number) and each start's
    seconds to its first step, the ranks' peak memory, 10c's seconds on 2
-   ranks and in one process, 10d's seconds to detect and to recover.
+   ranks and in one process, 10d's seconds to detect and to recover, 10e's
+   readings against their limits and its seconds on 2 ranks.
 
 11. the offline data layer on the card's host, with jax, flax, optax, h5py,
    scipy, click, netCDF4, xarray and the JAX package unimportable in this
@@ -242,7 +257,7 @@ There is no CPU mode: without a card the script exits non-zero at once.
 phases 0, 1 and 11, ``--model-only`` phases 0, 1 and 12, ``--store-only``
 phases 0, 1 and 13 (13d then compares 13c's directory with itself),
 ``--host-stream-only`` phases 0, 1 and 14 (no device line in any). ``--child ...`` is one process of phase 10 (``child_step``,
-``child_cli``), not for use by hand.
+``child_cli``, ``child_split``), not for use by hand.
 """
 
 from __future__ import annotations
@@ -1259,10 +1274,11 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
 
 PREDICT_CONFIGS = REPO / "exp" / "configs" / "000_on-model-eval"
 # (name of the run, config it copies, overrides): the confirmed dpmpp2m
-# setting, PC at 256 steps, the external observation and guidance off
+# setting, PC cut from its 256 steps to 64, the external observation and
+# guidance off
 PREDICT_RUNS = (
     ("s16_t6_spectral", "s16_t6_spectral.yml", {"num_samples": 3}),
-    ("s16_t6", "s16_t6.yml", {"num_samples": 3}),
+    ("s16_t6", "s16_t6.yml", {"num_samples": 3, "num_sampling_steps": 64}),
     ("external_observation", "s16_t6_spectral.yml",
      {"num_samples": 3, "num_sampling_steps": 8, "observation_path": "obs"}),
     ("guidance_off", "s16_t6_spectral.yml",
@@ -1503,6 +1519,7 @@ def phase7_tiny_training(device, seed=0, steps=4) -> dict:
 
 YEAR_CONFIG = REPO / "exp" / "configs" / "001_clim-downscaling" / "year2014_meso128_winning.yml"
 YEAR_HOURS = 523  # 6 * 87 + 1: above the long path's threshold of 512 frames
+YEAR_STEPS = 32  # 8a's steps, cut from the config's 64: 4 calls of 8, a resume file after the second
 BF16_HOURS = 4003  # above the 4000 frames where DPM-Solver++(2M)'s trajectory goes bf16
 FULL_YEAR_HOURS = 8737
 # trajectory-sized buffers live at the peak of a DPM-Solver++(2M) step on the
@@ -1767,7 +1784,8 @@ def phase8_year(snapshot_dir, device, res=128, hours=YEAR_HOURS, bf16_hours=BF16
     sys.modules["h5py"] = None  # the port reads and writes HDF5 without it
     root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-year-"))
     try:
-        a = phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides)
+        a = phase8a_predict(root, snapshot_dir, device, res, hours, seed,
+                            {"num_sampling_steps": YEAR_STEPS, **(overrides or {})})
         gt = _normed(open_grid(str(a["out_dir"] / "ground_truth.nc")), a["cfg"], a["paths"]["quantiles"])
         net, snap_cfg = load_net(str(snapshot_dir), device)
         b = phase8b_resume(root, net, snap_cfg, a["cfg"], gt, device, steps=resume_steps, seed=seed)
@@ -1968,7 +1986,7 @@ def phase9c_long(root, snapshot_dir, device, res=128, hours=YEAR_HOURS, seed=0, 
                  overrides=None) -> dict:
     """The year path at ``hours`` frames on the year config: DPM-Solver++(3M)
     crashed in its second call and resumed (phase 8b at ``order=3``), then
-    ``sample_arrays`` with exact guidance for 2 steps and the final denoise
+    ``sample_arrays`` with exact guidance for 1 step and the final denoise
     at the config's chunks of 128 windows: finite, A(x) = y, the attention
     launches of both passes, peak memory."""
     from climate2weather_tpu_torch.diffusion.guidance import SpatioTemporalCoarsening
@@ -1986,11 +2004,11 @@ def phase9c_long(root, snapshot_dir, device, res=128, hours=YEAR_HOURS, seed=0, 
     net, snap_cfg = load_net(str(snapshot_dir), device)
     resume = phase8b_resume(root, net, snap_cfg, cfg, gt, device, steps=resume_steps, seed=seed, order=3,
                             label="9c_resume")
-    cfg.update(use_exact_grad=True, num_sampling_steps=2)
+    cfg.update(use_exact_grad=True, num_sampling_steps=1)
     n_win = hours - window + 1
     per_call = min(n_win, int(cfg["batch_size"]))
     chunks = -(-n_win // per_call)
-    want_fwd, want_bwd = _exact_launches(_attention_blocks(snap_cfg["network_kwargs"]), 3, chunks, per_call,
+    want_fwd, want_bwd = _exact_launches(_attention_blocks(snap_cfg["network_kwargs"]), 2, chunks, per_call,
                                          device)
     for k in launch_counts:
         launch_counts[k] = 0
@@ -2147,11 +2165,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_processes(cmds, envs, timeout=CHILD_TIMEOUT, label="") -> tuple:
+def _run_processes(cmds, envs, timeout=CHILD_TIMEOUT, label="", beside=None) -> tuple:
     """Run the commands together to their end; each must exit 0 within
     ``timeout`` seconds. A failing one ends the rest at once (a rank that
-    raised must not leave its peers waiting). Returns (outputs, seconds,
-    each process's seconds to its first ``Status:`` line or None)."""
+    raised must not leave its peers waiting). ``beside``, a callable, runs
+    in this process meanwhile (what it raises ends them too). Returns
+    (outputs, seconds, each process's seconds to its first ``Status:`` line
+    or None)."""
     import signal
 
     t0 = time.time()
@@ -2161,6 +2181,8 @@ def _run_processes(cmds, envs, timeout=CHILD_TIMEOUT, label="") -> tuple:
     readers = [_pump(p.stdout, out) for p, out in zip(procs, outs)]
     deadline = time.monotonic() + timeout
     try:
+        if beside is not None:
+            beside()
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
                 break
@@ -2516,16 +2538,16 @@ def phase10b_two_ranks(root, data_path, device, model_config, res, seed) -> dict
     return rec
 
 
-def phase10c_striped(root, snapshot_dir, device, res, hours, seed, steps=8) -> dict:
-    """``experiment predict`` on phase 6's files with ``s16_t6_spectral.yml``
-    cut to 6 samples (3 a rank, one group each) and ``steps`` steps, on 2
-    ranks over gloo and in this process: the samples equal bit for bit, the
-    shared files written once, by rank 0, A(x) = y under phase 4's limit."""
+def phase10c_striped(root, paths, snapshot_dir, device, hours, seed, steps=8) -> dict:
+    """``experiment predict`` on phase 6's files ``paths`` with
+    ``s16_t6_spectral.yml`` cut to 6 samples (3 a rank, one group each) and
+    ``steps`` steps, on 2 ranks over gloo and in this process: the samples
+    equal bit for bit, the shared files written once, by rank 0, A(x) = y
+    under phase 4's limit."""
     from climate2weather_tpu_torch.data.grid import open_grid
     from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
 
     t0 = time.time()
-    paths = write_predict_inputs(root, res, hours, seed)
     cfg = yaml_load_file(CONFIG)
     cfg.update(model_path=str(snapshot_dir), data_path=paths["data"], quantile_path=paths["quantiles"],
                observation_path=paths["data"], spectral_calibrate=paths["train"], num_samples=6,
@@ -2581,6 +2603,245 @@ def phase10c_striped(root, snapshot_dir, device, res, hours, seed, steps=8) -> d
         raise AssertionError(f"A(x) != y in the striped samples: {consistency} > {tol}")
     if any(r["launches"]["attention_fwd"] != expect for r in ranks):
         raise AssertionError(f"attention launches per rank {rec['launches_per_rank']}, want {expect}")
+    return rec
+
+
+# phase 10e: one sample's window evaluations split over the two ranks of one
+# sample group. The year path: 511 windows in 4 chunks of 128, 2 dealt to a
+# rank (each forward the one-process batch: bits), 2 steps. The short path:
+# 37 windows of one member in one chunk of up to 64, cut into 19 and 18, 2
+# steps. Exact guidance: 7 windows (19 hours) in one chunk, cut into 4 and
+# 3, forward and VJP, 2 steps.
+SPLIT_YEAR = (YEAR_HOURS, 2)  # hours, steps
+SPLIT_SHORT = (49, 2, 64)  # hours, steps, batch_size
+SPLIT_EXACT = (19, 2, 64)
+# the short and exact splits change the batches (and the VJP's sums): their
+# samples are held to JAX's host-against-device bar (phase 14b-fp32), 5e-3
+# of the one-process sample's standard deviation, with the net in fp32 (in
+# bf16 the COSMO guidance's gain grows the batches' one-ulp differences to
+# 0.05-0.12 of it on an NVIDIA H100)
+SPLIT_LIMIT = 5e-3
+
+
+def _split_fault(kind, rank: int):
+    """Plant ``kind`` on rank 1 and return its undo: ``shift``, the rank's
+    windows one later (the first of each of its ranges never evaluated: the
+    group's sum consistent on both ranks and wrong); ``own``, the rank sums a
+    copy and keeps its own share (it still joins every collective; the
+    ranks' trajectories part)."""
+    from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+    from climate2weather_tpu_torch.parallel import mesh
+
+    if kind is None or rank != 1:
+        return lambda: None
+    if kind == "shift":
+        real_work = WindowScoreFn._work
+
+        def shifted(self, n_chunks, N):
+            return [(ci, min(a + 1, N), min(b + 1, N)) for ci, a, b in real_work(self, n_chunks, N)]
+
+        WindowScoreFn._work = shifted
+        return lambda: setattr(WindowScoreFn, "_work", real_work)
+    real_reduce = mesh.SampleGroups.all_reduce
+
+    def keep_own(self, tensor):
+        real_reduce(self, tensor.clone())
+
+    mesh.SampleGroups.all_reduce = keep_own
+    return lambda: setattr(mesh.SampleGroups, "all_reduce", real_reduce)
+
+
+def _split_job(job: dict, device, rank: int) -> dict:
+    """One predict of phase 10e in this process: ``experiment.main`` where
+    ``job["cli"]``, else ``exp/downscaling.run`` with the net in
+    ``job["dtype"]``; the job's fault planted on rank 1 (``own`` must end in
+    the group's disagreement error, which is recorded). Returns the seconds,
+    attention launches, windows through the net (forwards under grad
+    included) and grid files written."""
+    from climate2weather_tpu_torch import experiment
+    from climate2weather_tpu_torch.data.grid import GridDataset
+    from climate2weather_tpu_torch.exp import downscaling
+    from climate2weather_tpu_torch.ops import attention
+
+    windows, writes = [0], []
+    real_load, real_to_file = downscaling.load_net, GridDataset.to_file
+
+    def counting_load(*args, **kwargs):
+        net, snap_cfg = real_load(*args, **kwargs)
+        net.register_forward_pre_hook(lambda mod, inputs: windows.__setitem__(0, windows[0] + len(inputs[0])))
+        return net, snap_cfg
+
+    def recording_to_file(self, path, *args, **kwargs):
+        writes.append(os.path.basename(str(path)))
+        return real_to_file(self, path, *args, **kwargs)
+
+    downscaling.load_net, GridDataset.to_file = counting_load, recording_to_file
+    undo = _split_fault(job["fault"], rank)
+    for k in attention.launch_counts:
+        attention.launch_counts[k] = 0
+    t0, error = time.time(), None
+    try:
+        if job["cli"]:
+            experiment.main(["predict", "--save-path", job["save"], "--config-path", job["config"],
+                             "--device", device.type, "--dist-backend", "gloo"])
+        else:
+            downscaling.run(job["save"], job["config"], device=device, compute_dtype=getattr(torch, job["dtype"]))
+    except RuntimeError as e:
+        if job["fault"] != "own":
+            raise
+        error = str(e)
+    finally:
+        undo()
+        downscaling.load_net, GridDataset.to_file = real_load, real_to_file
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"name": job["name"], "seconds": time.time() - t0, "launches": dict(attention.launch_counts),
+            "windows": windows[0], "writes": writes, "error": error}
+
+
+def child_split(argv) -> dict:
+    """``--child split SPEC``: one rank of phase 10e. The process group from
+    torchrun's environment (gloo), then each job of the JSON file ``SPEC``
+    in order, once its config exists (the last through ``experiment.main``,
+    which ends the group); returns each job's record and the rank's peak
+    device memory."""
+    from climate2weather_tpu_torch.parallel import mesh
+
+    spec = json.loads(pathlib.Path(argv[0]).read_text())
+    rank = int(os.environ["RANK"])
+    device = mesh.maybe_init_distributed(spec["device"], "gloo")
+    jobs = []
+    for job in spec["jobs"]:
+        deadline = time.monotonic() + CHILD_TIMEOUT
+        while not os.path.exists(job["config"]):  # the year's is written while the ranks run
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no config {job['config']}")
+            time.sleep(0.1)
+        jobs.append(_split_job(dict(job, save=job["save"] + "_ranks"), device, rank))
+    cuda = device.type == "cuda"
+    return {"rank": rank, "jobs": jobs, "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+
+
+def _split_sample(out_dir: pathlib.Path, cfg: dict, quantiles) -> np.ndarray:
+    from climate2weather_tpu_torch.data.grid import open_grid
+
+    return _normed(open_grid(str(out_dir / "gen_sample_000.nc")), cfg, quantiles)
+
+
+def phase10e_split(root, paths, snapshot_dir, device, res, seed, year=SPLIT_YEAR, short=SPLIT_SHORT,
+                   exact=SPLIT_EXACT, year_overrides=None, beside=None) -> dict:
+    """One sample of ``experiment predict`` split over 2 ranks of one sample
+    group (gloo, both on the card) against the same run in this process
+    (which runs beside the ranks, after ``beside``, a callable, if given):
+    the year config at ``year`` (hours, steps; ``year_overrides`` cut it
+    further) through ``experiment.main``, its sample equal bit for bit;
+    ``s16_t6_spectral.yml`` at ``short`` and with exact guidance at
+    ``exact`` (hours, steps, batch_size; phase 6's files ``paths``), the net
+    in fp32, each sample within ``SPLIT_LIMIT`` of the one-process
+    sample's standard deviation. Planted on rank 1: the shifted windows
+    (year, short, exact), which must break the bits or exceed the limit, and
+    the kept share (short, the net in bf16), which the group must catch. The
+    ranks' attention launches and windows sum to the one-process counts,
+    and rank 0 alone writes."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+
+    t0 = time.time()
+    cfgs = {}
+    for name, (hours, steps, batch), extra in (("short", short, {}), ("exact", exact, {"use_exact_grad": True})):
+        cfg = yaml_load_file(CONFIG)
+        cfg.update(model_path=str(snapshot_dir), data_path=paths["data"], quantile_path=paths["quantiles"],
+                   observation_path=paths["data"], spectral_calibrate=paths["train"], num_hours=hours,
+                   num_samples=1, num_sampling_steps=steps, batch_size=batch, seed=seed)
+        cfgs[name] = {**cfg, **extra}
+        yaml_dump_file(cfgs[name], root / f"split_{name}.yml")
+    bases = {"short": "short", "short_shift": "short", "short_own": "short", "exact": "exact",
+             "exact_shift": "exact", "year_shift": "year", "year": "year"}
+    jobs = [{"name": name, "config": str(root / f"split_{base}.yml"), "fault": name.partition("_")[2] or None,
+             "dtype": "bfloat16" if name in ("year", "year_shift", "short_own") else "float32", "cli": name == "year",
+             "save": str(root / f"e_{name}")} for name, base in bases.items()]
+    spec_path = root / "split.json"
+    spec_path.write_text(json.dumps({"device": device.type, "jobs": jobs}))
+    one, year_paths = {}, {}
+    threads = torch.get_num_threads()
+
+    def meanwhile():
+        # the year's inputs, then its config (the ranks wait for a job's
+        # config: they reach the year's last); ``beside``; the references
+        (root / "e_year").mkdir()
+        year_paths.update(write_predict_inputs(root / "e_year", res, year[0], seed, start="2014-01-01T00"))
+        cfgs["year"] = _year_config(snapshot_dir, year_paths, year[0],
+                                    {"num_sampling_steps": year[1], "seed": seed, **(year_overrides or {})})
+        yaml_dump_file(cfgs["year"], root / "split_year.tmp")
+        os.replace(root / "split_year.tmp", root / "split_year.yml")
+        if beside is not None:
+            beside()
+        if device.type == "cpu":  # the ranks' thread count (_child_env): CPU sums depend on it
+            torch.set_num_threads(max(1, threads // 2))
+        try:
+            for job in jobs:
+                if job["fault"] is None:
+                    one[job["name"]] = _split_job(dict(job, save=job["save"] + "_one"), device, 0)
+        finally:
+            torch.set_num_threads(threads)
+
+    port = _free_port()
+    outs, ranks_s, _ = _run_processes([[sys.executable, str(REPO / "chip_smoke.py"), "--child", "split",
+                                        str(spec_path)]] * 2, [_child_env(device, r, 2, port) for r in range(2)],
+                                      label="10e ranks", beside=meanwhile)
+    ranks = [_child_result(o) for o in outs]
+    by = [{j["name"]: j for j in r["jobs"]} for r in ranks]
+    out_dir = lambda name, who: root / f"e_{name}_{who}" / f"001_split_{bases[name]}"  # noqa: E731
+    q = {"year": year_paths["quantiles"]}
+    rec = {"wall_s_two_ranks": ranks_s, "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks], "limit": SPLIT_LIMIT,
+           "jobs": {}}
+    for name in ("year", "short", "exact"):
+        cfg, quant = cfgs[name], q.get(name, paths["quantiles"])
+        grid = open_grid(str(out_dir(name, "ranks") / "gen_sample_000.nc"))
+        want = _split_sample(out_dir(name, "one"), cfg, quant)
+        got = _normed(grid, cfg, quant)
+        bad = _split_sample(out_dir(f"{name}_shift", "ranks"), cfg, quant)
+        std = float(want.std())
+        job = {"bits_equal": (out_dir(name, "ranks") / "gen_sample_000.nc").read_bytes()
+               == (out_dir(name, "one") / "gen_sample_000.nc").read_bytes(),
+               "finite": bool(np.isfinite(got).all()), "max_abs_diff": float(np.abs(got - want).max()),
+               "std": std, "fault_shift_max_abs_diff": float(np.abs(bad - want).max()),
+               "fault_shift_bits_equal": (out_dir(f"{name}_shift", "ranks") / "gen_sample_000.nc").read_bytes()
+               == (out_dir(name, "one") / "gen_sample_000.nc").read_bytes(),
+               "seconds_two_ranks": [b[name]["seconds"] for b in by], "seconds_one": one[name]["seconds"],
+               "launches_per_rank": [b[name]["launches"] for b in by], "launches_one": one[name]["launches"],
+               "windows_per_rank": [b[name]["windows"] for b in by], "windows_one": one[name]["windows"],
+               "writes": [b[name]["writes"] for b in by]}
+        job["diff_in_std"] = job["max_abs_diff"] / std
+        job["fault_shift_in_std"] = job["fault_shift_max_abs_diff"] / std
+        if cfg.get("t0_project"):
+            job["A_x_minus_y_max"], job["A_tol"] = _written_consistency(out_dir(name, "ranks"), [grid], cfg, quant)
+        rec["jobs"][name] = job
+    rec["fault_own_errors"] = [b["short_own"]["error"] for b in by]
+    emit("10e", t0, **rec)
+    for name, job in rec["jobs"].items():
+        if not job["finite"] or job.get("A_x_minus_y_max", 0.0) > job.get("A_tol", 0.0):
+            raise AssertionError(f"10e {name}: the split sample is not finite or misses A(x) = y: {job}")
+        if name == "year":
+            if not job["bits_equal"] or job["fault_shift_bits_equal"]:
+                raise AssertionError(f"10e year: the split sample must equal the one-process sample bit for bit, "
+                                     f"and the shifted windows must not: {job}")
+        elif not job["diff_in_std"] <= SPLIT_LIMIT < job["fault_shift_in_std"]:
+            raise AssertionError(f"10e {name}: the split sample must lie within {SPLIT_LIMIT} std of the "
+                                 f"one-process sample and the shifted windows beyond: {job}")
+        summed = lambda key: {k: sum(lr[k] for lr in job[key]) for k in job[key][0]}  # noqa: E731
+        split_chunks = name == "year"  # whole chunks dealt: the launches split too
+        if split_chunks and summed("launches_per_rank") != job["launches_one"] or \
+                not split_chunks and any(lr != job["launches_one"] for lr in job["launches_per_rank"]):
+            raise AssertionError(f"10e {name}: attention launches per rank {job['launches_per_rank']} against "
+                                 f"{job['launches_one']} in one process")
+        if sum(job["windows_per_rank"]) != job["windows_one"] or min(job["windows_per_rank"]) == 0:
+            raise AssertionError(f"10e {name}: windows per rank {job['windows_per_rank']} do not split "
+                                 f"{job['windows_one']}")
+        if job["writes"] != [["ground_truth.nc", "observation.nc", "gen_sample_000.nc"], []]:
+            raise AssertionError(f"10e {name}: rank 0 must write every file alone: {job['writes']}")
+    if not all(e and "disagree" in e for e in rec["fault_own_errors"]):
+        raise AssertionError(f"10e: a rank keeping its own share went unseen: {rec['fault_own_errors']}")
     return rec
 
 
@@ -2658,8 +2919,8 @@ def phase10_summary(ranks: dict) -> dict:
     """Phase 10's line: step ms of the plain, world-of-one and 2-rank runs
     (2 ranks time-slice one card: no production number), the ranks' peak
     memory, 10c's wall time on 2 ranks against one process, 10d's time to
-    detect the stall and to recover."""
-    a, b, c, d = (ranks[k] for k in ("10a", "10b", "10c", "10d"))
+    detect the stall and to recover, 10e's readings against their limits."""
+    a, b, c, d, e = (ranks[k] for k in ("10a", "10b", "10c", "10d", "10e"))
     return {"step_ms_plain": a["plain_step_ms_median"], "step_ms_world_one": a["launched_step_ms_median"],
             "to_first_status_s_plain": a["plain_to_first_status_s"],
             "to_first_status_s_world_one": a["launched_to_first_status_s"],
@@ -2667,16 +2928,24 @@ def phase10_summary(ranks: dict) -> dict:
             "peak_bytes_per_rank": b["peak_bytes"], "world_one_equal": a["snapshot_equal"] and a["checkpoint_equal"],
             "predict_wall_s_two_ranks": c["ranks_wall_s"], "predict_run_s_two_ranks": c["ranks_run_s"],
             "predict_run_s_one_process": c["one_run_s"],
-            "supervisor_detect_s": d["detect_s"], "supervisor_recover_s": d["recover_s"]}
+            "supervisor_detect_s": d["detect_s"], "supervisor_recover_s": d["recover_s"],
+            "split_year_bits_equal": e["jobs"]["year"]["bits_equal"],
+            "split_year_fault_shift_max_abs_diff": e["jobs"]["year"]["fault_shift_max_abs_diff"],
+            **{f"split_{k}_{m}": e["jobs"][k][m] for k in ("short", "exact")
+               for m in ("diff_in_std", "fault_shift_in_std")},
+            "split_limit": e["limit"], "split_fault_own_caught": [bool(x) for x in e["fault_own_errors"]],
+            "split_wall_s_two_ranks": e["wall_s_two_ranks"]}
 
 
 def phase10_multi_process(snapshot_dir, device, model_config=MODEL_CONFIG, res=128, frames=140,
-                          predict_res=128, hours=49, seed=0, predict_steps=8) -> dict:
-    """Phase 10, 10a-10d (see the module docstring), in one scratch
+                          predict_res=128, hours=49, seed=0, predict_steps=8, split=None) -> dict:
+    """Phase 10, 10a-10e (see the module docstring), in one scratch
     directory, h5py unimportable in this process. 10d runs beside 10b (on a
     thread of this process; both are mostly process starts and checkpoint
     writes on the host): 10b's time-sliced step ms and 10d's seconds to
-    recover include each other's work. Returns each part's record."""
+    recover include each other's work; 10c runs while 10e's ranks do, so
+    their seconds include each other's too. ``split`` holds keyword
+    arguments of :func:`phase10e_split`. Returns each part's record."""
     import shutil
     import tempfile
     import threading
@@ -2708,14 +2977,18 @@ def phase10_multi_process(snapshot_dir, device, model_config=MODEL_CONFIG, res=1
         if "error" in beside:
             raise beside["error"]
         d = beside["d"]
-        c = phase10c_striped(root, snapshot_dir, device, predict_res, hours, seed, predict_steps)
+        paths = write_predict_inputs(root, predict_res, hours, seed)
+        c = {}  # 10c beside 10e's ranks (both are mostly process starts on the host)
+        e = phase10e_split(root, paths, snapshot_dir, device, predict_res, seed, **(split or {}),
+                           beside=lambda: c.update(phase10c_striped(root, paths, snapshot_dir, device, hours, seed,
+                                                                    predict_steps)))
         if a["plain_spread"] is not None and not d["snapshot_max_diff"] <= a["plain_spread"]:
             raise AssertionError(f"the supervised run differs from the plain run beyond two plain runs: {d}")
         if a["plain_spread"] is None and not (d["snapshot_equal"] and d["checkpoint_equal"]):
             raise AssertionError(f"the supervised run differs from the plain run: {d}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"10a": a, "10b": b, "10c": c, "10d": d}
+    return {"10a": a, "10b": b, "10c": c, "10d": d, "10e": e}
 
 
 # ---------------------------------------------------------------------------
@@ -4377,6 +4650,8 @@ def main(argv=None) -> int:
             cut = rest.index("--") if "--" in rest else len(rest)
             out = {"step_check": child_step(rest[:cut])}
             out.update(child_cli("train", rest[cut + 1:]) if cut < len(rest) else {})
+        elif argv[1] == "split":  # --child split SPEC: one rank of 10e
+            out = child_split(argv[2:])
         else:
             out = child_cli(argv[1], argv[2:])
         print(CHILD_PREFIX + json.dumps(out), flush=True)
@@ -4391,8 +4666,8 @@ def main(argv=None) -> int:
                     help="phases 0 and 1, then phase 2's attention backward checks and timings, "
                          "and stop (likewise for another checkout's backward)")
     ap.add_argument("--multi-process-only", action="store_true",
-                    help="phases 0 and 1, then phase 10 (multi-process training, striped predict, the "
-                         "supervisor), and stop (no device line)")
+                    help="phases 0 and 1, then phase 10 (multi-process training, striped and split predict, "
+                         "the supervisor), and stop (no device line)")
     ap.add_argument("--data-only", action="store_true",
                     help="phases 0 and 1, then phase 11 (the offline data layer from the netCDF-C fixtures and a "
                          "raw archive to a guided predict), and stop (no device line)")
@@ -4525,12 +4800,17 @@ def _run(args) -> int:
         "year_path_launches": modes["9c"]["attention_launches"]["attention_bwd"], **{
             k: exact_bwd[k] for k in ("shape", "max_abs_err", "ms", "graph_ms", "host_ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "library_graph_ms")}}
-    # phase 10: the launches of each rank of the 2-rank training (10b) and
-    # the striped predict (10c)
+    # phase 10: the launches of each rank of the 2-rank training (10b), the
+    # striped predict (10c) and the split samples (10e)
+    split = ranks["10e"]["jobs"]
     for name in ("attention_fwd", "attention_bwd"):
         rows[name]["multi_process"] = {
             "10b_launches_per_rank": [lr[name] for lr in ranks["10b"]["launches_per_rank"]],
-            "10c_launches_per_rank": [lr[name] for lr in ranks["10c"]["launches_per_rank"]]}
+            "10c_launches_per_rank": [lr[name] for lr in ranks["10c"]["launches_per_rank"]],
+            # 10e: one sample split over 2 ranks, against the one-process run
+            **{f"10e_{k}_launches_per_rank": [lr[name] for lr in split[k]["launches_per_rank"]]
+               for k in ("year", "short", "exact")},
+            **{f"10e_{k}_launches_one_process": split[k]["launches_one"][name] for k in ("year", "short", "exact")}}
     # phase 11: the training on the drill's file (11b) and the guided
     # predict from the debiased file (11d)
     rows["attention_fwd"]["data_path"] = {"11b_launches": data["11b"]["train_launches"]["attention_fwd"],

@@ -37,7 +37,7 @@ import torch
 
 from climate2weather_tpu_torch.diffusion import steprules
 from climate2weather_tpu_torch.diffusion.sampler import logsnr_time_grid
-from climate2weather_tpu_torch.diffusion.window import WindowScoreFn, owned_windows
+from climate2weather_tpu_torch.diffusion.window import WindowScoreFn, member_pieces, owned_windows
 from climate2weather_tpu_torch.utils.device import resolve_device
 
 
@@ -117,7 +117,8 @@ class HostStreamingScoreFn:
             t_copy = time.perf_counter()
             frames = self._upload(x, start, staging[slot])
             copy_s += time.perf_counter() - t_copy
-            o = self.eps_fn(self._windows._gather(frames[None], 0, B), t).to(torch.float32).reshape(B, H, W, w, C)
+            xw = self._windows._gather(frames[None], 0, member_pieces(0, B, B))
+            o = self.eps_fn(xw, t).to(torch.float32).reshape(B, H, W, w, C)
             # the frames this chunk gives the trajectory, one contiguous range
             parts = [o[: owned_windows(ci, n_chunks, B, n), :, :, k]]
             if k > 0 and ci == 0:

@@ -34,6 +34,14 @@ calls: the trajectory buffers, the step index, the multistep carry and the
 noise generator's state, so that a resumed run equals an uninterrupted one.
 The file is removed when the run ends.
 
+With a score function split over a sample group (``score.group``, see
+``diffusion/window.py``) every rank of the group runs the whole sampler on
+the whole trajectory, its own share of each window pass summed over the
+group, so all hold the same state: between calls the group checks that they
+do (``SampleGroups.check_agree``, which raises on every rank at once)
+before the NaN flag decides to stop; the group's leader alone reads and
+writes the resume file, and a resumed state goes from it to the others.
+
 ``sample_dpmpp2m_long(order=3)`` is DPM-Solver++(3M), with one more
 trajectory buffer (the second-previous x0 prediction) and one more carry
 (the step before the previous one's h), both in the resume file.
@@ -187,17 +195,41 @@ def _load_carry(path: str, init: dict, digest: str, rng: Optional[torch.Generato
         return init, 0
 
 
+def _share_carry(group, state: dict, step: int, rng: Optional[torch.Generator]):
+    """The group leader's ``(state, step)`` and generator state on every rank
+    of ``group``, broadcast through the group's device in the order of the
+    names (a loaded state and the initial one list them differently)."""
+    def shared(t: torch.Tensor) -> torch.Tensor:
+        buf = t.detach().to(group.device, copy=True)
+        group.broadcast(buf)
+        return buf.to(t.device)
+
+    state = {name: shared(state[name]) for name in sorted(state)}
+    step = int(shared(torch.tensor(step, dtype=torch.int64)))
+    if rng is not None:
+        rng.set_state(shared(rng.get_state()))
+    return state, step
+
+
 def _stepwise_drive(step, state: dict, n_steps: int, steps_per_call: Optional[int], verbose: bool,
-                    ckpt=None, rng: Optional[torch.Generator] = None) -> dict:
+                    ckpt=None, rng: Optional[torch.Generator] = None, group=None) -> dict:
     """Run ``state = step(state, i)`` for i < ``n_steps`` in calls of
     ``steps_per_call`` steps (all at once when None). Between calls the NaN
     flag is read and a flagged run stops; with ``ckpt = (path, every,
     digest)`` the state is resumed from ``path`` when the file fits, written
-    there every ``every`` calls but after the last, and removed at the end."""
+    there every ``every`` calls but after the last, and removed at the end.
+    With a sample ``group`` of several ranks the ranks' states are checked
+    to agree after every call, and only the group's leader touches
+    ``path``: the others take the state it resumed."""
+    split = group is not None and group.size > 1
+    writer = not split or group.leader
     i = calls = 0
     if ckpt is not None:
         path, every, digest = ckpt
-        state, i = _load_carry(path, state, digest, rng)
+        if writer:
+            state, i = _load_carry(path, state, digest, rng)
+        if split:
+            state, i = _share_carry(group, state, i, rng)
         if i and verbose:
             print(f"sampling: resumed at step {i}/{n_steps}", flush=True)
     k = steps_per_call or n_steps
@@ -208,11 +240,13 @@ def _stepwise_drive(step, state: dict, n_steps: int, steps_per_call: Optional[in
         i, calls = j, calls + 1
         if verbose:
             print(f"sampling: step {i}/{n_steps}", flush=True)
+        if split:
+            group.check_agree(f"the sampler state after step {i}", state["x"], state["nan"])
         if bool(state["nan"]):
             break
-        if ckpt is not None and i < n_steps and calls % every == 0:
+        if ckpt is not None and writer and i < n_steps and calls % every == 0:
             _save_carry(path, state, i, digest, rng)
-    if ckpt is not None and os.path.exists(ckpt[0]):
+    if ckpt is not None and writer and os.path.exists(ckpt[0]):
         os.remove(ckpt[0])
     return state
 
@@ -332,7 +366,8 @@ def sample_guided_long(
     init = {"x": noise, "nan": torch.zeros((), dtype=torch.bool, device=noise.device)}
     kind = ("pc", steps, corrections, float(tau), bool(corrector_variance_exact))
     ckpt = _resume(resume_path, resume_every, kind, score, guidance, noise, F)
-    state = _stepwise_drive(step, init, steps, steps_per_call, verbose, ckpt, rng if z is None else None)
+    state = _stepwise_drive(step, init, steps, steps_per_call, verbose, ckpt, rng if z is None else None,
+                            score.group)
     x, nan_flag = state["x"], state["nan"]
     if denoise_final:
         x = _final_denoise(score, guidance, process, x, F)
@@ -437,7 +472,7 @@ def sample_dpmpp2m_long(
     kind = ("dpm", order, float(sde_eta), steps)
     ckpt = _resume(resume_path, resume_every, kind, score, guidance, noise, F)
     state = _stepwise_drive(step, init, steps, steps_per_call, verbose, ckpt,
-                            rng if use_sde and z is None else None)
+                            rng if use_sde and z is None else None, score.group)
     x, nan_flag = state["x"], state["nan"]
     if denoise_final:
         x = _final_denoise(score, guidance, process, x, F)

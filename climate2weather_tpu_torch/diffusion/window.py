@@ -15,6 +15,18 @@ pass, for exact-gradient guidance. JAX differentiates through its scan over
 chunks (rematerialized per chunk on the long path); the port does the same
 chunk by chunk: each chunk is recomputed under grad and its cotangent
 back-propagated at once, so only one chunk's activations are ever held.
+
+With a ``group`` (the ranks of one sample group,
+:class:`~climate2weather_tpu_torch.parallel.mesh.SampleGroups`) each rank
+evaluates a share of every evaluation's windows, as JAX shards a chunk's
+window batch over its devices: whole chunks dealt round-robin where there
+are at least as many chunks as ranks (every forward then has the
+one-process batch), else every chunk's ``members x B`` windows cut into one
+contiguous range a rank. Each rank writes what it evaluated into a zeroed
+output (the centres its windows own, the edge frames where it holds the
+first or last window) and one sum over the group assembles the whole: every
+entry has one writer, so the sum is the one-process result. The VJP sums
+the ranks' frame gradients the same way.
 """
 
 from __future__ import annotations
@@ -41,6 +53,20 @@ def owned_windows(ci: int, n_chunks: int, B: int, n: int) -> int:
     if ci == n_chunks - 1:
         return B
     return min(B, n - B - ci * B)
+
+
+def member_pieces(a: int, b: int, B: int):
+    """``(member, first, end, offset)`` for each member's part of the flat
+    windows [a, b) of a chunk of ``B`` windows a member (flat index
+    ``member * B + window``): its windows [first, end) of the chunk, at
+    ``offset`` in the range."""
+    pieces, f = [], a
+    while f < b:
+        mi, lo = divmod(f, B)
+        hi = min(B, lo + b - f)
+        pieces.append((mi, lo, hi, f - a))
+        f += hi - lo
+    return pieces
 
 
 def unfold_windows(x: torch.Tensor, markov_order: int) -> torch.Tensor:
@@ -74,15 +100,18 @@ class WindowScoreFn:
     ``[*batch, L, H, W, C]`` to its composed prediction, in ``x.dtype``.
     ``chunk_size=None`` evaluates all windows at once; an integer bounds the
     windows per member in one call, the last chunk shifted back to end at the
-    final window (duplicate evaluations instead of padding).
+    final window (duplicate evaluations instead of padding). ``group``
+    splits the windows over the group's ranks (module docstring); every rank
+    of it must make the same calls on the same ``x``.
     """
 
     def __init__(self, eps_fn: Callable, markov_order: int, chunk_size: Optional[int] = None,
-                 noise_process=None):
+                 noise_process=None, group=None):
         self.eps_fn = eps_fn
         self.markov_order = int(markov_order)
         self.chunk_size = chunk_size
         self.noise_process = noise_process
+        self.group = group
 
     @property
     def window(self) -> int:
@@ -106,13 +135,31 @@ class WindowScoreFn:
         B = n if self.chunk_size is None or n <= self.chunk_size else int(self.chunk_size)
         return n, B, -(-n // B)
 
-    def _gather(self, xb: torch.Tensor, start: int, B: int) -> torch.Tensor:
-        """The windows [start, start + B) of every member of ``xb``
-        [m, L, H, W, C], as [m * B, H, W, w * C]."""
+    def _work(self, n_chunks: int, N: int):
+        """``(chunk, first, end)`` for each range of flat windows [first, end)
+        of a chunk's ``N`` (members x windows, member-major) that this rank
+        evaluates: every chunk whole without a group; with one, whole chunks
+        dealt round-robin when there are at least as many chunks as ranks,
+        else one contiguous range of every chunk a rank (empty where ``N`` is
+        smaller than the group)."""
+        if self.group is None:
+            return [(ci, 0, N) for ci in range(n_chunks)]
+        size, r = self.group.size, self.group.rank
+        if n_chunks >= size:
+            return [(ci, 0, N) for ci in range(r, n_chunks, size)]
+        return [(ci, r * N // size, (r + 1) * N // size) for ci in range(n_chunks)]
+
+    def _gather(self, xb: torch.Tensor, start: int, pieces) -> torch.Tensor:
+        """The windows of ``pieces`` (:func:`member_pieces` of a chunk that
+        starts at window ``start``) of ``xb`` [m, L, H, W, C], in order, as
+        [N, H, W, w * C]."""
         w = self.window
-        m, _, H, W, C = xb.shape
-        idx = start + torch.arange(B, device=xb.device)[:, None] + torch.arange(w, device=xb.device)[None, :]
-        return xb[:, idx].permute(0, 1, 3, 4, 2, 5).reshape(m * B, H, W, w * C)
+        _, _, H, W, C = xb.shape
+        dev = xb.device
+        members = torch.cat([torch.full((hi - lo,), mi, device=dev) for mi, lo, hi, _ in pieces])
+        first = torch.cat([torch.arange(start + lo, start + hi, device=dev) for _, lo, hi, _ in pieces])
+        frames = first[:, None] + torch.arange(w, device=dev)[None, :]
+        return xb[members[:, None], frames].permute(0, 2, 3, 1, 4).reshape(-1, H, W, w * C)
 
     def __call__(self, x: torch.Tensor, t) -> torch.Tensor:
         k, w = self.markov_order, self.window
@@ -120,16 +167,26 @@ class WindowScoreFn:
         n, B, n_chunks = self._chunks(L)
         xb = x.reshape(-1, L, H, W, C)
         m = xb.shape[0]
-        out = torch.empty_like(xb)
-        for ci in range(n_chunks):
+        # each entry is written once, by the chunk that owns it; split, the
+        # other ranks' entries stay zero for the sum
+        out = torch.empty_like(xb) if self.group is None else torch.zeros_like(xb)
+        for ci, a, b in self._work(n_chunks, m * B):
+            if a == b:
+                continue
             start = min(ci * B, n - B)
-            xw = self._gather(xb, start, B)
-            o = self.eps_fn(xw, t).to(x.dtype).reshape(m, B, H, W, w, C)
-            out[:, k + start : k + start + B] = o[:, :, :, :, k]
-            if k > 0 and ci == 0:
-                out[:, :k] = o[:, 0, :, :, :k].permute(0, 3, 1, 2, 4)
-            if k > 0 and ci == n_chunks - 1:
-                out[:, k + n :] = o[:, B - 1, :, :, w - k :].permute(0, 3, 1, 2, 4)
+            owned = owned_windows(ci, n_chunks, B, n)
+            pieces = member_pieces(a, b, B)
+            o = self.eps_fn(self._gather(xb, start, pieces), t).to(x.dtype).reshape(b - a, H, W, w, C)
+            for mi, lo, hi, off in pieces:
+                if lo < owned:
+                    end = min(hi, owned)
+                    out[mi, k + start + lo : k + start + end] = o[off : off + end - lo, :, :, k]
+                if k > 0 and ci == 0 and lo == 0:
+                    out[mi, :k] = o[off, :, :, :k].permute(2, 0, 1, 3)
+                if k > 0 and ci == n_chunks - 1 and hi == B:
+                    out[mi, k + n :] = o[off + B - 1 - lo, :, :, w - k :].permute(2, 0, 1, 3)
+        if self.group is not None:
+            self.group.all_reduce(out)
         return out.reshape(*batch, L, H, W, C)
 
     def vjp(self, x: torch.Tensor, t, cotangent: torch.Tensor) -> torch.Tensor:
@@ -142,7 +199,9 @@ class WindowScoreFn:
         back-propagated to them at once, with the network's parameters left
         out of the backward. Centre outputs that the shifted last chunk
         overwrites get zero cotangent in the chunk before it
-        (:func:`owned_windows`), as the overwrite gives them in JAX."""
+        (:func:`owned_windows`), as the overwrite gives them in JAX. With a
+        group each rank does its share of the windows and the frame
+        gradients are summed over the group."""
         k, w = self.markov_order, self.window
         *batch, L, H, W, C = x.shape
         n, B, n_chunks = self._chunks(L)
@@ -150,24 +209,33 @@ class WindowScoreFn:
         gb = cotangent.reshape(xb.shape).to(x.dtype)
         m = xb.shape[0]
         grad = torch.zeros_like(xb)
-        for ci in range(n_chunks):
+        for ci, a, b in self._work(n_chunks, m * B):
+            if a == b:
+                continue
             start = min(ci * B, n - B)
             owned = owned_windows(ci, n_chunks, B, n)
-            co = xb.new_zeros((m, B, H, W, w, C))
-            co[:, :owned, :, :, k] = gb[:, k + start : k + start + owned]
-            if k > 0 and ci == 0:
-                co[:, 0, :, :, :k] = gb[:, :k].permute(0, 2, 3, 1, 4)
-            if k > 0 and ci == n_chunks - 1:
-                co[:, B - 1, :, :, w - k :] = gb[:, k + n :].permute(0, 2, 3, 1, 4)
-            xw = self._gather(xb, start, B)
-            co = co.reshape(m * B, H, W, w * C)
-            parts = -(-(m * B) // VJP_WINDOWS)
-            size = -(-(m * B) // parts)
-            gw = torch.cat([self._windows_vjp(xw[s : s + size], t, co[s : s + size])
-                            for s in range(0, m * B, size)])
-            gw = gw.reshape(m, B, H, W, w, C)
-            for j in range(w):  # window frame j of windows [start, start + B) is frame start + j + b
-                grad[:, start + j : start + j + B] += gw[:, :, :, :, j]
+            pieces = member_pieces(a, b, B)
+            N = b - a
+            co = xb.new_zeros((N, H, W, w, C))
+            for mi, lo, hi, off in pieces:
+                if lo < owned:
+                    end = min(hi, owned)
+                    co[off : off + end - lo, :, :, k] = gb[mi, k + start + lo : k + start + end]
+                if k > 0 and ci == 0 and lo == 0:
+                    co[off, :, :, :k] = gb[mi, :k].permute(1, 2, 0, 3)
+                if k > 0 and ci == n_chunks - 1 and hi == B:
+                    co[off + B - 1 - lo, :, :, w - k :] = gb[mi, k + n :].permute(1, 2, 0, 3)
+            xw = self._gather(xb, start, pieces)
+            co = co.reshape(N, H, W, w * C)
+            parts = -(-N // VJP_WINDOWS)
+            size = -(-N // parts)
+            gw = torch.cat([self._windows_vjp(xw[s : s + size], t, co[s : s + size]) for s in range(0, N, size)])
+            gw = gw.reshape(N, H, W, w, C)
+            for mi, lo, hi, off in pieces:
+                for j in range(w):  # window frame j of windows [start + lo, start + hi) is frame start + lo + j + b
+                    grad[mi, start + lo + j : start + hi + j] += gw[off : off + hi - lo, :, :, j]
+        if self.group is not None:
+            self.group.all_reduce(grad)
         return grad.reshape(*batch, L, H, W, C)
 
     def _windows_vjp(self, xw: torch.Tensor, t, co: torch.Tensor) -> torch.Tensor:

@@ -35,22 +35,29 @@ chunks on the card (``calibrate.postprocess_long``) before the host copy.
 trial.
 
 Several ranks (a process group started by ``parallel.mesh``, as
-``experiment predict`` does under torchrun): :func:`run` stripes whole
-samples over the ranks as JAX does, rank r taking the contiguous block of
-ids ``r * (num_samples // world) + g`` in its own ensemble groups, each
-sample's noise still keyed on its id, so a striped run writes the samples
-of a one-process run. ``num_samples`` must be a multiple of the world
-(refused before any output). Rank 0 numbers and makes the save directory
-(its number broadcast, the run's one collective, before any sampling) and
-writes ``config_freeze.yaml``, ``ground_truth.nc`` and ``observation.nc``;
-each rank writes its samples and resume files. Nothing in the sample loop
-waits on another rank.
+``experiment predict`` does under torchrun): :func:`run` forms G =
+gcd(num_samples, world) sample groups of world / G consecutive ranks
+(``mesh.sample_groups``) and stripes whole samples over the groups, group
+g taking the contiguous block of ids ``g * (num_samples // G) + i`` in its
+own ensemble groups, each sample's noise still keyed on its id. Inside a
+group every rank runs the group's samples on the whole trajectory and
+evaluates its share of each evaluation's windows (``WindowScoreFn``'s
+``group``), as a JAX process splits them over its devices; the ranks
+check that they agree after each sample (and, on the long path, after
+each call of steps) and raise together where they do not. When the world
+divides ``num_samples`` every group is one rank and nothing is split. Rank
+0 numbers and makes the save directory (its number broadcast before any
+sampling) and writes ``config_freeze.yaml``, ``ground_truth.nc`` and
+``observation.nc``; each group's first rank writes its samples and resume
+files. Nothing waits on a rank of another group.
 
 With ``host_streaming: true`` (``pc`` or ``dpmpp2m``) each sample runs on
 the host tier of ``diffusion/host_stream.py``, as in JAX: one sample at a
 time, its trajectory in host memory and only window chunks of
-``batch_size`` on the card. The initial noise is the device path's draw
-for the sample, moved to the host; the per-step noise comes from
+``batch_size`` on the card, and no sample split over ranks (JAX's tier
+shards nothing; ``num_samples`` not a multiple of the world is refused
+before any output). The initial noise is the device path's draw for the
+sample, moved to the host; the per-step noise comes from
 ``np.random.RandomState(derive_seed(seed, "host", sid))``. The tier takes
 no calibration, projection or ``guidance_off`` (JAX refuses them) and no
 exact, prolonged or annealed guidance (JAX asserts against them inside its
@@ -230,8 +237,7 @@ def iter_samples(
     z: Optional[np.ndarray] = None,
     resume_dir: Optional[str] = None,
     stats: Optional[dict] = None,
-    rank: int = 0,
-    world: int = 1,
+    groups: mesh.SampleGroups = mesh.SampleGroups(),
 ):
     """Yield ``(sample ids, samples, nan_flags)`` for each group as it is
     done: float32 ``[n, L, H, W, C]`` and bool ``[n]`` numpy arrays,
@@ -239,12 +245,18 @@ def iter_samples(
     ``sample_resume_every > 0`` in ``cfg`` its resume file lives in
     ``resume_dir``. ``stats``, a dict, gets ``long_path`` and
     ``traj_dtype`` (and ``host_streaming`` when the config sets it). With
-    ``world > 1`` only the ``num_samples // world`` ids of block ``rank``
-    are sampled (``noise`` and ``z`` stay indexed by sample id)."""
+    ``groups`` of ``mesh.sample_groups`` only the ``num_samples //
+    groups.count`` ids of block ``groups.index`` are sampled (``noise`` and
+    ``z`` stay indexed by sample id), their windows split over the group's
+    ranks, which all yield the same samples."""
     num_samples = int(cfg.get("num_samples", 1))
-    if num_samples % world:
-        raise ValueError(f"num_samples {num_samples} is not a multiple of the {world} ranks")
-    num_local = num_samples // world
+    if num_samples % groups.count:
+        raise ValueError(f"num_samples {num_samples} is not a multiple of the {groups.count} sample groups")
+    split = groups.size > 1
+    if split and cfg.get("host_streaming", False):
+        raise ValueError(f"num_samples {num_samples} is not a multiple of the {groups.count * groups.size} "
+                         "ranks: the host-streaming tier splits no sample over ranks")
+    num_local = num_samples // groups.count
     dev = resolve_device(device)
     set_reference_numerics()
     gt = np.asarray(ground_truth_lhwc, np.float32)
@@ -281,7 +293,8 @@ def iter_samples(
     guided = y is not None and not cfg.get("guidance_off", False)
     score = guidance = None
     if not host:  # the host tier guides in numpy (below)
-        score = WindowScoreFn(net, markov_order, chunk_size=int(cfg.get("batch_size", 16)))
+        score = WindowScoreFn(net, markov_order, chunk_size=int(cfg.get("batch_size", 16)),
+                              group=groups if split else None)
         if guided:
             guidance = GaussianGuidance(
                 A=A, y=y,
@@ -300,7 +313,7 @@ def iter_samples(
     if host:
         host_score = HostStreamingScoreFn(net, markov_order, batch_size=int(cfg.get("batch_size", 16)),
                                           device=dev)
-        host_kw = dict(steps=steps, denoise_final=denoise_final, verbose=rank == 0)
+        host_kw = dict(steps=steps, denoise_final=denoise_final, verbose=mesh.is_main())
         if guided:
             host_kw.update(guidance_A=NumpyCoarsening(s_step, t_step), guidance_y=y.cpu().numpy(),
                            guidance_std=per_channel(cfg.get("likelihood_std", 1e-2), C).numpy(),
@@ -342,7 +355,7 @@ def iter_samples(
                                   denoise_final=denoise_final, sde_eta=sde_eta, batch_dims=1)
 
     def long_kw(sid):
-        kw = dict(steps_per_call=_STEPS_PER_CALL, verbose=True)
+        kw = dict(steps_per_call=_STEPS_PER_CALL, verbose=groups.leader)
         if resume_dir is not None and resume_every > 0:
             kw.update(resume_path=os.path.join(resume_dir, f".sample_resume_{sid:03d}.npz"),
                       resume_every=resume_every)
@@ -364,7 +377,7 @@ def iter_samples(
     # the long path and the host tier run one sample at a time, as in JAX
     eb = 1 if use_long or host else max(1, int(cfg.get("ensemble_batch", 1)))
     for start in range(0, num_local, eb):
-        sids = [rank * num_local + g for g in range(start, min(start + eb, num_local))]
+        sids = [groups.index * num_local + g for g in range(start, min(start + eb, num_local))]
         if host:  # the sample's draw on the card, as the device path's, kept on the host only
             sid = sids[0]
             if z is not None and np.shape(z)[1]:
@@ -391,6 +404,8 @@ def iter_samples(
         else:
             out, nan_flag = run_sampler(x_init, gens, zs, sids[0])
             out = postprocess(out)
+        if split:
+            groups.check_agree(f"samples {sids}", out, nan_flag)
         yield sids, out.float().cpu().numpy(), nan_flag.cpu().numpy()
 
 
@@ -423,9 +438,10 @@ def run(save_path: str, config_path: str, device="cuda", *, compute_dtype: torch
         else:
             print(f">>> CONFIG: Setting {k} = {v}")
         config[k] = v
-    world = mesh.world_size()
-    if int(config.get("num_samples", 1)) % world:  # as JAX asserts, before any output
-        raise ValueError(f"num_samples {config.get('num_samples', 1)} is not a multiple of the {world} ranks")
+    world, num_samples = mesh.world_size(), int(config.get("num_samples", 1))
+    if config.get("host_streaming", False) and num_samples % world:  # before any output
+        raise ValueError(f"num_samples {num_samples} is not a multiple of the {world} ranks: "
+                         "the host-streaming tier splits no sample over ranks")
     subdir_i = 0
     if mesh.is_main():
         subdir_i = len([s for s in save_root.iterdir() if s.is_dir()]) + 1 if save_root.exists() else 1
@@ -456,6 +472,10 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
     rank, world = mesh.rank(), mesh.world_size()
     print(f"STARTING DOWNSCALING AT {datetime.now().strftime('%Y-%m-%d_%H%M%S')} >>>")
     print(f"Running on {world} process(es); rank {rank}")
+    groups = mesh.sample_groups(int(cfg.get("num_samples", 1)), resolve_device(device))
+    if groups.size > 1:
+        print(f"Sample group {groups.index} of {groups.count}: rank {groups.rank} of {groups.size} "
+              "splitting each sample's windows")
     print(f"Saving results to {save_path}")
 
     t_input = time.time()
@@ -496,13 +516,13 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
     stats.update(input_s=t_net - t_input, load_net_s=t_group - t_net, sampling_s=0.0, write_s=0.0)
     for sids, gens, nan_flags in iter_samples(net, snap_config, cfg, gt, calib, dev, observation=observation,
                                               noise=noise, z=z, resume_dir=str(save_path), stats=stats,
-                                              rank=rank, world=world):
+                                              groups=groups):
         t_write = time.time()
         stats["sampling_s"] += t_write - t_group
         total = t_write - t_group
         print(f"Total sampling time: {total:.2f} s = {total / 60:.3f} min = {total / 3600:.4f} h")
         for sid, g, is_nan in zip(sids, gens, nan_flags):
-            if is_nan:  # write the group's finite samples first, then fail loudly
+            if is_nan or not groups.leader:  # write the group's finite samples first, then fail loudly
                 continue
             sample_ds = data_pipeline.np_to_ds(data_pipeline.nhwc_to_nchw(g), reference_ds=cosmo,
                                                data_vars=data_vars)
@@ -512,6 +532,7 @@ def _run_impl(save_path: pathlib.Path, cfg: dict, device, *, compute_dtype, nois
         stats["write_s"] += t_group - t_write
         if nan_flags.any():
             raise FloatingPointError(f"NaN detected in sample(s) {[s for s, n in zip(sids, nan_flags) if n]}")
+    groups.barrier()  # a group's ranks return once its leader has written its samples
     print(f"Saved results to {save_path}")
     return save_path
 

@@ -17,8 +17,10 @@
 flags given as overrides of the config, on the card unless ``--device cpu``;
 launched by torchrun (``torchrun --nproc_per_node N -m
 climate2weather_tpu_torch.experiment predict ...``) it starts the process
-group as ``train`` does and stripes the samples over the ranks, each on its
-own card (``--dist-backend`` as for ``train``).
+group as ``train`` does, each rank on its own card (``--dist-backend`` as
+for ``train``), and stripes the samples over gcd(num_samples, N) groups of
+ranks; where N does not divide ``num_samples`` each group's ranks split
+every sample's window evaluations (one sample on 8 cards included).
 ``hparam-sweep`` runs :func:`~climate2weather_tpu_torch.exp.downscaling.sweep_likelihood_hparams`
 (one ``predict`` per trial at a random likelihood (sigma, gamma)), likewise.
 ``metrics run`` scores an experiment directory on the host

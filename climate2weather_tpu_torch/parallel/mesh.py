@@ -14,6 +14,12 @@ launches it: each JAX (process, local device) pair is one rank here.
   :func:`barrier`, :func:`broadcast_int` and :func:`shutdown`.
 - :func:`all_reduce_grads`: the sum over ranks of every gradient and one
   more value (the step's loss) in one flat bucket, one collective a step.
+- :func:`sample_groups`: the ranks of a predict run in G = gcd(num_samples,
+  world) groups of world / G consecutive ranks (:class:`SampleGroups`).
+  Samples are striped over the groups; inside a group the ranks split each
+  sample's window evaluations, as one JAX process splits them over its
+  devices. A group of one rank runs whole samples: no process group of its
+  own, nothing split.
 
 The backend is NCCL on the card and gloo on the CPU unless the caller names
 one: NCCL refuses two ranks on one card, so several ranks sharing a card
@@ -26,8 +32,10 @@ raises.
 from __future__ import annotations
 
 import datetime
+import math
 import os
-from typing import Iterable, Optional
+from dataclasses import dataclass
+from typing import Any, Iterable, Optional
 
 import torch
 import torch.distributed as dist
@@ -128,6 +136,80 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], extra: torch.Tensor) 
     pieces = bucket.split([g.numel() for g in grads] + [1])
     torch._foreach_copy_(grads, [piece.view_as(g) for piece, g in zip(pieces, grads)])
     return pieces[-1][0]
+
+
+@dataclass(frozen=True)
+class SampleGroups:
+    """This rank's place among the sample groups of :func:`sample_groups`:
+    ``count`` groups of ``size`` consecutive ranks, this rank the ``rank``-th
+    of group ``index``. The defaults are a single process. The collectives
+    run over the group's ranks only (``process_group``, None for a group of
+    one, which needs none); ``device`` holds their small buffers."""
+
+    count: int = 1
+    index: int = 0
+    rank: int = 0
+    size: int = 1
+    process_group: Any = None
+    device: Any = "cpu"
+
+    @property
+    def leader(self) -> bool:
+        """Whether this rank writes the group's files (its first rank)."""
+        return self.rank == 0
+
+    def all_reduce(self, tensor: torch.Tensor) -> None:
+        """Sum ``tensor`` over the group's ranks, in place."""
+        if self.size > 1:
+            dist.all_reduce(tensor, group=self.process_group)
+
+    def broadcast(self, tensor: torch.Tensor) -> None:
+        """The group leader's ``tensor`` on every rank of the group, in place."""
+        if self.size > 1:
+            dist.broadcast(tensor, src=self.index * self.size, group=self.process_group)
+
+    def barrier(self) -> None:
+        """Wait on the host until every rank of the group got here."""
+        if self.size > 1:
+            flag = torch.ones(1, device=self.device)
+            self.all_reduce(flag)
+            flag.item()
+
+    def check_agree(self, what: str, *tensors: torch.Tensor) -> None:
+        """Raise on every rank of the group unless all its ranks hold the
+        same values: the float64 sum of each tensor, compared through one
+        all-reduce of the largest and the negated smallest. The ranks of a
+        group compute one trajectory on identical inputs, so any difference
+        is a fault; every rank sees the same reduced values and raises
+        together, and none goes on alone."""
+        if self.size <= 1:
+            return
+        sums = torch.stack([t.sum(dtype=torch.float64).to(self.device) for t in tensors])
+        sums = torch.nan_to_num(sums, nan=1.0e308)  # NaN on every rank agrees
+        both = torch.cat([sums, -sums])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.process_group)
+        hi, lo = both[: len(tensors)], -both[len(tensors):]
+        if not torch.equal(hi, lo):
+            raise RuntimeError(f"the {self.size} ranks of sample group {self.index} disagree on {what}: "
+                               f"sums from {lo.tolist()} to {hi.tolist()}")
+
+
+def sample_groups(num_samples: int, device="cpu") -> SampleGroups:
+    """This rank's sample group: G = gcd(``num_samples``, world) groups of
+    world / G consecutive ranks. Where groups hold more than one rank, every
+    rank makes every group's process group, in the same order (as
+    ``dist.new_group`` requires), and keeps its own."""
+    world, r = world_size(), rank()
+    count = math.gcd(int(num_samples), world)
+    size = world // count
+    own = None
+    if size > 1:
+        for g in range(count):
+            group = dist.new_group(list(range(g * size, (g + 1) * size)))
+            if g == r // size:
+                own = group
+    return SampleGroups(count=count, index=r // size, rank=r % size, size=size, process_group=own,
+                        device=torch.device(device))
 
 
 def shutdown() -> None:

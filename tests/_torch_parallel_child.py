@@ -19,7 +19,16 @@ from ``WORKDIR/MODE.json`` (and files the test wrote there) and writes
 - ``sampler``: ``training_loop`` with the train step replaced by one that
   records the window indices of each step;
 - ``predict``: ``exp.downscaling.run`` with the JAX draws injected,
-  recording the grid files this rank wrote.
+  recording the grid files this rank wrote (``fault``: as for ``window``;
+  the run must then raise, and the error goes to ``.error``);
+- ``window``: the tiny net's ``WindowScoreFn`` forward and VJP on each of
+  the spec's cases, its windows split over the rank's sample group
+  (``fault``: rank 1 sums a copy of its output and keeps its own share,
+  still joining the collective);
+- ``long``: ``sample_dpmpp2m_long`` (SDE, detached or exact guidance) with
+  its windows split over the group, optionally with a resume file and a
+  crash at a given score evaluation on every rank, recording which ranks
+  read and wrote the file.
 """
 
 import json
@@ -122,6 +131,19 @@ def sampler(work: pathlib.Path, rank: int, spec: dict) -> None:
     (work / f"sampler-{spec['tag']}-{rank}.json").write_text(json.dumps(seen))
 
 
+def _keep_own_share(rank: int) -> None:
+    """Rank 1's group sums a copy of each tensor and leaves its own as it
+    was: it joins every collective, so its peers see nothing wrong."""
+    if rank != 1:
+        return
+    real = mesh.SampleGroups.all_reduce
+
+    def keep_own(self, tensor):
+        real(self, tensor.clone())
+
+    mesh.SampleGroups.all_reduce = keep_own
+
+
 def predict(work: pathlib.Path, rank: int, spec: dict) -> None:
     from climate2weather_tpu_torch.data.grid import GridDataset
     from climate2weather_tpu_torch.exp import downscaling
@@ -133,13 +155,110 @@ def predict(work: pathlib.Path, rank: int, spec: dict) -> None:
         return real_to_file(self, path, *args, **kwargs)
 
     GridDataset.to_file = recording_to_file
+    if spec.get("fault"):
+        _keep_own_share(rank)
     draws = np.load(work / "draws.npz")
-    downscaling.run(spec["save_path"], spec["config_path"], device="cpu", compute_dtype=torch.float32,
-                    noise=draws["noise"], z=draws["z"])
+    try:
+        downscaling.run(spec["save_path"], spec["config_path"], device="cpu", compute_dtype=torch.float32,
+                        noise=draws["noise"], z=draws["z"])
+    except RuntimeError as e:
+        if not spec.get("fault"):
+            raise
+        (work / f"predict-{spec['tag']}-{rank}.error").write_text(str(e))
     (work / f"predict-{spec['tag']}-{rank}.json").write_text(json.dumps(writes))
 
 
-MODES = {"step": step, "loop": run_loop, "sampler": sampler, "predict": predict}
+def _tiny_net(work: pathlib.Path, spec: dict):
+    from climate2weather_tpu_torch.models.score_net import build_score_unet
+
+    net = build_score_unet(spec["network_kwargs"], dtype=torch.float32)
+    net.load_state_dict(torch.load(work / "net.pt"))
+    return net.eval().requires_grad_(False)
+
+
+def _group():
+    """The sample group of one sample over every rank (none single-process)."""
+    groups = mesh.sample_groups(1, "cpu")
+    return groups if groups.size > 1 else None
+
+
+def window(work: pathlib.Path, rank: int, spec: dict) -> None:
+    from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+
+    net = _tiny_net(work, spec)
+    if spec.get("fault"):
+        _keep_own_share(rank)
+    group = _group()
+    inputs = np.load(work / "window_inputs.npz")
+    out = {}
+    for name, (order, chunk) in spec["cases"].items():
+        score = WindowScoreFn(net, order, chunk_size=chunk, group=group)
+        x, co = torch.from_numpy(inputs[f"{name}/x"]), torch.from_numpy(inputs[f"{name}/co"])
+        with torch.no_grad():
+            out[f"{name}/eps"] = score(x, spec["t"]).numpy()
+        out[f"{name}/vjp"] = score.vjp(x, spec["t"], co).numpy()
+    np.savez(work / f"window-{spec['tag']}-{rank}.npz", **out)
+
+
+class Crash(Exception):
+    """A run stopped in the middle, on every rank at once."""
+
+
+def long(work: pathlib.Path, rank: int, spec: dict) -> None:
+    from climate2weather_tpu_torch.diffusion import long_sampler
+    from climate2weather_tpu_torch.diffusion.guidance import GaussianGuidance, SpatioTemporalCoarsening
+    from climate2weather_tpu_torch.diffusion.process import VPCosineProcess
+    from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+
+    net = _tiny_net(work, spec)
+    if spec.get("fault"):
+        _keep_own_share(rank)
+    inputs = np.load(work / "long_inputs.npz")
+    files = []
+    real_save, real_load = long_sampler._save_carry, long_sampler._load_carry
+
+    def recording_save(path, *args, **kwargs):
+        files.append(("save", rank))
+        return real_save(path, *args, **kwargs)
+
+    def recording_load(path, *args, **kwargs):
+        files.append(("load", rank))
+        return real_load(path, *args, **kwargs)
+
+    long_sampler._save_carry, long_sampler._load_carry = recording_save, recording_load
+    crash_at, calls = spec.get("crash_at"), []
+
+    class Scored(WindowScoreFn):
+        def __call__(self, x, t):
+            if len(calls) == crash_at:
+                raise Crash
+            calls.append(t)
+            return super().__call__(x, t)
+
+    score = Scored(net, spec["order"], chunk_size=spec["chunk"], group=_group())
+    guidance = GaussianGuidance(A=SpatioTemporalCoarsening(4, 3), y=torch.from_numpy(inputs["y"]),
+                                std=torch.from_numpy(inputs["std"]), gamma=float(inputs["gamma"]),
+                                exact_grad=spec["exact"])
+    gen = torch.Generator().manual_seed(3)
+    out = {"files": files}
+    try:
+        x, nan = long_sampler.sample_dpmpp2m_long(
+            VPCosineProcess(), score, torch.from_numpy(inputs["noise"]), guidance=guidance, steps=6,
+            sde_eta=0.3, rng=gen, frame_chunk=5, steps_per_call=2, denoise_final=True,
+            resume_path=spec.get("resume_path"), resume_every=1)
+        out.update(nan=bool(nan), evaluations=len(calls))
+        np.save(work / f"long-{spec['tag']}-{rank}.npy", x.numpy())
+    except Crash:
+        out["crashed"] = len(calls)
+    except RuntimeError as e:
+        if not spec.get("fault"):
+            raise
+        out["error"] = str(e)
+    (work / f"long-{spec['tag']}-{rank}.json").write_text(json.dumps(out))
+
+
+MODES = {"step": step, "loop": run_loop, "sampler": sampler, "predict": predict, "window": window,
+         "long": long}
 
 if __name__ == "__main__":
     mode, work = sys.argv[1], pathlib.Path(sys.argv[2])

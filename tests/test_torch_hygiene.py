@@ -87,9 +87,14 @@ elif mode == "year":
     out = {"p8": {k: p8[k] for k in ("8a", "8b", "8c", "8d")}}
 elif mode == "ranks":
     # phase 10 over gloo on the CPU: the tiny net at 16 x 16, 2 steps of predict
+    # 10e: the year config above a threshold lowered to 16 frames (31 hours,
+    # 19 windows in 3 chunks of 8), 2 steps each
     p10 = chip_smoke.phase10_multi_process(snap, cpu, model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
-                                           res=16, frames=40, predict_res=32, predict_steps=2)
-    out = {"p10": chip_smoke.phase10_summary(p10),
+                                           res=16, frames=40, predict_res=32, predict_steps=2,
+                                           split={"year": (31, 2), "short": (49, 2, 64), "exact": (19, 2, 64),
+                                                  "year_overrides": {"long_trajectory_threshold": 16,
+                                                                     "batch_size": 8}})
+    out = {"p10": chip_smoke.phase10_summary(p10), "p10e": p10["10e"],
            "p10b": {k: p10["10b"][k] for k in ("launches_per_rank", "losses", "expected_per_rank")},
            "p10b_step": p10["10b"]["step_check"]["ranks"], "p10c_equal": p10["10c"]["samples_equal"],
            "p10c_writes": p10["10c"]["writes"], "p10d_events": p10["10d"]["events"]}
@@ -453,7 +458,8 @@ def test_multi_process_phase_needs_only_stdlib_torch_numpy(tmp_path):
     """Phase 10 on the CPU over gloo (the world of one under
     ``torch.distributed.run``, the 2-rank step check with its planted fault,
     2-rank training with a checkpoint and a resume, the striped ``predict``
-    against one process, the supervisor recovering a stopped run), with
+    against one process, the supervisor recovering a stopped run, one
+    sample split over 2 ranks with its planted faults), with
     every process it starts blocked from jax, flax, the JAX package, h5py,
     scipy, msgpack and the rest, as this process is."""
     cfg = tiny_config(channels=52, window=13)
@@ -482,15 +488,24 @@ def test_multi_process_phase_needs_only_stdlib_torch_numpy(tmp_path):
     assert all(out["p10c_equal"].values()) and len(out["p10c_equal"]) == 6
     assert out["p10c_writes"][1] == ["gen_sample_003.nc", "gen_sample_004.nc", "gen_sample_005.nc"]
     assert out["p10d_events"] == ["start", "stall", "killed", "start", "exit"]
+    # 10e: the year path's dealt chunks bit for bit, the cut chunks within
+    # the limit, every planted fault seen, the windows split
+    split = out["p10e"]["jobs"]
+    assert p10["split_year_bits_equal"] and not split["year"]["fault_shift_bits_equal"]
+    for name in ("short", "exact"):
+        assert split[name]["diff_in_std"] <= p10["split_limit"] < split[name]["fault_shift_in_std"]
+    assert p10["split_fault_own_caught"] == [True, True]
+    for job in split.values():
+        assert sum(job["windows_per_rank"]) == job["windows_one"] and min(job["windows_per_rank"]) > 0
     # the processes phase 10 started reported at exit (the stopped child is
     # killed before it can): none imported a blocked package
     lines = log.read_text().splitlines()
     assert all(ln.endswith("leaked=[]") for ln in lines), lines
     count = lambda part: sum(part in ln for ln in lines)  # noqa: E731
-    # 10a's launched and plain runs and 10d's relaunch; 10b's 2 x 2 ranks and
-    # 10c's 2; the supervisor
+    # 10a's launched and plain runs and 10d's relaunch; 10b's 2 x 2 ranks,
+    # 10c's 2 and 10e's 2; the supervisor
     assert count("climate2weather_tpu_torch/train.py") >= 3, lines
-    assert count("chip_smoke.py --child") >= 6, lines
+    assert count("chip_smoke.py --child") >= 8, lines
     assert count("supervisor") >= 1, lines
 
 

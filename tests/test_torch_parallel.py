@@ -16,8 +16,8 @@ and joined over gloo:
 - a striped ``exp.downscaling.run`` equal bit for bit to the one-process
   ``run``, and to the JAX package's ``run`` at the limit of
   ``tests/test_torch_predict.py``, with rank 0 alone writing the shared
-  files; ``num_samples`` not a multiple of the world refused before any
-  output;
+  files; under ``host_streaming``, ``num_samples`` not a multiple of the
+  world refused before any output;
 - the mesh's refusals: a partial launch environment, a ``LOCAL_RANK``
   without a card, a backend that fails to start (no fallback), and the
   single-process commands under a world above one.
@@ -380,17 +380,23 @@ def test_striped_long_path_equals_one_process(predict_inputs, tmp_path):
 
 def test_num_samples_not_a_multiple_of_the_world_is_refused_before_output(predict_inputs, tmp_path,
                                                                             monkeypatch):
+    """The host-streaming tier splits no sample over ranks (JAX's shards
+    nothing), so there ``num_samples`` not a multiple of the world is still
+    refused before any output; elsewhere such a run splits each sample's
+    windows (tests/test_torch_window_split.py)."""
     from climate2weather_tpu_torch.exp import downscaling
 
     snap, paths = predict_inputs
     config_path, cfg = _predict_config(tmp_path, snap, paths, "odd", num_samples=3, num_sampling_steps=2)
+    cfg.update(host_streaming=True, spectral_calibrate=None, t0_project="")
+    config_path.write_text(yaml.safe_dump(cfg))
     monkeypatch.setattr(mesh, "world_size", lambda: 2)
-    with pytest.raises(ValueError, match="not a multiple of the 2 ranks"):
+    with pytest.raises(ValueError, match="not a multiple of the 2 ranks: the host-streaming tier"):
         downscaling.run(str(tmp_path / "out"), str(config_path), device="cpu")
     assert not (tmp_path / "out").exists()
-    with pytest.raises(ValueError, match="not a multiple of the 2 ranks"):
+    with pytest.raises(ValueError, match="not a multiple of the 2 ranks: the host-streaming tier"):
         next(downscaling.iter_samples(None, {}, cfg, np.zeros((L, HW, HW, C), np.float32), device="cpu",
-                                      world=2))
+                                      groups=mesh.SampleGroups(count=1, size=2)))
 
 
 # ---------------------------------------------------------------------------
