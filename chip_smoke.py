@@ -58,7 +58,7 @@ Numbered phases, each printing one JSON line with its seconds:
    49-hour 128 x 128 grid, its quantiles, a training file and a coarse
    observation grid with the port's writers, then runs
    ``exp/downscaling.run`` on copies of ``s16_t6_spectral.yml`` and
-   ``s16_t6.yml`` (3 samples each, the PC run cut to 64 steps) and on the
+   ``s16_t6.yml`` (3 samples each, the PC run cut to 32 steps) and on the
    external-observation and ``guidance_off`` modes (8 steps), reading every
    ``.nc`` back: finite,
    A(x) = y where the config projects, 6 attention launches per forward;
@@ -172,7 +172,8 @@ Numbered phases, each printing one JSON line with its seconds:
    samples, with the confirmed setting's t=0 spectral projection): finite
    samples, the written observation the debiased file's frames, A(x) = y
    under phase 4's limit, 6 attention launches per UNet forward; then
-   ``metrics run`` on the written directory: finite scores.
+   ``metrics run`` on the written directory: finite scores. 11c and 11d run
+   on a thread beside 11b.
 12. the model layer, with jax, flax, PyYAML, msgpack, h5py, ``scripts`` and
    the JAX package unimportable in this process and in the importer's:
    (12a) the 72.1M snapshot written as the reference's released pickle
@@ -247,6 +248,38 @@ Numbered phases, each printing one JSON line with its seconds:
    ``s16_t6_spectral.yml`` on phase 6's files with ``host_streaming: true``,
    eta 0.3, the final denoise, no calibration or projection, 8 steps, 2
    samples: finite samples written, 6 launches per UNet forward.
+15. the study and operations drivers of ``climate2weather_tpu_torch.scripts``
+   at the 72.1M net's width, with jax, flax, yaml, msgpack, h5py, scipy,
+   matplotlib, click, netCDF4, ``scripts`` and the JAX package unimportable
+   in this process and, through a ``sitecustomize`` first on their path, in
+   every process the phase starts and their children (each writes its
+   attention launches to a log at its exit): (15a) ``fabricate_resume_state``
+   (its ``main``, here) from the snapshot at ndata 9,433,984 and batch 64
+   (fresh Adam, the schedule's count at step 147,406), then ``train`` resuming from it at
+   128 x 128 for two steps: the run starts at the fabricated ndata, its LR
+   the schedule's absolute value, its checkpoint holding Adam's count 2 and
+   the schedule's count 147,408, and its two updates bit for bit a fresh
+   AdamW's on the snapshot's parameters made in this process on the same
+   batches and draws, the loader as it was (Adam's count forced to the
+   step) the planted fault; (15b, in phase 10 beside 10e) ``soak_training``
+   on 10a's plain command, its first start SIGKILLed once it has
+   written the checkpoint at 1,024 and logged beyond it, the second resuming
+   there: every logged loss equal to 10a's plain run's bit for bit, the
+   replayed intervals to their replays, one loss moved by one float32 ulp
+   the planted fault; (15c) ``likelihood_sweep`` in this process on
+   ``s16_t6.yml`` at 4 steps and 2 samples: trial 0, trial 1 of base seed 99
+   (98 draws another) and ``--uncond``, finite scores, the ranking, 6
+   launches per UNet forward; (15d) ``sampler_ablation --only pc_corr0
+   pc_corr1_tau05_ve`` at 4 steps: the table, finite scores, the launches;
+   (15e) ``probe_watcher`` in a process on a run directory holding the
+   snapshot under an on-cadence and an off-cadence name, one poll at
+   interval 0 and one idle poll: exactly the due snapshot probed by its own
+   process, ``progression_report`` tabulating it, a 2-Mi cadence and another
+   EMA rate finding nothing; (15f) ``spectral_bands``, ``amplitude_ratio`` and
+   ``calibration_design_study`` on 15c's and 15d's directories: every value
+   finite, a NaN planted in one sample's copy seen. 15a's ``train`` and 15e
+   run on threads while 15d and 15c sample here; the design study, a process,
+   beside 15c.
 
 Then one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -256,8 +289,10 @@ There is no CPU mode: without a card the script exits non-zero at once.
 ``--multi-process-only`` runs phases 0, 1 and 10 alone, ``--data-only``
 phases 0, 1 and 11, ``--model-only`` phases 0, 1 and 12, ``--store-only``
 phases 0, 1 and 13 (13d then compares 13c's directory with itself),
-``--host-stream-only`` phases 0, 1 and 14 (no device line in any). ``--child ...`` is one process of phase 10 (``child_step``,
-``child_cli``, ``child_split``), not for use by hand.
+``--host-stream-only`` phases 0, 1 and 14, ``--study-only`` phases 0, 1 and 15
+(15b then after its own plain run of 10a's command; no device line in any).
+``--child ...`` is one process of phase 10 (``child_step``, ``child_cli``,
+``child_split``), not for use by hand.
 """
 
 from __future__ import annotations
@@ -1278,7 +1313,7 @@ PREDICT_CONFIGS = REPO / "exp" / "configs" / "000_on-model-eval"
 # guidance off
 PREDICT_RUNS = (
     ("s16_t6_spectral", "s16_t6_spectral.yml", {"num_samples": 3}),
-    ("s16_t6", "s16_t6.yml", {"num_samples": 3, "num_sampling_steps": 64}),
+    ("s16_t6", "s16_t6.yml", {"num_samples": 3, "num_sampling_steps": 32}),
     ("external_observation", "s16_t6_spectral.yml",
      {"num_samples": 3, "num_sampling_steps": 8, "observation_path": "obs"}),
     ("guidance_off", "s16_t6_spectral.yml",
@@ -2938,13 +2973,15 @@ def phase10_summary(ranks: dict) -> dict:
 
 
 def phase10_multi_process(snapshot_dir, device, model_config=MODEL_CONFIG, res=128, frames=140,
-                          predict_res=128, hours=49, seed=0, predict_steps=8, split=None) -> dict:
+                          predict_res=128, hours=49, seed=0, predict_steps=8, split=None, soak=False) -> dict:
     """Phase 10, 10a-10e (see the module docstring), in one scratch
     directory, h5py unimportable in this process. 10d runs beside 10b (on a
     thread of this process; both are mostly process starts and checkpoint
     writes on the host): 10b's time-sliced step ms and 10d's seconds to
     recover include each other's work; 10c runs while 10e's ranks do, so
-    their seconds include each other's too. ``split`` holds keyword
+    their seconds include each other's too. With ``soak``, phase 15's 15b
+    (the soak's chain, held against 10a's plain run) runs on a thread beside
+    10e and 10c, and their seconds include its work. ``split`` holds keyword
     arguments of :func:`phase10e_split`. Returns each part's record."""
     import shutil
     import tempfile
@@ -2978,17 +3015,33 @@ def phase10_multi_process(snapshot_dir, device, model_config=MODEL_CONFIG, res=1
             raise beside["error"]
         d = beside["d"]
         paths = write_predict_inputs(root, predict_res, hours, seed)
+        if soak:  # 15b beside 10e and 10c, on 10a's plain run
+            def run_b():
+                try:
+                    beside["15b"] = phase15b_soak(root, data_path, device, model_config, res, seed,
+                                                  root / "a_plain" / "r", _study_env(device, root))
+                except BaseException as e:  # noqa: BLE001 - raised again on this thread
+                    beside["error"] = e
+
+            thread = threading.Thread(target=run_b, daemon=True)
+            thread.start()
         c = {}  # 10c beside 10e's ranks (both are mostly process starts on the host)
-        e = phase10e_split(root, paths, snapshot_dir, device, predict_res, seed, **(split or {}),
-                           beside=lambda: c.update(phase10c_striped(root, paths, snapshot_dir, device, hours, seed,
-                                                                    predict_steps)))
+        try:
+            e = phase10e_split(root, paths, snapshot_dir, device, predict_res, seed, **(split or {}),
+                               beside=lambda: c.update(phase10c_striped(root, paths, snapshot_dir, device, hours,
+                                                                        seed, predict_steps)))
+        finally:
+            if soak:
+                thread.join()
+        if "error" in beside:
+            raise beside["error"]
         if a["plain_spread"] is not None and not d["snapshot_max_diff"] <= a["plain_spread"]:
             raise AssertionError(f"the supervised run differs from the plain run beyond two plain runs: {d}")
         if a["plain_spread"] is None and not (d["snapshot_equal"] and d["checkpoint_equal"]):
             raise AssertionError(f"the supervised run differs from the plain run: {d}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"10a": a, "10b": b, "10c": c, "10d": d, "10e": e}
+    return {"10a": a, "10b": b, "10c": c, "10d": d, "10e": e, **({"15b": beside["15b"]} if soak else {})}
 
 
 # ---------------------------------------------------------------------------
@@ -3330,9 +3383,12 @@ def phase11_data(snapshot_dir, device, model_config=REPO / "configs" / "tiny_une
                  predict_steps=8, samples=3) -> dict:
     """Phase 11, 11a-11d (see the module docstring), in one scratch
     directory, with the packages of PHASE11_BLOCKED unimportable in this
-    process and in every process it starts. Returns each part's record."""
+    process and in every process it starts. 11c and then 11d run on a thread
+    beside 11b (each is mostly its processes), so their seconds include each
+    other's work. Returns each part's record."""
     import shutil
     import tempfile
+    import threading
 
     loaded_before = sorted(m for m in PHASE11_BLOCKED if sys.modules.get(m) is not None)
     for name in PHASE11_BLOCKED:
@@ -3340,9 +3396,24 @@ def phase11_data(snapshot_dir, device, model_config=REPO / "configs" / "tiny_une
     root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-data-"))
     try:
         a = phase11a_netcdf(root)
-        b = phase11b_drill(root, device, model_config, nlat, nlon, patch, seed, train_steps)
-        c = phase11c_synth_debias(root, device, res, synth_hours, seed)
-        d = phase11d_predict(root, snapshot_dir, device, c, predict_steps, samples)
+        beside = {}
+
+        def run_cd():
+            try:
+                beside["c"] = phase11c_synth_debias(root, device, res, synth_hours, seed)
+                beside["d"] = phase11d_predict(root, snapshot_dir, device, beside["c"], predict_steps, samples)
+            except BaseException as e:  # noqa: BLE001 - raised again on this thread
+                beside["error"] = e
+
+        thread = threading.Thread(target=run_cd, daemon=True)
+        thread.start()
+        try:
+            b = phase11b_drill(root, device, model_config, nlat, nlon, patch, seed, train_steps)
+        finally:
+            thread.join()
+        if "error" in beside:
+            raise beside["error"]
+        c, d = beside["c"], beside["d"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"11a": a, "11b": b, "11c": c, "11d": d, "loaded_before": loaded_before}
@@ -4640,6 +4711,652 @@ def phase14_host_stream(snapshot_dir, device, res=128, hours=STREAM_HOURS, batch
     return {"14a": a, "14b": b, "14b-fp32": x, "14c": c, "14d": d, "14e": e}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the study and operations drivers (climate2weather_tpu_torch.scripts)
+# at the 72.1M net's width. Every process the phase starts, and every process
+# those start, has the packages of PHASE15_BLOCKED unimportable (a
+# sitecustomize first on its path) and writes its attention launches to a log
+# at its exit.
+
+PHASE15_BLOCKED = PHASE12_BLOCKED + ("scipy", "matplotlib", "click", "netCDF4")
+STUDY_TOTAL = 13631488  # the fabricated run's schedule total (the H3 extension's)
+# the fabricated position: 1,024 x 9,213 - 128, just below the snapshot's
+# 9,437,184, so that 2 steps of 64 end on a checkpoint multiple in the next kdata
+STUDY_NDATA = 9433984
+STUDY_STEPS = 4  # 15c's, 15d's and the probe's sampling steps
+STUDY_START = "2014-04-07-04"
+STUDY_ABLATION = ("pc_corr0", "pc_corr1_tau05_ve")
+STUDY_SITE = r"""
+import atexit, importlib.abc, importlib.machinery, importlib.util, json, os, sys
+
+BLOCKED = set(os.environ["C2W_STUDY_BLOCKED"].split(","))
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked by chip_smoke: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+for name in BLOCKED:
+    sys.modules[name] = None
+
+
+def report():
+    attention = sys.modules.get("climate2weather_tpu_torch.ops.attention")
+    leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in BLOCKED)
+    with open(os.environ["C2W_STUDY_LOG"], "a") as f:
+        f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv, "leaked": leaked,
+                            "launches": dict(attention.launch_counts) if attention else None}) + "\n")
+
+
+atexit.register(report)
+# the host's own sitecustomize, where there is one further down the path
+here = os.path.dirname(os.path.abspath(__file__))
+for entry in sys.path:
+    if os.path.abspath(entry or os.curdir) != here:
+        spec = importlib.machinery.PathFinder.find_spec("sitecustomize", [entry])
+        if spec is not None:
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+            break
+"""
+
+
+def _study_env(device, root: pathlib.Path) -> dict:
+    """The environment of phase 15's processes: :func:`_child_env` with the
+    blocking ``sitecustomize`` of STUDY_SITE first on the path, and the log
+    each process appends its launches to."""
+    site = root / "study_site"
+    if not site.is_dir():
+        site.mkdir(parents=True)
+        (site / "sitecustomize.py").write_text(STUDY_SITE)
+    env = _child_env(device)
+    env.update(PYTHONPATH=os.pathsep.join([str(site), env["PYTHONPATH"]]),
+               C2W_STUDY_BLOCKED=",".join(PHASE15_BLOCKED), C2W_STUDY_LOG=str(root / "study_processes.jsonl"))
+    return env
+
+
+def _study_processes(env) -> list:
+    """The records the phase's processes wrote at their exit."""
+    path = pathlib.Path(env["C2W_STUDY_LOG"])
+    return [json.loads(ln) for ln in path.read_text().splitlines()] if path.exists() else []
+
+
+def _process_launches(env, *parts: str) -> dict:
+    """The attention launches of the one process whose command line holds
+    every one of ``parts``."""
+    recs = [r for r in _study_processes(env) if all(any(p in a for a in r["argv"]) for p in parts)]
+    if len(recs) != 1:
+        raise AssertionError(f"{len(recs)} processes ran {parts}: {_study_processes(env)}")
+    return recs[0]["launches"] or {"attention_fwd": 0, "attention_bwd": 0}
+
+
+def _counts_zero():
+    from climate2weather_tpu_torch.ops.attention import launch_counts
+
+    for k in launch_counts:
+        launch_counts[k] = 0
+    return launch_counts
+
+
+def _numbers(lines) -> list:
+    """Every number in the cells of markdown table rows."""
+    import re
+
+    return [float(x) for ln in lines for x in re.findall(r"(?<![\w.])-?(?:\d+\.\d*|nan|inf)(?![\w.])", ln)]
+
+
+def study_fabricate(root, snapshot_dir) -> dict:
+    """15a's fabrication: ``scripts.fabricate_resume_state`` (its ``main``,
+    in this process) from the snapshot at ndata STUDY_NDATA and batch 64.
+    Returns what it printed, its seconds and the run directory."""
+    import contextlib
+    import io
+
+    from climate2weather_tpu_torch.scripts import fabricate_resume_state
+
+    t0 = time.time()
+    run = root / "fab" / "r"
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        fabricate_resume_state.main(["--snapshot", str(snapshot_dir), "--out-dir", str(run), "--ndata",
+                                     str(STUDY_NDATA), "--batch", "64", "--lr", "2e-4", "--total-ndata",
+                                     str(STUDY_TOTAL), "--ema-rates", "0.9999"])
+    return {"fabricate_out": printed.getvalue(), "fabricate_s": time.time() - t0, "run": run}
+
+
+def study_resume(rec, data_path, device, model_config, res, seed, env) -> dict:
+    """15a's process: ``train`` resuming from the fabricated checkpoint for
+    two steps (``--slice-data 128``). Returns ``rec`` with its output and
+    seconds."""
+    train = [sys.executable, "-m", "climate2weather_tpu_torch.train"] + _train_argv(
+        rec["run"].parent, data_path, model_config, res, 64, 32, STUDY_TOTAL, seed, device, snapshot=0) + [
+        "--slice-data", "128"]
+    (train_out,), train_s, _ = _run_processes([train], [env], label="15a resume")
+    return {**rec, "train_out": train_out, "train_s": train_s}
+
+
+def _flat_named(state) -> torch.Tensor:
+    """:func:`_flat_state` with the EMA taken in the parameters' order (a
+    restored EMA keeps the checkpoint's order of names)."""
+    names = [n for n, _ in state.net.named_parameters()]
+    ema = state.emas["0.999900"]
+    return torch.cat([_flat_state(state)[:-sum(ema[n].numel() for n in names)]]
+                     + [ema[n].reshape(-1).float() for n in names])
+
+
+def _study_state(net_kwargs, params, device, step):
+    """A train state of the snapshot's fp32 parameters at ``step`` with a
+    fresh AdamW and an EMA, made as the training loop makes its own."""
+    from climate2weather_tpu_torch.convert import load_params
+    from climate2weather_tpu_torch.models.score_net import build_score_unet
+    from climate2weather_tpu_torch.training.ema import ema_init
+    from climate2weather_tpu_torch.training.state import TrainState, make_optimizer
+
+    net = load_params(build_score_unet(net_kwargs, dtype=torch.bfloat16), params).to(device)  # train's compute
+    opt = make_optimizer(net.parameters(), {"weight_decay": 1e-3, "betas": [0.9, 0.999]})
+    return TrainState(step=step, net=net, optimizer=opt, emas=ema_init(dict(net.named_parameters()), (0.9999,)))
+
+
+def _study_net_kwargs(snapshot_dir, model_config) -> dict:
+    """``train``'s network kwargs for ``model_config`` at the snapshot's
+    window (4 variables a frame)."""
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+
+    window = int(yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")["dataset_kwargs"]["train"]["window"])
+    return {"class_name": "score_unet", "channels": 4 * window,
+            **{k: v for k, v in yaml_load_file(model_config).items() if k != "padding_mode"}}
+
+
+def study_reference(snapshot_dir, data_path, device, model_config, res, seed) -> dict:
+    """15a's yardstick, made here: a fresh AdamW on the snapshot's fp32
+    parameters at step STUDY_NDATA / 64, two steps on the batches and draws
+    ``train`` takes there (the sampler's stream and the step's generator),
+    and the same from the loader as it was (Adam's count forced to the step,
+    over zero moments), the planted fault. Returns both states, flat, and
+    the fresh run's losses."""
+    from climate2weather_tpu_torch.data import dataset  # noqa: F401 (registers cosmo_dataset)
+    from climate2weather_tpu_torch.data.dataset import InfiniteSampler
+    from climate2weather_tpu_torch.training.checkpoint import load_snapshot
+    from climate2weather_tpu_torch.training.lr import make_schedule
+    from climate2weather_tpu_torch.training.state import (
+        make_device_data_train_step,
+        step_generator,
+        upload_dataset,
+    )
+    from climate2weather_tpu_torch.utils.registry import construct_class_by_name
+
+    t0 = time.time()
+    step0 = STUDY_NDATA // 64
+    sched = make_schedule({"func_name": "lr/linear", "ref_lr": 2e-4, "total_ndata": STUDY_TOTAL}, 64)
+    params, _ = load_snapshot(str(snapshot_dir))
+    net_kwargs = _study_net_kwargs(snapshot_dir, model_config)
+    window = net_kwargs["channels"] // 4
+    ds = construct_class_by_name(class_name="cosmo_dataset", data_path=str(data_path), num_features=4,
+                                 spatial_res=res, cached=False, window=window, flatten=True)
+    data = upload_dataset(ds._reader(), ds.raw_data_shape[0], dtype=torch.float32, device=device)
+    step_fn = make_device_data_train_step(VPCosineProcess(), sched, window, (0.9999,))
+
+    def two_steps(state):
+        it = iter(InfiniteSampler(dataset_size=len(ds), shuffle=True, seed=seed, start_idx=STUDY_NDATA))
+        losses = []
+        for _ in range(2):
+            idx = np.fromiter((next(it) for _ in range(64)), np.int64, count=64).reshape(2, -1)
+            state, loss = step_fn(state, data, torch.from_numpy(idx).to(device),
+                                  step_generator(seed, state.step, device))
+            losses.append(float(loss))
+        return _flat_named(state), losses
+
+    threads = torch.get_num_threads()
+    if device.type == "cpu":  # the child's thread count (_child_env): CPU sums depend on it
+        torch.set_num_threads(max(1, threads // 2))
+    try:
+        fresh, losses = two_steps(_study_state(net_kwargs, params, device, step0))
+        old = _study_state(net_kwargs, params, device, step0)
+        for p in old.net.parameters():  # the loader as it was: Adam's count = step, moments zero
+            old.optimizer.state[p] = {"step": torch.tensor(float(step0)), "exp_avg": torch.zeros_like(p),
+                                      "exp_avg_sq": torch.zeros_like(p)}
+        faulty, _ = two_steps(old)
+    finally:
+        torch.set_num_threads(threads)
+    return {"fresh": fresh, "fresh_loss": losses, "faulty": faulty, "seconds": time.time() - t0}
+
+
+def phase15a_check(rec, ref, snapshot_dir, device, model_config, env, plain_spread=None) -> dict:
+    """15a: the resumed run started at the fabricated ndata (not at 0), its LR
+    the schedule's absolute value, its final checkpoint holding Adam's count
+    2 and the schedule's count step0 + 2; its state bit for bit
+    :func:`study_reference`'s fresh AdamW's (or within ``plain_spread``,
+    10a's plain runs' own spread, where 10a found them unequal), and the
+    planted fault's state apart from it."""
+    from climate2weather_tpu_torch.training.checkpoint import CheckpointIO, adam_count, load_snapshot
+    from climate2weather_tpu_torch.training.lr import make_schedule
+
+    t0 = time.time()
+    step0, run = STUDY_NDATA // 64, rec["run"]
+    sched = make_schedule({"func_name": "lr/linear", "ref_lr": 2e-4, "total_ndata": STUDY_TOTAL}, 64)
+    net_kwargs = _study_net_kwargs(snapshot_dir, model_config)
+    logged = [json.loads(ln) for ln in (run / "metrics.jsonl").read_text().splitlines()]
+    logged = [r for r in logged if "train/loss" in r]
+    child = _study_state(net_kwargs, load_snapshot(str(snapshot_dir))[0], device, 0)
+    final = run / f"training-state-{(STUDY_NDATA + 128) // 1000:07d}.ckpt"
+    CheckpointIO(state=child, meta={"batch_size": 0}).load(str(final), verbose=False)
+    got, fresh = _flat_named(child), ref["fresh"]
+    out = {"fabricate_printed": [ln for ln in rec["fabricate_out"].splitlines() if "lr(step)=" in ln],
+           "resumed_from": [ln for ln in rec["train_out"].splitlines() if ln.startswith("Training from")],
+           "logged_ndata": [r["train/ndata"] for r in logged], "logged_lr": [r["train/lr"] for r in logged],
+           "logged_loss": [r["train/loss"] for r in logged], "fresh_loss": ref["fresh_loss"],
+           "adam_count": adam_count(child.optimizer), "schedule_count": child.step,
+           "bits_equal": bool(torch.equal(got, fresh)), "max_abs_diff": float((got - fresh).abs().max()),
+           "plain_spread": plain_spread, "fault_max_abs_diff": float((got - ref["faulty"]).abs().max()),
+           "launches": _process_launches(env, "climate2weather_tpu_torch/train.py", str(run.parent)),
+           "fabricate_s": rec["fabricate_s"], "train_s": rec["train_s"], "reference_s": ref["seconds"]}
+    want_launches = 2 * 2 * _attention_blocks(net_kwargs) if device.type == "cuda" else 0
+    emit("15a", t0, **out)
+    want_lr = f"lr(step)={sched(step0):.3e}"
+    if len(out["fabricate_printed"]) != 1 or want_lr not in out["fabricate_printed"][0]:
+        raise AssertionError(f"the fabricated LR is not the schedule's at step {step0} ({want_lr}): {out}")
+    if out["resumed_from"] != [f"Training from {STUDY_NDATA // 1000} kdata to {(STUDY_NDATA + 128) // 1000} kdata:"]:
+        raise AssertionError(f"the run did not resume at the fabricated ndata: {out}")
+    if out["logged_ndata"] != [STUDY_NDATA + 64, STUDY_NDATA + 128] or \
+            out["logged_lr"] != [sched(step0 + 1), sched(step0 + 2)]:
+        raise AssertionError(f"the run's positions or LRs are not the schedule's absolute ones: {out}")
+    if (out["adam_count"], out["schedule_count"]) != (2, step0 + 2):
+        raise AssertionError(f"the resumed checkpoint's counts are not (2, {step0 + 2}): {out}")
+    limit = plain_spread or 0.0
+    if not (out["bits_equal"] or (plain_spread is not None and out["max_abs_diff"] <= limit)):
+        raise AssertionError(f"the resumed updates are not a fresh AdamW's: {out}")
+    if plain_spread is None and out["logged_loss"] != out["fresh_loss"]:
+        raise AssertionError(f"the resumed run's losses are not the fresh AdamW run's: {out}")
+    if not out["fault_max_abs_diff"] > limit:
+        raise AssertionError(f"the old loader's updates are not told apart: {out}")
+    if out["launches"] != {"attention_fwd": want_launches, "attention_bwd": want_launches}:
+        raise AssertionError(f"attention launches {out['launches']}, want {want_launches} each way")
+    return out
+
+
+def phase15b_soak(root, data_path, device, model_config, res, seed, ref_dir, env) -> dict:
+    """15b: ``scripts.soak_training.soak`` on 10a's plain command (the 72.1M
+    net, 2,048 ndata, a checkpoint at 1,024, a loss every step) as one
+    slice with every start killed past its checkpoint: start 1 SIGKILLed
+    once it has written the checkpoint at 1,024 and logged beyond it, start
+    2 resuming there and finishing before its condition can fire. Its losses
+    at every logged ndata equal the uninterrupted run's in ``ref_dir`` bit
+    for bit, and the killed start's replayed intervals their replays; the
+    planted fault, one loss one float32 ulp off in a copy of the log, fails
+    the check."""
+    import shutil
+
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+    from climate2weather_tpu_torch.scripts import soak_training
+
+    t0 = time.time()
+    work = root / "b_soak"
+
+    def cmd_fn(run_dir, run_id, slice_data=None):
+        argv = _train_argv(run_dir, data_path, model_config, res, 64, 32, 2048, seed, device, snapshot=2048)
+        argv[argv.index("--run-id") + 1] = run_id
+        return [sys.executable, "-m", "climate2weather_tpu_torch.train"] + argv, env
+
+    results = soak_training.soak(work, 2048, 1, 64, kill_every=1, kill_past_checkpoint=True, cmd_fn=cmd_fn,
+                                 ref_dir=ref_dir, poll=0.05)
+    fault_dir = root / "b_fault"
+    fault_dir.mkdir()
+    recs = [json.loads(ln) for ln in (work / "runs" / "soak" / "metrics.jsonl").read_text().splitlines()]
+    last = max(i for i, r in enumerate(recs) if "train/loss" in r)
+    recs[last]["train/loss"] = float(np.nextafter(np.float32(recs[last]["train/loss"]), np.float32(np.inf)))
+    (fault_dir / "metrics.jsonl").write_text("".join(json.dumps(r) + "\n" for r in recs))
+    try:
+        soak_training.check({}, fault_dir, ref_dir)
+        caught = False
+    except AssertionError:
+        caught = True
+    resumed = [ln for ln in (work / "soak.log").read_text().splitlines() if ln.startswith("Training from")]
+    clean = [r for r in _study_processes(env) if any(str(work) in a for a in r["argv"])]
+    out = {**results, "resumed_from": resumed, "fault_caught": caught,
+           "launches": clean[0]["launches"] if len(clean) == 1 else None}
+    shutil.rmtree(fault_dir, ignore_errors=True)
+    emit("15b", t0, **out)
+    starts = out["restarts"]
+    if [r["killed"] for r in starts] != [True, False] or not 1024 < starts[0].get("killed_at_ndata", 0) < 2048:
+        raise AssertionError(f"start 1 was not killed mid-slice past its checkpoint: {out}")
+    if resumed != ["Training from 0 kdata to 2 kdata:", "Training from 1 kdata to 2 kdata:"]:
+        raise AssertionError(f"start 2 did not resume at the checkpoint: {out}")
+    if out["common_log_points"] != 32 or out["replayed_log_points"] < 1 or not caught:
+        raise AssertionError(f"the soak's loss parity did not cover the run or missed its fault: {out}")
+    per_start = (2048 - 1024) // 64 * 2 * _attention_blocks(yaml_load_file(model_config)) \
+        if device.type == "cuda" else 0
+    if out["launches"] != {"attention_fwd": per_start, "attention_bwd": per_start}:
+        raise AssertionError(f"the finishing start's attention launches {out['launches']}, want {per_start}")
+    return out
+
+
+def phase15c_sweep(root, paths, snapshot_dir, device, hours, n_attn, window) -> dict:
+    """15c: ``scripts.likelihood_sweep`` (its ``main``, in this process) on
+    ``s16_t6.yml`` cut to STUDY_STEPS steps and 2 samples: trial 0 (the COSMO
+    point), trial 1 drawn from ``--base-seed`` 99, and ``--uncond``. Every
+    row scored with finite numbers, trial 1 the draw of ``set_random_seed(99,
+    1)`` (base seed 98, the planted fault, draws another), the ranked table,
+    the control's floors, and the attention-forward launches forwards x
+    attention blocks."""
+    import contextlib
+    import io
+
+    from climate2weather_tpu_torch.exp import downscaling
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
+    from climate2weather_tpu_torch.scripts import likelihood_sweep
+    from climate2weather_tpu_torch.utils.seeding import set_random_seed
+
+    t0 = time.time()
+    cfg = yaml_load_file(PREDICT_CONFIGS / "s16_t6.yml")
+    cfg.update(model_path=str(snapshot_dir), data_path=paths["data"], quantile_path=paths["quantiles"],
+               observation_path=paths["data"], num_sampling_steps=STUDY_STEPS)
+    config_path = root / "sweep_base.yml"
+    yaml_dump_file(cfg, config_path)
+    out_dir = root / "sweep"
+    counts = _counts_zero()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        likelihood_sweep.main(["--out", str(out_dir), "--config", str(config_path), "--trials", "1",
+                               "--num-samples", "2", "--uncond", "--uncond-samples", "2",
+                               "--device", device.type])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = counts["attention_fwd"]
+    expect = 3 * n_attn * _expected_forwards(dict(cfg, num_samples=2), hours, window) if device.type == "cuda" else 0
+    rows = [json.loads(ln) for ln in (out_dir / "sweep.jsonl").read_text().splitlines()]
+    set_random_seed(99, 1)
+    drawn = downscaling._draw_likelihood_hparams()
+    set_random_seed(98, 1)
+    other = downscaling._draw_likelihood_hparams()
+    table = [ln for ln in (out_dir / "RANKING.md").read_text().splitlines() if ln[:3].strip("| ").isdigit()]
+    floors = json.loads((out_dir / "uncond_metrics.json").read_text())
+    rec = {"rows": [{k: r.get(k) for k in ("trial", "sigma", "gamma", "score", "w2_ratio", "melr_ratio",
+                                           "calib_penalty", "error")} for r in rows],
+           "ranked": table, "floors_finite": all(np.isfinite(x) for f in floors.values() for x in f.values()),
+           "drawn_equal": [rows[1]["sigma"], rows[1]["gamma"]] == [list(drawn[0]), drawn[1]] if len(rows) > 1 else False,
+           "fault_drawn_equal": [rows[1]["sigma"], rows[1]["gamma"]] == [list(other[0]), other[1]] if len(rows) > 1 else None,
+           "attention_launches": launches, "expected_launches": expect, "dir": str(out_dir)}
+    emit("15c", t0, **{k: v for k, v in rec.items() if k != "dir"})
+    scored = [r for r in rows if all(np.isfinite(r.get(k, np.nan)) for k in ("score", "w2_ratio", "melr_ratio",
+                                                                           "calib_penalty"))]
+    if [r["trial"] for r in rows] != [0, 1] or len(scored) != 2:
+        raise AssertionError(f"the sweep did not score trials 0 and 1: {rec}\n{printed.getvalue()[-3000:]}")
+    if not rec["drawn_equal"] or rec["fault_drawn_equal"]:
+        raise AssertionError(f"trial 1 is not the draw of base seed 99: {rec}")
+    if len(table) != 2 or not rec["floors_finite"]:
+        raise AssertionError(f"the ranking or the control's floors are missing: {rec}")
+    if launches != expect:
+        raise AssertionError(f"attention launches {launches} != {expect}")
+    return rec
+
+
+def phase15d_ablation(root, paths, snapshot_dir, device, n_attn, window, hours) -> dict:
+    """15d: ``scripts.sampler_ablation`` with ``--only`` the rows
+    STUDY_ABLATION at STUDY_STEPS steps and 2 samples: a table row and finite
+    scores for each, each cell's ``FIDELITY.md``, and the launches."""
+    import contextlib
+    import io
+
+    from climate2weather_tpu_torch.scripts import sampler_ablation
+
+    t0 = time.time()
+    out_dir = root / "ablation"
+    counts = _counts_zero()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        sampler_ablation.main(["--snapshot", str(snapshot_dir), "--data-nc", paths["data"], "--quantiles",
+                               paths["quantiles"], "--out", str(out_dir), "--start-time", STUDY_START,
+                               "--num-samples", "2", "--steps", str(STUDY_STEPS), "--only", *STUDY_ABLATION,
+                               "--device", device.type])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    matrix = dict(sampler_ablation.MATRIX)
+    expect = 0
+    if device.type == "cuda":
+        for name in STUDY_ABLATION:  # the guided run and the control, each one group of 2 in one chunk
+            run = {"batch_size": 128, "num_sampling_steps": STUDY_STEPS, "num_samples": 2, "ensemble_batch": 3,
+                   "num_corrections": matrix[name].get("corrections", 0)}
+            expect += 2 * n_attn * _expected_forwards(run, hours, window)
+    summary = json.loads((out_dir / "ablation.json").read_text())
+    table = (out_dir / "ABLATION.md").read_text().splitlines()
+    rec = {"rows": [ln for ln in table if ln.startswith("| ") and ln.split("|")[1].strip() in STUDY_ABLATION],
+           "finite": all(np.isfinite(x) for cell in summary.values() for kind in cell.values() for x in kind.values()),
+           "reports": [(out_dir / n / "FIDELITY.md").exists() for n in STUDY_ABLATION],
+           "attention_launches": counts["attention_fwd"], "expected_launches": expect}
+    emit("15d", t0, **rec)
+    if len(rec["rows"]) != 2 or set(summary) != set(STUDY_ABLATION) or not rec["finite"] or not all(rec["reports"]):
+        raise AssertionError(f"the ablation's table or scores are incomplete: {rec}\n{printed.getvalue()[-3000:]}")
+    if rec["attention_launches"] != expect:
+        raise AssertionError(f"attention launches {rec['attention_launches']} != {expect}")
+    return rec
+
+
+def study_watch(root, paths, snapshot_dir, device, env) -> dict:
+    """15e's process: ``scripts.probe_watcher`` on a run directory holding
+    ``snapshot_dir`` under an on-cadence name (kdata 9,437: 9.0 Mi, every 3
+    Mi) and an off-cadence one (9,961: 9.5 Mi), one poll at interval 0 and
+    one idle poll; its probe is a process of its own."""
+    run, probes = root / "watch", root / "probes"
+    run.mkdir()
+    for kdata in (9437, 9961):
+        os.symlink(os.path.abspath(snapshot_dir), run / f"network-snapshot-{kdata:07d}-0.999900")
+    cmd = [sys.executable, "-m", "climate2weather_tpu_torch.scripts.probe_watcher", str(run), str(probes),
+           "--data-nc", paths["data"], "--quantiles", paths["quantiles"], "--start-time", STUDY_START,
+           "--every-mi", "3", "--rate", "0.999900", "--num-samples", "2", "--steps", str(STUDY_STEPS),
+           "--poll-sec", "0", "--max-idle-polls", "1", "--device", device.type]
+    (out,), seconds, _ = _run_processes([cmd], [env], label="15e watcher")
+    return {"out": out, "seconds": seconds, "run": run, "probes": probes}
+
+
+def phase15e_check(rec, device, n_attn, window, hours, env) -> dict:
+    """15e: exactly the due snapshot probed, in a process of its own, its
+    ``FIDELITY.md`` written and ``progression_report`` tabulating it; the
+    planted faults, a 2-Mi cadence and another EMA rate, find nothing due."""
+    from climate2weather_tpu_torch.scripts import probe_watcher, progression_report
+
+    t0 = time.time()
+    lines = rec["out"].splitlines()
+    rows = list(progression_report.progression_rows(rec["probes"]))
+    table = progression_report.format_table(rows, ["w2", "melr", "ssim", "crps", "spread_skill", "rank_ri"])
+    probe = _process_launches(env, "climate2weather_tpu_torch/exp/fidelity.py")
+    run = {"batch_size": 128, "num_sampling_steps": STUDY_STEPS, "num_samples": 2, "ensemble_batch": 3,
+           "num_corrections": 0}
+    expect = 2 * n_attn * _expected_forwards(run, hours, window) if device.type == "cuda" else 0
+    out = {"probed": [ln for ln in lines if "probing" in ln], "exits": [ln for ln in lines if " rc=" in ln],
+           "idle_exit": any("idle limit reached" in ln for ln in lines),
+           "probe_dirs": sorted(p.name for p in rec["probes"].iterdir()),
+           "table_rows": [ln for ln in table.splitlines() if ln.startswith("| 9.44M")],
+           "fault_cadence_2mi": probe_watcher.due_snapshots(rec["run"], "0.999900", 2),
+           "fault_rate": probe_watcher.due_snapshots(rec["run"], "0.999000", 3),
+           "launches": probe, "expected_launches": expect, "watcher_s": rec["seconds"]}
+    emit("15e", t0, **out)
+    if len(out["probed"]) != 1 or "network-snapshot-0009437-0.999900" not in out["probed"][0] or \
+            out["exits"] != ["[probe_watcher] network-snapshot-0009437-0.999900 rc=0"] or not out["idle_exit"]:
+        raise AssertionError(f"the watcher did not probe exactly the due snapshot once: {out}\n{rec['out'][-3000:]}")
+    if out["probe_dirs"] != ["9437"] or [k for k, _ in rows] != [9437] or len(out["table_rows"]) != 6:
+        raise AssertionError(f"the progression table does not hold the probe: {out}\n{table}")
+    if out["fault_cadence_2mi"] or out["fault_rate"]:
+        raise AssertionError(f"a planted cadence or rate found snapshots due: {out}")
+    if probe["attention_fwd"] != expect:
+        raise AssertionError(f"the probe's attention launches {probe}, want {expect}")
+    return out
+
+
+def study_design(root, paths, ablation_dir, env) -> dict:
+    """15f's ``scripts.calibration_design_study`` on 15d's first guided run,
+    a process of its own (host numpy, beside 15c); returns its table's rows
+    and seconds."""
+    guided = ablation_dir / STUDY_ABLATION[0] / "guided" / "001_config"
+    cmd = [sys.executable, "-m", "climate2weather_tpu_torch.scripts.calibration_design_study", "--guided-dir",
+           str(guided), "--train-h5", paths["train"], "--quantiles", paths["quantiles"], "--out",
+           str(root / "design_study.md")]
+    _, seconds, _ = _run_processes([cmd], [env], label="15f design study")
+    rows = [ln for ln in (root / "design_study.md").read_text().splitlines()
+            if ln.startswith("| ") and "---" not in ln and "variant" not in ln]
+    return {"rows": rows, "seconds": seconds}
+
+
+def phase15f_posthoc(root, sweep_dir, ablation_dir, design) -> dict:
+    """15f: ``scripts.spectral_bands`` on 15d's cells, ``amplitude_ratio`` on
+    15c's trials and 15d's guided runs, and ``design``, the rows of
+    :func:`study_design`: every value finite; the planted fault, a NaN in
+    one sample's copy, shows in ``amplitude_ratio``."""
+    import contextlib
+    import io
+    import shutil
+
+    from climate2weather_tpu_torch.data.grid import GridDataset, open_grid
+    from climate2weather_tpu_torch.scripts import amplitude_ratio, spectral_bands
+
+    t0 = time.time()
+    cells = [ablation_dir / n for n in STUDY_ABLATION]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        spectral_bands.main([str(c) for c in cells])
+    bands = [ln for ln in printed.getvalue().splitlines() if ln.startswith("| ") and "---" not in ln
+             and "variable" not in ln]
+    cfg_dirs = sorted(sweep_dir.glob("trials/t*/0*")) + [c / "guided" / "001_config" for c in cells]
+    amp = [ln for ln in amplitude_ratio.report([str(d) for d in cfg_dirs]).splitlines()
+           if ln.startswith("| ") and "---" not in ln and "variable" not in ln]
+    design_rows = design["rows"]
+    nan_dir = root / "nan_case"
+    nan_dir.mkdir()
+    shutil.copy(cfg_dirs[0] / "ground_truth.nc", nan_dir / "ground_truth.nc")
+    smp = open_grid(str(cfg_dirs[0] / "gen_sample_000.nc"))
+    planted = {k: v.copy() for k, v in smp.data_vars.items()}
+    planted["uas"][0, 0, 0] = np.nan
+    GridDataset(planted, smp.coords, smp.attrs).to_file(str(nan_dir / "gen_sample_000.nc"))
+    fault = amplitude_ratio.amplitude_ratios(nan_dir)
+    vals = {"bands": _numbers(bands), "amplitude": _numbers([ln.split("|", 2)[2] for ln in amp]),
+            "design": _numbers([ln.split("|", 3)[3] for ln in design_rows])}
+    out = {"band_rows": len(bands), "amplitude_rows": len(amp), "design_rows": len(design_rows),
+           "design_s": design["seconds"],
+           "values": {k: len(v) for k, v in vals.items()},
+           "finite": {k: bool(v) and all(np.isfinite(v)) for k, v in vals.items()},
+           "fault_finite": bool(np.isfinite(fault["uas"]).all()), "cfg_dirs": len(cfg_dirs)}
+    emit("15f", t0, **out)
+    # 4 variables x 3 sources x 3 bands per cell; 4 rows per directory; 8
+    # variants + the baseline x 2 winds
+    if (out["band_rows"], out["amplitude_rows"], out["design_rows"]) != (24, 4 * len(cfg_dirs), 18):
+        raise AssertionError(f"the post-hoc tables are incomplete: {out}")
+    if not all(out["finite"].values()) or out["fault_finite"]:
+        raise AssertionError(f"a post-hoc value is not finite, or the NaN went unseen: {out}")
+    return out
+
+
+def phase15_study(snapshot_dir, device, model_config=MODEL_CONFIG, res=128, hours=49, frames=140, seed=0,
+                  soak=None, plain_spread=None) -> dict:
+    """Phase 15, 15a-15f (see the module docstring), in one scratch
+    directory, with the packages of PHASE15_BLOCKED unimportable in this
+    process and in every process the phase starts. 15a's ``train`` process
+    and 15e's watcher (with its probe) run on threads while this process
+    fabricates 15a's checkpoint and runs 15d, 15c and 15a's yardstick, and
+    15f's design study (host numpy, a process) runs on a thread from the end
+    of 15d. ``soak`` is 15b's record from phase 10
+    (run beside 10e on 10a's plain run); without one, 15b runs here, after
+    its own plain run of 10a's command on a thread. ``plain_spread`` is
+    10a's.
+    Returns each part's record."""
+    import shutil
+    import tempfile
+    import threading
+
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+
+    loaded_before = sorted(m for m in PHASE15_BLOCKED if sys.modules.get(m) is not None)
+    for name in PHASE15_BLOCKED:
+        sys.modules[name] = None
+    root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-study-"))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        env = _study_env(device, root)
+        data_path = root / "train.h5"
+        write_training_h5(data_path, synthetic_inputs(frames, res, res, 4, 1, seed)[0])
+        paths = write_predict_inputs(root, res, hours, seed)
+        snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
+        window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
+        n_attn = _attention_blocks(snap_cfg["network_kwargs"])
+        done, threads = {}, []
+
+        def start(name, fn):
+            def run():
+                try:
+                    done[name] = fn()
+                except BaseException as e:  # noqa: BLE001 - raised again on this thread
+                    done[name + "_error"] = e
+            th = threading.Thread(target=run, daemon=True)
+            th.start()
+            threads.append(th)
+
+        def join():
+            for th in threads:
+                th.join()
+            errors = [v for k, v in done.items() if k.endswith("_error")]
+            if errors:
+                raise errors[0]
+
+        start("15e", lambda: study_watch(root, paths, snapshot_dir, device, env))
+        fab = study_fabricate(root, snapshot_dir)
+        start("15a", lambda: study_resume(fab, data_path, device, model_config, res, seed, env))
+        if soak is None:
+            def own_soak():
+                argv = _train_argv(root / "a_plain", data_path, model_config, res, 64, 32, 2048, seed, device,
+                                   snapshot=2048)
+                _run_processes([[sys.executable, "-m", "climate2weather_tpu_torch.train"] + argv], [env],
+                               label="15b reference")
+                return root / "a_plain" / "r"
+            start("15b_reference", own_soak)
+        try:
+            d = phase15d_ablation(root, paths, snapshot_dir, device, n_attn, window, hours)
+            start("design", lambda: study_design(root, paths, root / "ablation", env))
+            c = phase15c_sweep(root, paths, snapshot_dir, device, hours, n_attn, window)
+            ref = study_reference(snapshot_dir, data_path, device, model_config, res, seed)
+        finally:
+            join()
+        f = phase15f_posthoc(root, pathlib.Path(c["dir"]), root / "ablation", done["design"])
+        a = phase15a_check(done["15a"], ref, snapshot_dir, device, model_config, env, plain_spread)
+        del ref
+        e = phase15e_check(done["15e"], device, n_attn, window, hours, env)
+        b = soak if soak is not None else phase15b_soak(root, data_path, device, model_config, res, seed,
+                                                        done["15b_reference"], env)
+        leaked = [r for r in _study_processes(env) if r["leaked"]]
+        if leaked:
+            raise AssertionError(f"a phase-15 process imported a blocked package: {leaked}")
+        processes = len(_study_processes(env))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"15a": a, "15b": b, "15c": c, "15d": d, "15e": e, "15f": f, "processes": processes,
+            "loaded_before": loaded_before}
+
+
+def phase15_summary(study: dict) -> dict:
+    """Phase 15's line: the gates' readings, the kill's ndata and each part's
+    launches."""
+    a, b, c, d, e = (study[k] for k in ("15a", "15b", "15c", "15d", "15e"))
+    return {"resume_bits_equal": a["bits_equal"], "resume_max_abs_diff": a["max_abs_diff"],
+            "old_loader_fault_max_abs_diff": a["fault_max_abs_diff"], "resume_counts": [a["adam_count"],
+                                                                                       a["schedule_count"]],
+            "soak_killed_at_ndata": b["restarts"][0].get("killed_at_ndata"),
+            "soak_common_log_points": b["common_log_points"], "soak_replayed": b["replayed_log_points"],
+            "soak_fault_caught": b["fault_caught"], "sweep_scores": [r["score"] for r in c["rows"]],
+            "ablation_rows": len(d["rows"]), "probed": e["probe_dirs"], "processes": study["processes"],
+            "launches": study_launches(study)}
+
+
+def study_launches(study: dict) -> dict:
+    """The attention launches of each part of phase 15, by kernel."""
+    a, b, c, d, e = (study[k] for k in ("15a", "15b", "15c", "15d", "15e"))
+    return {"attention_fwd": {"15a": a["launches"]["attention_fwd"], "15b": (b["launches"] or {}).get("attention_fwd"),
+                              "15c": c["attention_launches"], "15d": d["attention_launches"],
+                              "15e": e["launches"]["attention_fwd"]},
+            "attention_bwd": {"15a": a["launches"]["attention_bwd"],
+                              "15b": (b["launches"] or {}).get("attention_bwd")}}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--child"]:  # one process of phase 10 (see child_step, child_cli)
@@ -4680,6 +5397,10 @@ def main(argv=None) -> int:
     ap.add_argument("--host-stream-only", action="store_true",
                     help="phases 0 and 1, then phase 14 (the host-streaming tier against the device path, its "
                          "memory bound, a host-streamed predict), and stop (no device line)")
+    ap.add_argument("--study-only", action="store_true",
+                    help="phases 0 and 1, then phase 15 (the study and operations drivers: fabricated resume, "
+                         "soak, sweep, ablation, probe watcher, post-hoc diagnostics; 15b with its own plain "
+                         "run), and stop (no device line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs on the card only",
@@ -4750,6 +5471,11 @@ def _run(args) -> int:
         emit(14, t14, **phase14_summary(phase14_host_stream(SNAPSHOT, device, seed=args.seed)))
         print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
         return 0
+    if args.study_only:
+        t15 = time.time()
+        emit(15, t15, **phase15_summary(phase15_study(SNAPSHOT, device, seed=args.seed)))
+        print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
+        return 0
     rows, year_fwd, exact_bwd = phase2_kernels(device, args.seed)
     phase3_network(SNAPSHOT, device, seed=args.seed)
     blocks = phase3b_winograd_blocks(SNAPSHOT, device, seed=args.seed)
@@ -4764,7 +5490,7 @@ def _run(args) -> int:
     modes = phase9_modes(SNAPSHOT, device, seed=args.seed)
     emit(9, t9, launches={"9a": modes["9a"]["launches"], "9c": modes["9c"]["attention_launches"]})
     t10 = time.time()
-    ranks = phase10_multi_process(SNAPSHOT, device, seed=args.seed)
+    ranks = phase10_multi_process(SNAPSHOT, device, seed=args.seed, soak=True)
     emit(10, t10, **phase10_summary(ranks))
     t11 = time.time()
     data = phase11_data(SNAPSHOT, device, seed=args.seed)
@@ -4785,6 +5511,10 @@ def _run(args) -> int:
     t14 = time.time()
     stream = phase14_host_stream(SNAPSHOT, device, seed=args.seed)
     emit(14, t14, **phase14_summary(stream))
+    t15 = time.time()
+    study = phase15_study(SNAPSHOT, device, seed=args.seed, soak=ranks["15b"],
+                          plain_spread=ranks["10a"]["plain_spread"])
+    emit(15, t15, **phase15_summary(study))
     # each kernel's launches on its own path: sampling for the forward (and
     # the year path's, at its own shape), training for the backward, the
     # ModResidualBlock composition for the Winograd conv
@@ -4829,6 +5559,10 @@ def _run(args) -> int:
     # host tier's DPM-Solver++(2M) run there (14b) and its predict (14e)
     rows["attention_fwd"]["host_stream_path"] = {f"{k}_launches": stream[k]["attention_launches"]
                                                  for k in ("14a", "14b", "14e")}
+    # phase 15: the fabricated resume (15a), the soak's finishing start
+    # (15b), the sweep (15c), the ablation (15d) and the watcher's probe (15e)
+    for name, by_part in study_launches(study).items():
+        rows[name]["study_path"] = {f"{k}_launches": v for k, v in by_part.items()}
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -9,7 +9,11 @@ climate2weather_tpu/training/checkpoint.py).
    chain lays it out (``"0"``: ``count``/``mu``/``nu`` of ``scale_by_adam``,
    ``"1"``: ``{}`` for the weight decay, ``"2"``: ``count`` of the
    schedule) and ``emas``. A JAX checkpoint resumes here and a checkpoint of
-   this package resumes in JAX.
+   this package resumes in JAX. The two counts may differ: Adam's is its
+   bias correction's (AdamW's per-parameter ``"step"``, 0 for fresh
+   moments), the schedule's is ``step``, as a state fabricated from a
+   snapshot (``climate2weather_tpu_torch.scripts.fabricate_resume_state``)
+   holds them.
 2. **Inference snapshot** ``network-snapshot-{kdata:07d}-{rate}/``:
    ``params.msgpack`` (flax layout) and ``config.yaml``.
 
@@ -55,6 +59,15 @@ def _moments(state: TrainState):
     return out
 
 
+def adam_count(optimizer: torch.optim.Optimizer) -> int:
+    """AdamW's bias-correction count: its parameters' common ``"step"``, 0
+    before the first update."""
+    counts = {int(st["step"]) for st in optimizer.state.values() if "step" in st}
+    if len(counts) > 1:
+        raise ValueError(f"AdamW's parameters hold different counts {sorted(counts)}")
+    return counts.pop() if counts else 0
+
+
 def state_to_flax(state: TrainState) -> dict:
     """Host copy of ``state`` as the flax state dict of the JAX TrainState
     (numpy arrays; the device-to-host copies happen here)."""
@@ -65,7 +78,7 @@ def state_to_flax(state: TrainState) -> dict:
         "params": to_flax_params(state.net.state_dict()),
         "opt_state": {
             "0": {
-                "count": count.copy(),
+                "count": np.asarray(adam_count(state.optimizer), np.int32),
                 "mu": to_flax_params({k: m[0] for k, m in moments.items()}),
                 "nu": to_flax_params({k: m[1] for k, m in moments.items()}),
             },
@@ -79,23 +92,28 @@ def state_to_flax(state: TrainState) -> dict:
 @torch.no_grad()
 def load_flax_state(state: TrainState, tree: dict) -> TrainState:
     """Restore ``state`` in place from the flax state dict of a JAX
-    TrainState (as :func:`state_to_flax` writes it)."""
+    TrainState (as :func:`state_to_flax` writes it). The schedule's count
+    must equal ``step``; Adam's count becomes AdamW's ``"step"``, and where
+    it is 0 the optimizer keeps no state (fresh moments)."""
     params = dict(state.net.named_parameters())
     step = int(np.asarray(tree["step"]))
     adam = tree["opt_state"]["0"]
     if set(tree["opt_state"]) != {"0", "1", "2"} or tree["opt_state"]["1"] != {}:
         raise ValueError(f"not optax's adamw state: keys {sorted(tree['opt_state'])}")
-    counts = {int(np.asarray(adam["count"])), int(np.asarray(tree["opt_state"]["2"]["count"]))}
-    if counts != {step}:
-        raise ValueError(f"optimizer counts {sorted(counts)} differ from step {step}")
+    count = int(np.asarray(adam["count"]))
+    schedule_count = int(np.asarray(tree["opt_state"]["2"]["count"]))
+    if schedule_count != step:
+        raise ValueError(f"the schedule's count {schedule_count} differs from step {step}")
+    if count < 0:
+        raise ValueError(f"Adam's count {count} is negative")
     state.net.load_state_dict(fit_state_dict(tree["params"], params, "params"), strict=True)
     mu = fit_state_dict(adam["mu"], params, "opt_state mu")
     nu = fit_state_dict(adam["nu"], params, "opt_state nu")
     state.optimizer.state.clear()
-    if step > 0:
+    if count > 0:
         for name, p in params.items():
             state.optimizer.state[p] = {
-                "step": torch.tensor(float(step), dtype=torch.float32),
+                "step": torch.tensor(float(count), dtype=torch.float32),
                 "exp_avg": mu[name].to(p.device),
                 "exp_avg_sq": nu[name].to(p.device),
             }

@@ -43,8 +43,10 @@ Draws = Optional[Sequence[tuple]]  # per microbatch: (t [B,1,1,1], eps like x)
 @dataclass
 class TrainState:
     """What a checkpoint holds: the update count (``cur_ndata = step *
-    batch_size``), the network with its fp32 parameters, the optimizer with
-    its moments, and one fp32 EMA per rate."""
+    batch_size``, the LR schedule's position), the network with its fp32
+    parameters, the optimizer with its moments and its own bias-correction
+    count (AdamW's per-parameter ``"step"``, which a state fabricated from a
+    snapshot starts at 0 whatever ``step`` is), and one fp32 EMA per rate."""
 
     step: int
     net: nn.Module

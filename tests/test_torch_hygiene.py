@@ -16,7 +16,8 @@ predict from the debiased file, every process it starts blocked itself), its
 phase-13 stores and figure data (fill values, the zarr store and its codec,
 a predict from zarr stores, every figure kind's data), its phase-14
 host-streaming tier (eps against the device path, a sample against the long
-path, a host-streamed predict), or
+path, a host-streamed predict), its phase-15 study and operations drivers
+(every process they start blocked by a ``sitecustomize`` on its path), or
 its phase-10 multi-process runs (every rank's process
 blocked the same way, by a ``sitecustomize`` on its path) at a tiny size (the
 kernel phases need the card).
@@ -133,6 +134,12 @@ elif mode == "modes":
                                  overrides={"num_sampling_steps": 4},
                                  long_overrides={"long_trajectory_threshold": 16})
     out = {"p9": p9}
+elif mode == "study":
+    # phase 15 at 32 x 32 with the tiny snapshot and its architecture as the
+    # model config: 40 training frames, 15b with its own plain run
+    p15 = chip_smoke.phase15_study(snap, cpu, model_config=pathlib.Path(snap).parent / "study_model.yml", res=32,
+                                   frames=40)
+    out = {"p15": chip_smoke.phase15_summary(p15), **{k: p15[k] for k in ("15a", "15b", "15c", "15d", "15e", "15f")}}
 else:
     p5 = chip_smoke.phase5_training(cpu, model_config=chip_smoke.REPO / "configs" / "tiny_unet.yml",
                                     res=16, frames=40, compute_dtype=torch.float32)
@@ -406,6 +413,48 @@ def test_host_stream_phase_needs_only_stdlib_torch_numpy(tmp_path):
     assert b["peak_host_tier"] is None and d["peak_long"] is None  # device memory is the card's
     assert c["sde_equal"] and c["sde_finite"] and c["pc_finite"] and c["L"] == 20
     assert e["finite"] and "gen_sample_001.nc" in e["outputs"] and "observation.nc" in e["outputs"]
+
+
+def test_study_phase_needs_only_stdlib_torch_numpy(tmp_path):
+    """Phase 15 on the CPU with the tiny snapshot, with jax, flax, yaml,
+    msgpack, h5py, scipy, matplotlib, click and the JAX package unimportable
+    here and, through the phase's ``sitecustomize``, in every process it
+    starts and their children: the fabricated checkpoint resumed by ``train``
+    for two fresh-AdamW updates bit for bit against this process's, the old
+    loader's fault told apart; the soak's chain killed past its checkpoint
+    with loss parity and its planted ulp caught; the scored sweep, two
+    ablation rows, one watcher poll probing exactly the due snapshot, and the
+    post-hoc diagnostics finite."""
+    from climate2weather_tpu_torch.io.snapshot import yaml_dump_file
+
+    cfg = tiny_config(channels=52, window=13)
+    _, params = jax_net_and_params(cfg, hw=32)
+    snap = write_snapshot(tmp_path, cfg, params)
+    yaml_dump_file({k: v for k, v in cfg["network_kwargs"].items() if k != "channels"},
+                   pathlib.Path(snap).parent / "study_model.yml")
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(REPO), "study", snap, str(torch.get_num_threads())],
+        capture_output=True, text=True, timeout=900, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for name in ("fabricate_resume_state", "soak_training", "likelihood_sweep", "sampler_ablation",
+                 "probe_watcher", "progression_report", "spectral_bands", "amplitude_ratio",
+                 "calibration_design_study"):
+        assert f"climate2weather_tpu_torch.scripts.{name}" in out["modules"]
+    a, b, c, d, e, f = (out[k] for k in ("15a", "15b", "15c", "15d", "15e", "15f"))
+    assert a["bits_equal"] and a["fault_max_abs_diff"] > 0 and (a["adam_count"], a["schedule_count"]) == (2, 147408)
+    assert a["logged_loss"] == a["fresh_loss"] and a["launches"] == {"attention_fwd": 0, "attention_bwd": 0}
+    assert [r["killed"] for r in b["restarts"]] == [True, False] and b["fault_caught"]
+    assert b["common_log_points"] == 32 and b["loss_parity_mismatches"] == 0
+    assert [r["trial"] for r in c["rows"]] == [0, 1] and c["drawn_equal"] and not c["fault_drawn_equal"]
+    assert len(d["rows"]) == 2 and d["finite"] and all(d["reports"])
+    assert e["probe_dirs"] == ["9437"] and len(e["probed"]) == 1 and e["idle_exit"]
+    assert all(f["finite"].values()) and not f["fault_finite"]
+    # at their exits: the resume, the plain run, the soak's finishing start
+    # (the killed one cannot), the watcher and its probe, the design study
+    assert out["p15"]["processes"] == 6
 
 
 # what no module of the port, nor chip_smoke.py and the pickle writer it
