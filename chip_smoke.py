@@ -62,6 +62,11 @@ Numbered phases, each printing one JSON line with its seconds:
    external-observation and ``guidance_off`` modes (8 steps), reading every
    ``.nc`` back: finite,
    A(x) = y where the config projects, 6 attention launches per forward;
+   the external-observation run reads the committed
+   ``tests/fixtures/observation_latest.nc`` (that observation written by
+   h5py with ``libver='latest'``: a version-2 B-tree chunk index, shuffle,
+   lzf and fletcher32, compact coordinates) once its times and coordinates
+   are those of the written observation;
 7. the canonical training drive, ``python -m climate2weather_tpu_torch.train``
    with ``configs/tiny_unet.yml`` at 32 x 32 (attention over 256 tokens,
    forward and backward) from a file the port wrote, 4 steps: finite losses
@@ -151,7 +156,16 @@ Numbered phases, each printing one JSON line with its seconds:
    and version-2 B-trees, single-chunk, fixed-array and extensible-array
    chunk indexes) through ``io.hdf5.File`` and ``open_grid``, equal to
    ``netcdf_c_contents.npz`` bit for bit, and a flipped byte in each kind
-   of checksummed structure raising ``ChecksumError``; (11b) the drill of
+   of checksummed structure raising ``ChecksumError``; then the committed
+   fixtures of the structures h5py writes (``tests/fixtures/h5py_*.h5`` of
+   ``tests/_h5py_layout_fixtures.py``: soft and external links in
+   symbol-table and new-style groups, implicit, version-2 B-tree and
+   swizzled extensible-array chunk indexes, compact and virtual layouts,
+   fletcher32, lzf, n-bit and scale-offset filters, enum, array, compound
+   and committed datatypes, h5py's selections), every dataset and selection
+   equal to ``h5py_layouts_contents.npz`` bit for bit, the dangling links
+   listed and raising ``KeyError`` only when followed, a flipped byte in a
+   fletcher32 chunk raising ``ChecksumError``; (11b) the drill of
    ``tests/test_cosmo_layout.py`` through ``python -m
    climate2weather_tpu_torch.data.cli``: a raw archive over 473 x 500 (four
    variables, a 2005 decoy, a missing tas hour), ``extract-patch-folder
@@ -1321,30 +1335,46 @@ PREDICT_RUNS = (
 )
 # offset and scale of each variable in physical units (Pa, K, m/s)
 PHYSICAL = {"psl": (101000.0, 800.0), "tas": (285.0, 5.0), "uas": (0.0, 4.0), "vas": (0.0, 4.0)}
+# the external-observation run's file at 128 x 128 and 49 hours from seed 0:
+# coarse_observation(predict_grid()) written by h5py (libver 'latest', a
+# version-2 B-tree chunk index, shuffle + lzf + fletcher32, compact
+# coordinates; tests/_h5py_layout_fixtures.py)
+OBSERVATION_FIXTURE = REPO / "tests" / "fixtures" / "observation_latest.nc"
 
 
-def write_predict_inputs(root: pathlib.Path, res=128, hours=49, seed=0, start="2014-04-07T04") -> dict:
-    """Phase 6's files, through the port's writers: a synthetic ``hours``-hour
-    grid of psl, tas, uas, vas from ``start``, its quantile file, a
-    training file normalized with them, and a coarse observation grid (the
-    16x block means every 6 hours, tas biased by 1 K, as a climate model's
-    would be)."""
+def predict_grid(res=128, hours=49, seed=0, start="2014-04-07T04"):
+    """Phase 6's synthetic ``hours``-hour grid of psl, tas, uas, vas from
+    ``start`` (a ``GridDataset`` in physical units)."""
     from climate2weather_tpu_torch.data.grid import GridDataset
-    from climate2weather_tpu_torch.data.pipeline import compute_quantiles, merged_to_normed_h5
 
     gt, _ = synthetic_inputs(hours, res, res, len(PHYSICAL), 1, seed)
     time_axis = np.datetime64(start, "ns") + np.arange(hours) * np.timedelta64(1, "h")
     coords = {"time": time_axis, "rlat": np.linspace(-5.0, 5.0, res), "rlon": np.linspace(-5.0, 5.0, res)}
-    ds = GridDataset({v: (gt[..., i] * sc + off).astype(np.float32)
-                      for i, (v, (off, sc)) in enumerate(sorted(PHYSICAL.items()))},
-                     coords, {"source": "chip_smoke synthetic"})
+    return GridDataset({v: (gt[..., i] * sc + off).astype(np.float32)
+                        for i, (v, (off, sc)) in enumerate(sorted(PHYSICAL.items()))},
+                       coords, {"source": "chip_smoke synthetic"})
+
+
+def coarse_observation(ds):
+    """A coarse observation of the grid ``ds``: the 16x block means every 6
+    hours, tas biased by 1 K, as a climate model's would be."""
+    obs = ds.coarsen_mean(16).isel_time(np.arange(0, len(ds.time), 6))
+    return obs.map(lambda k, v: v + np.float32(1.0 if k == "tas" else 0.0))
+
+
+def write_predict_inputs(root: pathlib.Path, res=128, hours=49, seed=0, start="2014-04-07T04") -> dict:
+    """Phase 6's files, through the port's writers: the grid of
+    :func:`predict_grid`, its quantile file, a training file normalized
+    with them, and its :func:`coarse_observation`."""
+    from climate2weather_tpu_torch.data.pipeline import compute_quantiles, merged_to_normed_h5
+
+    ds = predict_grid(res, hours, seed, start)
     paths = {k: str(root / f) for k, f in (("data", "merged-allvars.nc"), ("quantiles", "quantiles.nc"),
                                           ("train", "train_normed.h5"), ("obs", "observation-coarse.nc"))}
     ds.to_file(paths["data"])
     compute_quantiles(ds).to_file(paths["quantiles"])
     merged_to_normed_h5(paths["data"], paths["quantiles"], paths["train"])
-    obs = ds.coarsen_mean(16).isel_time(np.arange(0, hours, 6))
-    obs.map(lambda k, v: v + np.float32(1.0 if k == "tas" else 0.0)).to_file(paths["obs"])
+    coarse_observation(ds).to_file(paths["obs"])
     return paths
 
 
@@ -1452,10 +1482,14 @@ def _predict_runs(root, paths, snapshot_dir, device, runs, hours, steps_override
     return records
 
 
-def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_override=None) -> dict:
+def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_override=None,
+                   observation=OBSERVATION_FIXTURE) -> dict:
     """``exp/downscaling.run`` (the ``predict`` entry point) from files the
     phase writes with the port's writers, with h5py made unimportable: the
-    runs of ``PREDICT_RUNS``, checked by :func:`_predict_runs`."""
+    runs of ``PREDICT_RUNS``, checked by :func:`_predict_runs`. The
+    external-observation run reads ``observation``, which must hold the
+    observation written here (:func:`_fixture_observation`); None keeps
+    the written one, for sizes the committed fixture is not made at."""
     import shutil
     import tempfile
 
@@ -1464,11 +1498,35 @@ def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_overri
     root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-predict-"))
     try:
         paths = write_predict_inputs(root, res, hours, seed)
+        observation = {"observation": "written by write_predict_inputs"} if observation is None else \
+            _fixture_observation(paths, pathlib.Path(observation))
         records = _predict_runs(root, paths, snapshot_dir, device, PREDICT_RUNS, hours, steps_override)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    emit(6, t0, runs=records)
-    return {"runs": records}
+    emit(6, t0, runs=records, **observation)
+    return {"runs": records, **observation}
+
+
+def _fixture_observation(paths: dict, fixture_path: pathlib.Path) -> dict:
+    """Point ``paths["obs"]`` at ``fixture_path`` once its variables
+    and coordinates are those of the observation :func:`write_predict_inputs`
+    wrote (times equal, latitudes and longitudes within 1e-9 degrees); the
+    values' largest difference is recorded (another numpy's FFT may round
+    the synthetic fields apart from the fixture's)."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+
+    fixture, written = open_grid(str(fixture_path)), open_grid(paths["obs"])
+    coords = {c: float(np.abs(getattr(fixture, c) - getattr(written, c)).max()) for c in ("rlat", "rlon")}
+    rec = {"observation": os.path.relpath(fixture_path, REPO),
+           "observation_times_equal": bool(np.array_equal(fixture.time, written.time)),
+           "observation_coord_max_diff": coords,
+           "observation_value_max_diff": max(float(np.abs(fixture.data_vars[v] - written.data_vars[v]).max())
+                                             for v in written.data_vars)}
+    if sorted(fixture.data_vars) != sorted(written.data_vars) or not rec["observation_times_equal"] \
+            or max(coords.values()) > 1e-9:
+        raise AssertionError(f"the observation fixture is not phase 6's observation: {rec}")
+    paths["obs"] = str(fixture_path)
+    return rec
 
 
 def phase7_tiny_training(device, seed=0, steps=4) -> dict:
@@ -3055,6 +3113,22 @@ FIXTURE_NAMES = ("v108", "latest")  # netCDF-C's 1.8 low bound; libver 'latest'
 CHECKSUMMED = (b"\x89HDF", b"OHDR", b"OCHK", b"FRHP", b"FHDB", b"FHIB", b"BTHD", b"BTLF", b"FAHD", b"FADB", b"EAHD",
                b"EAIB", b"EASB", b"EADB")
 PHASE11_BLOCKED = ("jax", "flax", "optax", "h5py", "scipy", "click", "netCDF4", "xarray", "climate2weather_tpu")
+# the HDF5 structures h5py writes (tests/_h5py_layout_fixtures.py): one file
+# per kind, the external links' and virtual dataset's source beside them
+LAYOUT_DANGLING = ("d", "de", "de2")  # links to nothing: listed, KeyError on access
+# reads of the selections fixture as h5py takes them: label -> (dataset, key)
+LAYOUT_SELECTIONS = {
+    "step2": ("chunked", np.s_[::2]),
+    "ellipsis": ("chunked", np.s_[...]),
+    "ellipsis_int": ("chunked", np.s_[..., 3]),
+    "rows": ("chunked", np.s_[[0, 3, 4, 8]]),
+    "negative_rows": ("chunked", np.s_[[-7, -1]]),
+    "mixed": ("chunked", np.s_[1, 1::2, [0, 2, 4]]),
+    "strided_box": ("chunked", np.s_[1:8:3, ::4, 1:]),
+    "array_index": ("contiguous", np.s_[:, np.array([1, 5])]),
+    "contiguous_step": ("contiguous", np.s_[2::3, ::2]),
+    "empty_list": ("contiguous", np.s_[[]]),
+}
 ARCHIVE_NAME = "{var}_EUR-6km_ECMWF-ERAINT_REA6_r1i1p1f1_COSMO_v1_{t0}-{t1}.nc"
 # (start, hours, 12-digit start stamp, end stamp): a 2005 decoy that the
 # year filter drops, two 2006 files (the second with a fully missing tas
@@ -3173,9 +3247,60 @@ def phase11a_netcdf(root) -> dict:
         except hdf5.ChecksumError as e:
             caught[sig_name(sig)] = str(e).split(": ", 1)[1]
     rec["checksum_faults"] = caught
+    rec["h5py_layouts"] = _layout_fixtures(root)
     emit("11a", t0, **rec)
     if not all(caught.values()):
         raise AssertionError(f"a flipped byte in a checksummed structure went unseen: {caught}")
+    return rec
+
+
+def _layout_fixtures(root) -> dict:
+    """The committed fixtures of the HDF5 structures h5py writes
+    (``tests/_h5py_layout_fixtures.py``) through ``io.hdf5.File``: every
+    dataset, link followed, and every read of ``LAYOUT_SELECTIONS`` equal to
+    ``h5py_layouts_contents.npz`` bit for bit; the dangling links listed
+    and raising ``KeyError`` only when followed; a flipped byte in a
+    fletcher32 chunk raising ``ChecksumError``; phase 6's observation
+    through ``open_grid``."""
+    from climate2weather_tpu_torch.data.grid import open_grid
+    from climate2weather_tpu_torch.io import hdf5
+
+    want = np.load(FIXTURES / "h5py_layouts_contents.npz")
+    equal = {}
+    for key in want.files:
+        kind, path = key.split("/", 1)
+        with hdf5.File(FIXTURES / f"h5py_{kind}.h5") as f:
+            name, sel = LAYOUT_SELECTIONS.get(path, (path, ())) if kind == "selections" else (path, ())
+            equal[key] = _bits_equal(f[name][sel], want[key])
+    with hdf5.File(FIXTURES / "h5py_links.h5") as f:
+        listed = all(k in f.keys() and k in f for k in LAYOUT_DANGLING)
+        dangling = {}
+        for k in LAYOUT_DANGLING:
+            try:
+                f[k]
+                dangling[k] = None
+            except KeyError as e:
+                dangling[k] = str(e)
+    path = FIXTURES / "h5py_filters.h5"
+    with hdf5.File(path) as f:
+        _, _, size, addr = f["fletcher32"]._index[0]
+    flipped = bytearray(path.read_bytes())
+    flipped[addr + size // 2] ^= 0x10
+    (root / "h5py_filters_flipped.h5").write_bytes(bytes(flipped))
+    with hdf5.File(root / "h5py_filters_flipped.h5") as f:
+        try:
+            f["fletcher32"][()]
+            fletcher = None
+        except hdf5.ChecksumError as e:
+            fletcher = str(e).rsplit(": ", 1)[1]
+        intact = _bits_equal(f["lzf"][()], want["filters/lzf"])  # another dataset of the damaged file
+    obs = open_grid(str(FIXTURES / "observation_latest.nc"))
+    rec = {"datasets": len(equal), "equal": all(equal.values()), "unequal": [k for k, v in equal.items() if not v],
+           "dangling_listed": listed, "dangling_raise": dangling, "fletcher32_fault": fletcher,
+           "undamaged_read": intact, "observation": [len(obs.time), *np.shape(obs.data_vars["tas"])[1:]]}
+    if not rec["equal"] or len(equal) != len(want.files) or not listed or not all(dangling.values()) \
+            or fletcher is None or not intact or rec["observation"] != [9, 8, 8]:
+        raise AssertionError(f"the h5py layout fixtures read wrong: {rec}")
     return rec
 
 
@@ -3864,8 +3989,14 @@ ZARR_COMPRESSORS = ("zlib", "blosc-lz4", "none")
 
 
 def _bits_equal(got, want) -> bool:
+    """Equal shapes, dtypes and bytes; a compound's members compared (the
+    bytes between them hold no data)."""
     got, want = np.asarray(got), np.asarray(want)
-    return got.shape == want.shape and got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype.names:
+        return all(_bits_equal(got[n], want[n]) for n in got.dtype.names)
+    return got.tobytes() == want.tobytes()
 
 
 def _tree_bytes(root: pathlib.Path) -> int:

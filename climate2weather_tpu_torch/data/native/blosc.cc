@@ -28,6 +28,12 @@
 // encoder is single-threaded and greedy with no uninitialised state: the
 // same input gives the same bytes.
 //
+// It also decodes LZF (liblzf's format, the chunks of h5py's lzf filter,
+// id 32000, that climate2weather_tpu_torch/io/hdf5.py reads): a control
+// byte below 32 starts a run of that many plus one literal bytes; above, its
+// top three bits are a match's length less two (7: add the next byte), its
+// low five the high bits of the distance less one, the next byte the rest.
+//
 // C ABI, consumed via ctypes (climate2weather_tpu_torch/data/native_blosc.py),
 // which builds it at first use with the host C++ compiler:
 //   c++ -O3 -std=c++17 -shared -fPIC blosc.cc -o libc2wblosc-<hash>.so
@@ -403,6 +409,40 @@ int64_t c2w_blosc_compress(const uint8_t* src, int64_t nbytes,
   }
   store_u32(dst + 12, (uint32_t)cbytes);
   return cbytes;
+}
+
+// Decode one LZF stream into dst.  Returns bytes written or a negative
+// error code (-1 truncated input, -2 output capacity, -5 a match reaching
+// before the output's start).
+int64_t c2w_lzf_decompress(const uint8_t* src, int64_t srclen, uint8_t* dst,
+                           int64_t dstcap) {
+  const uint8_t* ip = src;
+  const uint8_t* const in_end = src + srclen;
+  int64_t op = 0;
+  while (ip < in_end) {
+    uint32_t ctrl = *ip++;
+    if (ctrl < 32) {  // a literal run of ctrl + 1 bytes
+      const int64_t n = (int64_t)ctrl + 1;
+      if (ip + n > in_end) return kErrTruncated;
+      if (op + n > dstcap) return kErrCapacity;
+      std::memcpy(dst + op, ip, (size_t)n);
+      ip += n;
+      op += n;
+      continue;
+    }
+    int64_t len = ctrl >> 5;
+    if (len == 7) {
+      if (ip >= in_end) return kErrTruncated;
+      len += *ip++;
+    }
+    if (ip >= in_end) return kErrTruncated;
+    const int64_t dist = (int64_t)((ctrl & 0x1f) << 8) + *ip++ + 1;
+    len += 2;
+    if (dist > op) return kErrCorrupt;
+    if (op + len > dstcap) return kErrCapacity;
+    for (int64_t i = 0; i < len; ++i, ++op) dst[op] = dst[op - dist];  // may overlap
+  }
+  return op;
 }
 
 }  // extern "C"

@@ -3,7 +3,9 @@ port of climate2weather_tpu/data/native_blosc.py and native_build.py).
 
 The zarr store (``data/zarr_store.py``) reads and writes blosc chunks
 through it: the external zarr default ``Blosc(cname='lz4', clevel=5,
-shuffle=SHUFFLE)``, and ``write_zarr(..., compressor="blosc-lz4")``.
+shuffle=SHUFFLE)``, and ``write_zarr(..., compressor="blosc-lz4")``. The
+HDF5 reader (``io/hdf5.py``) decodes the chunks of h5py's lzf filter with
+:func:`lzf_decompress`.
 
 The source is compiled at first use by the host C++ compiler (``$CXX``,
 else ``c++``, ``g++`` or ``clang++`` on PATH) into ``build/`` beside the
@@ -107,6 +109,8 @@ def load(rebuild: bool = False) -> ctypes.CDLL:
             lib.c2w_blosc_compress.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
                                                ctypes.c_int64, u8p, ctypes.c_int64]
             lib.c2w_blosc_compress.restype = ctypes.c_int64
+            lib.c2w_lzf_decompress.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+            lib.c2w_lzf_decompress.restype = ctypes.c_int64
             lib.c2w_blosc_abi_version.restype = ctypes.c_int64
             if lib.c2w_blosc_abi_version() != ABI_VERSION:
                 raise RuntimeError(f"blosc codec ABI {lib.c2w_blosc_abi_version()}, want {ABI_VERSION}")
@@ -144,4 +148,16 @@ def compress(raw: bytes, typesize: int, shuffle: bool = True, blocksize: int = 0
     out = np.empty(cap, np.uint8)
     n = _check(lib.c2w_blosc_compress(_u8(src), len(raw), int(typesize), int(bool(shuffle)), int(blocksize),
                                       _u8(out), cap), "compress")
+    return out[:n].tobytes()
+
+
+def lzf_decompress(raw: bytes, nbytes: int) -> bytes:
+    """Decode one LZF stream (a chunk of h5py's lzf filter) of at most
+    ``nbytes`` bytes."""
+    lib = load()
+    src = np.frombuffer(raw, np.uint8)
+    out = np.empty(max(int(nbytes), 1), np.uint8)
+    n = lib.c2w_lzf_decompress(_u8(src), len(raw), _u8(out), int(nbytes))
+    if n < 0:
+        raise ValueError(f"lzf decompress failed: {_ERRORS.get(n, n)}")
     return out[:n].tobytes()

@@ -5,7 +5,7 @@ a GPU host may lack: the training file of ``merged_to_normed_h5``,
 the grid files of ``GridDataset.to_file`` (``.nc`` names, HDF5 inside) and
 the quantile files of ``QuantileDataset.to_file``. It also reads what
 HDF5 1.8 and later write for netCDF-4 files (netCDF-C >= 4.4 sets the 1.8
-low bound; h5py's ``libver='latest'`` goes further). This module covers:
+low bound) and what h5py writes with any ``libver``. This module covers:
 
 - superblock versions 0, 2 and 3;
 - version-1 object headers with continuation blocks, and version-2 object
@@ -14,32 +14,58 @@ low bound; h5py's ``libver='latest'`` goes further). This module covers:
   and a local heap), and new-style groups: compact (link messages) or dense
   (a fractal heap of links, indexed by a version-2 B-tree by name or by
   creation order);
+- hard, soft and external links, in either kind of group: every link is
+  listed; a soft link resolves by its path, an external link in the file
+  HDF5 finds for its name (``HDF5_EXT_PREFIX``, then beside the linking
+  file, then from the working directory); a dangling link raises
+  ``KeyError`` and a user-defined one ``NotImplementedError``, both only
+  when followed;
 - attributes in the object header, or dense (a fractal heap of attribute
   messages indexed by a version-2 B-tree by name or by creation order);
   fractal heaps with direct and indirect blocks, their managed, tiny and
   unfiltered huge objects;
-- contiguous and chunked layouts (layout message versions 3 and 4), the
-  chunks indexed by a version-1 B-tree, a single-chunk index, a fixed array
-  (``FAHD``/``FADB``, paged or not) or an extensible array (``EAHD``,
-  ``EAIB``, ``EASB``, ``EADB``) along an unlimited first axis;
-- integer and floating-point data of either byte order, fixed-length and
-  variable-length strings (the latter in the global heap);
+- compact, contiguous, chunked and virtual layouts (layout message versions
+  3 and 4): chunks indexed by a version-1 B-tree, a single-chunk index, the
+  implicit index, a fixed array (``FAHD``/``FADB``, paged or not), an
+  extensible array (``EAHD``, ``EAIB``, ``EASB``, ``EADB``) along one
+  unlimited axis (swizzled to the slowest where it is not the first), or a
+  version-2 B-tree (record types 10 and 11); a virtual dataset's mappings
+  (all, regular and irregular hyperslabs of fixed extent) from sources in
+  the same file (``"."``) or found as external links' files are (under
+  ``HDF5_VDS_PREFIX``), elements no source maps reading as the fill value;
+- integer (of partial precision too, shifted and sign-extended as HDF5
+  converts it), floating-point, enumerated (as its base integers, or bool
+  as h5py writes it), array (as trailing axes) and compound (a structured
+  dtype) data of either byte order, fixed-length and variable-length
+  strings (the latter in the global heap), committed datatypes and the
+  shared datatype messages of datasets and attributes that point at them;
 - the fill value (the fill value message, versions 1-3, or the old one):
   storage never written, an unallocated chunk or a contiguous dataset with
   no address, reads as it, or as zeros where the file defines none, as
   h5py reads it;
-- the deflate and shuffle filters.
+- the deflate, shuffle, fletcher32 (verified; a mismatch raises
+  :class:`ChecksumError`), n-bit, scale-offset (integers, and floats by
+  D-scale) and lzf (h5py's, through the host codec
+  ``data/native/blosc.cc``) filters;
+- reads as h5py takes them: integers, slices of positive step, ``...`` and
+  one increasing list of indices; what h5py refuses raises as it does.
 
 Every Jenkins lookup3 checksum of these structures is verified: a mismatch
 raises :class:`ChecksumError`. Attributes of other types (the object
 references of dimension scales, for example) are skipped. Anything else
-raises ``NotImplementedError`` naming what it found (a version-2 B-tree or
-implicit chunk index, a compact layout, another filter, shared messages,
-soft or external links, a filtered fractal heap, ...), so a file is read
-right or not at all.
+raises ``NotImplementedError`` naming what it found, so a file is read
+right or not at all: the szip filter (its AEC decoder would be a host
+codec of its own), shared-message tables and the "don't filter partial
+edge chunks" flag (h5py here can write neither), reference, opaque,
+bitfield and time datatypes and variable-length sequences (no reader of
+the package reads them as data), layout messages of versions 1 and 2,
+filtered fractal heaps, point selections, unlimited mappings and
+printf-named sources of a virtual dataset, external raw storage.
 
 :class:`File` opens a file for reading. A chunked dataset's index is read
-when the dataset is opened; a slice then reads only the chunks it overlaps.
+when the dataset is opened; a slice then reads only the chunks it overlaps,
+and a strided slice or an index list only the chunks (rows, where the
+dataset is not chunked) that hold its elements.
 :class:`Writer` writes superblock 0, version-1 object headers and a
 symbol-table root group without filters: raw data as it is given, the
 metadata when it is closed.
@@ -47,6 +73,7 @@ metadata when it is closed.
 
 from __future__ import annotations
 
+import itertools
 import os
 import struct
 import zlib
@@ -62,8 +89,6 @@ MSG_NIL, MSG_DATASPACE, MSG_LINK_INFO, MSG_DATATYPE = 0x0, 0x1, 0x2, 0x3
 MSG_FILL_OLD, MSG_FILL, MSG_LINK, MSG_EXTERNAL, MSG_LAYOUT = 0x4, 0x5, 0x6, 0x7, 0x8
 MSG_GROUP_INFO, MSG_FILTERS, MSG_ATTRIBUTE = 0xA, 0xB, 0xC
 MSG_SHARED_TABLE, MSG_CONTINUATION, MSG_SYMBOL_TABLE, MSG_ATTRIBUTE_INFO = 0x0F, 0x10, 0x11, 0x15
-
-FILTER_DEFLATE, FILTER_SHUFFLE = 1, 2
 
 # version-2 B-tree record types
 BT2_LINK_NAME, BT2_LINK_ORDER, BT2_ATTR_NAME, BT2_ATTR_ORDER, BT2_HUGE = 5, 6, 8, 9, 1
@@ -154,15 +179,36 @@ def _limit_enc_size(n: int) -> int:
 
 class _Datatype:
     """A decoded datatype message: ``kind`` in {"int", "float", "str",
-    "vlen_str"}; ``dtype`` the numpy dtype of one element where there is one."""
+    "vlen_str", "enum", "compound", "array"}; ``dtype`` the numpy dtype h5py
+    gives an element; ``bits`` (precision, bit offset) of an integer whose
+    value does not fill its bytes, read as HDF5 converts it (shifted down,
+    sign-extended)."""
 
-    def __init__(self, kind: str, size: int, dtype=None, padding: int = 0):
-        self.kind, self.size, self.dtype, self.padding = kind, size, dtype, padding
+    def __init__(self, kind: str, size: int, dtype=None, padding: int = 0, bits=None):
+        self.kind, self.size, self.dtype, self.padding, self.bits = kind, size, dtype, padding, bits
+
+
+_IEEE_FLOATS = {2: (0, 16, 10, 5, 0, 10, 15), 4: (0, 32, 23, 8, 0, 23, 127), 8: (0, 64, 52, 11, 0, 52, 1023)}
+_CLASS_NAMES = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference"}
+
+
+def _name_at(buf: bytes, pos: int, padded: bool) -> Tuple[bytes, int]:
+    """(name, position after it) of a NUL-terminated name, padded to a
+    multiple of 8 bytes in the older message versions."""
+    end = buf.index(b"\0", pos)
+    return buf[pos:end], (pos + (end - pos) // 8 * 8 + 8 if padded else end + 1)
+
+
+def _plain(dt: "_Datatype", what: str) -> "_Datatype":
+    """``dt`` where it can be a member of a compound, enum or array type."""
+    if dt.kind == "vlen_str" or dt.bits is not None:
+        raise _Unsupported(f"{what} of {'variable length' if dt.kind == 'vlen_str' else 'a partial-precision integer'}")
+    return dt
 
 
 def _parse_datatype(buf: bytes, pos: int) -> Tuple[_Datatype, int]:
     """(datatype, bytes used) of the datatype message at ``buf[pos:]``."""
-    cls = buf[pos] & 0x0F
+    cls, version = buf[pos] & 0x0F, buf[pos] >> 4
     bits = buf[pos + 1] | (buf[pos + 2] << 8) | (buf[pos + 3] << 16)
     size = _uint(buf, pos + 4, 4)
     order = ">" if bits & 1 else "<"
@@ -170,12 +216,18 @@ def _parse_datatype(buf: bytes, pos: int) -> Tuple[_Datatype, int]:
         if size not in (1, 2, 4, 8):
             raise _Unsupported(f"integer of {size} bytes")
         signed = bool(bits & 0x8)
-        return _Datatype("int", size, np.dtype(f"{order}{'i' if signed else 'u'}{size}")), 12
+        offset, precision = _uint(buf, pos + 8, 2), _uint(buf, pos + 10, 2)
+        partial = (precision, offset) if (precision, offset) != (8 * size, 0) else None
+        return _Datatype("int", size, np.dtype(f"{order}{'i' if signed else 'u'}{size}"), bits=partial), 12
     if cls == 1:  # floating-point
         if size not in (2, 4, 8):
             raise _Unsupported(f"float of {size} bytes")
         if bits & 0x1 and bits & 0x40:
             raise _Unsupported("VAX byte order")
+        fields = (_uint(buf, pos + 8, 2), _uint(buf, pos + 10, 2), *buf[pos + 12:pos + 16], _uint(buf, pos + 16, 4))
+        if fields != _IEEE_FLOATS[size]:
+            raise _Unsupported(f"float of {size} bytes in a non-IEEE layout (bit offset, precision, exponent "
+                               f"and mantissa fields, bias {fields})")
         return _Datatype("float", size, np.dtype(f"{order}f{size}")), 20
     if cls == 3:  # fixed-length string
         return _Datatype("str", size, np.dtype(f"S{size}"), padding=bits & 0x0F), 8
@@ -184,9 +236,55 @@ def _parse_datatype(buf: bytes, pos: int) -> Tuple[_Datatype, int]:
             raise _Unsupported("variable-length sequence")
         _, used = _parse_datatype(buf, pos + 8)
         return _Datatype("vlen_str", size), 8 + used
-    names = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound", 7: "reference",
-             8: "enumerated", 10: "array"}
-    raise _Unsupported(f"datatype class {cls} ({names.get(cls, 'unknown')})")
+    if cls == 6:  # compound: a structured dtype of h5py's names, formats and offsets
+        names, formats, offsets, at = [], [], [], pos + 8
+        for _ in range(bits & 0xFFFF):
+            name, at = _name_at(buf, at, version < 3)
+            if version < 3:
+                offset, ndims, at = _uint(buf, at, 4), buf[at + 4], at + 4
+                if version == 1:  # the member's own array dimensions, then its type
+                    dims, at = tuple(_uint(buf, at + 12 + 4 * i, 4) for i in range(ndims)), at + 28
+            else:
+                n = _limit_enc_size(size)
+                offset, at, ndims = _uint(buf, at, n), at + n, 0
+            member, used = _parse_datatype(buf, at)
+            at += used
+            member = _plain(member, f"compound member {name.decode()!r}")
+            names.append(name.decode("utf-8"))
+            formats.append(np.dtype((member.dtype, dims)) if version == 1 and ndims else member.dtype)
+            offsets.append(offset)
+        dtype = np.dtype({"names": names, "formats": formats, "offsets": offsets, "itemsize": size})
+        return _Datatype("compound", size, dtype), at - pos
+    if cls == 8:  # enumerated: its base integers, or bool where h5py writes numpy's bool so
+        n = bits & 0xFFFF
+        base, used = _parse_datatype(buf, pos + 8)
+        base, at, names = _plain(base, "enumeration"), pos + 8 + used, []
+        for _ in range(n):
+            name, at = _name_at(buf, at, version < 3)
+            names.append(name)
+        values = np.frombuffer(buf, base.dtype, count=n, offset=at).tolist()
+        at += n * base.size
+        as_bool = base.size == 1 and base.kind == "int" and names == [b"FALSE", b"TRUE"] and values == [0, 1]
+        return _Datatype("enum", size, np.dtype(bool) if as_bool else base.dtype), at - pos
+    if cls == 10:  # array: trailing axes of its base type
+        ndims = buf[pos + 8]
+        at = pos + (12 if version < 3 else 9)
+        dims = tuple(_uint(buf, at + 4 * i, 4) for i in range(ndims))
+        at += 4 * ndims * (2 if version < 3 else 1)  # version 2 adds a permutation
+        base, used = _parse_datatype(buf, at)
+        base = _plain(base, "array")
+        return _Datatype("array", size, np.dtype((base.dtype, dims))), at + used - pos
+    raise _Unsupported(f"datatype class {cls} ({_CLASS_NAMES.get(cls, 'unknown')})")
+
+
+def _members_only(raw: np.ndarray) -> np.ndarray:
+    """Compound elements with the bytes between their members zeroed, as
+    HDF5's conversion member by member into h5py's zeroed buffer leaves
+    them (the file may hold anything there)."""
+    out = np.zeros(raw.shape, raw.dtype)
+    for name in raw.dtype.names:
+        out[name] = raw[name]
+    return out
 
 
 def _parse_dataspace(buf: bytes, pos: int) -> Tuple[Optional[Tuple[int, ...]], Optional[tuple]]:
@@ -285,7 +383,9 @@ class _Object:
     def _add_message(self, mtype: int, flags: int, body: bytes, blocks) -> None:
         if mtype == MSG_CONTINUATION:
             blocks.append((_uint(body, 0, 8), _uint(body, 8, 8)))
-        elif flags & 0x02 and mtype in (MSG_DATATYPE, MSG_FILL, MSG_FILTERS, MSG_ATTRIBUTE):
+        elif flags & 0x02 and mtype == MSG_DATATYPE:  # a committed datatype's
+            body = self.file._shared_datatype(body)
+        elif flags & 0x02 and mtype in (MSG_FILL, MSG_FILTERS, MSG_ATTRIBUTE):
             raise NotImplementedError(f"shared object header message (type {mtype})")
         self.messages.append((mtype, body))  # null messages too: version 1 counts them
 
@@ -299,9 +399,16 @@ class _Object:
         return [data for t, data in self.messages if t == mtype]
 
 
+MAX_LINK_DEPTH = 16  # soft and external links followed in one lookup (HDF5's default limit)
+
+
 class Group:
-    """A group: ``keys()``, ``[name]`` (a :class:`Group` or :class:`Dataset`,
-    nested paths with ``/``), ``in`` and ``attrs``."""
+    """A group: ``keys()``, ``[name]`` (a :class:`Group`, :class:`Dataset`
+    or :class:`Datatype`, nested and absolute paths with ``/``, through hard,
+    soft and external links), ``in`` and ``attrs``. Every link is listed,
+    whatever its type; a link that does not resolve raises only when it is
+    followed: ``KeyError`` where its target is missing, as h5py raises,
+    ``NotImplementedError`` for a user-defined link."""
 
     def __init__(self, f: "File", obj: _Object, name: str):
         self.file, self.name, self._obj = f, name, obj
@@ -320,25 +427,67 @@ class Group:
     def __iter__(self):
         return iter(self._members)
 
+    def __len__(self) -> int:
+        return len(self._members)
+
     def __contains__(self, name: str) -> bool:
+        """Whether the path's last link exists, as h5py answers: a dangling
+        soft or external link is in its group."""
+        parent, _, last = name.rstrip("/").rpartition("/")
+        if not last:
+            return True
         try:
-            self[name]
+            group = self[parent] if parent else self.file if name.startswith("/") else self
         except KeyError:
             return False
-        return True
+        return isinstance(group, Group) and last in group._members
 
     def __getitem__(self, name: str):
-        head, _, rest = name.strip("/").partition("/")
-        if head not in self._members:
-            raise KeyError(f"{head!r} not in {self.name}")
-        child = self.file._open(self._members[head], f"{self.name.rstrip('/')}/{head}")
-        return child[rest] if rest else child
+        return self.file._resolve(self, name, 0)
+
+    def _follow(self, part: str, depth: int):
+        """The object the link ``part`` of this group leads to."""
+        if part not in self._members:
+            raise KeyError(f"{part!r} not in {self.name}")
+        link, path = self._members[part], f"{self.name.rstrip('/')}/{part}"
+        if isinstance(link, int):
+            return self.file._open(link, path)
+        if depth >= MAX_LINK_DEPTH:
+            raise KeyError(f"Unable to open {path!r}: more than {MAX_LINK_DEPTH} soft or external links")
+        if link[0] == "soft":
+            try:
+                return self.file._resolve(self, link[1], depth + 1)
+            except KeyError:
+                raise KeyError(f"Unable to open {path!r}: soft link to {link[1]!r} (component not found)") from None
+        if link[0] == "external":
+            target = self.file._external_file(link[1], "HDF5_EXT_PREFIX")
+            if target is None:
+                raise KeyError(f"Unable to open {path!r}: external link to {link[1]!r} (can't open file)")
+            try:
+                return target._resolve(target, link[2], depth + 1)
+            except KeyError:
+                raise KeyError(f"Unable to open {path!r}: external link to {link[1]}:{link[2]} "
+                               f"(object doesn't exist)") from None
+        raise NotImplementedError(f"{path}: user-defined link (type {link[1]})")
+
+
+class Datatype:
+    """A committed (named) datatype: ``dtype``, ``name`` and ``attrs``, as
+    h5py gives them."""
+
+    def __init__(self, f: "File", obj: _Object, name: str):
+        self.file, self.name, self.attrs = f, name, obj.attrs
+        try:
+            self.dtype = _parse_datatype(obj.find(MSG_DATATYPE), 0)[0].dtype
+        except _Unsupported as e:
+            raise NotImplementedError(f"{name}: {e}") from None
 
 
 class Dataset:
     """A dataset: ``shape``, ``dtype``, ``ndim``, ``chunks``, ``attrs`` and
-    numpy-style reads by integers and unit-step slices (``ds[()]``,
-    ``ds[:]``, ``ds[t0:t1]``, ``ds[i, :, 2:5]``)."""
+    reads as h5py reads: integers, slices of positive step, ``...`` and one
+    increasing list or array of indices (``ds[()]``, ``ds[:]``,
+    ``ds[t0:t1]``, ``ds[::2]``, ``ds[i, :, 2:5]``, ``ds[[0, 3, 4]]``)."""
 
     def __init__(self, f: "File", obj: _Object, name: str):
         self.file, self.name, self._obj = f, name, obj
@@ -346,8 +495,6 @@ class Dataset:
         space = obj.find(MSG_DATASPACE)
         dt = obj.find(MSG_DATATYPE)
         layout = obj.find(MSG_LAYOUT)
-        if dt is not None and space is None and layout is None:
-            raise NotImplementedError(f"{name}: committed datatype")
         if space is None or dt is None or layout is None:
             raise ValueError(f"{name}: object is not a dataset")
         shape, maxshape = _parse_dataspace(space, 0)
@@ -359,10 +506,16 @@ class Dataset:
         if self._type.kind == "vlen_str":
             raise NotImplementedError(f"{name}: variable-length string dataset")
         self.dtype = self._type.dtype  # the file's byte order, as h5py keeps it
+        # what one stored element decodes to before _finish: raw bytes of an
+        # array element, the unsigned word of a partial-precision integer
+        self._elem = np.dtype(f"V{self._type.size}") if self._type.kind == "array" else \
+            np.dtype(self.dtype.str.replace("i", "u")) if self._type.bits is not None else self.dtype
         if obj.find(MSG_EXTERNAL) is not None:
             raise NotImplementedError(f"{name}: external storage")
-        self._filters = _parse_filters(obj.find(MSG_FILTERS))
-        self.fillvalue = _parse_fill(obj.find(MSG_FILL), obj.find(MSG_FILL_OLD), self.dtype, name)
+        self._filters = _parse_filters(obj.find(MSG_FILTERS), name)
+        self._fill = _parse_fill(obj.find(MSG_FILL), obj.find(MSG_FILL_OLD), self._type.size, name)
+        self.fillvalue = None if self._fill is None else \
+            self._finish(np.frombuffer(self._fill, self._elem, count=1))[0]
         self._parse_layout(layout)
 
     @property
@@ -379,15 +532,22 @@ class Dataset:
         if version not in (3, 4):
             raise NotImplementedError(f"{self.name}: data layout message version {version}")
         self.chunks = None
+        if cls == 0:  # compact: the raw data sit in the message
+            self._kind, self._compact = "compact", buf[4:4 + _uint(buf, 2, 2)]
+            return
         if cls == 1:  # contiguous
             self._addr = _uint(buf, 2, 8)
             self._kind = "contiguous"
             return
+        if cls == 3:  # virtual: the mappings are an object of the global heap
+            self._kind = "virtual"
+            self._mappings = self.file._virtual_mappings(_uint(buf, 2, 8), _uint(buf, 10, 4), self.name)
+            self._sources: Dict[Tuple[str, str], Optional[Dataset]] = {}
+            return
         if cls != 2:
-            kind = {0: "compact", 3: "virtual"}.get(cls, "unknown")
-            raise NotImplementedError(f"{self.name}: layout class {cls} ({kind}; only contiguous and chunked)")
+            raise NotImplementedError(f"{self.name}: layout class {cls} (unknown)")
         self._kind = "chunked"
-        self._last_chunk = None
+        self._last_chunk = self._where = None  # the last chunk decoded; the index by chunk coordinates
         rank = len(self.shape)
         if version == 3:  # a version-1 B-tree index
             dims = buf[2]
@@ -408,91 +568,200 @@ class Dataset:
                 size, mask, pos = _uint(buf, pos, 8), _uint(buf, pos + 8, 4), pos + 12
             addr = _uint(buf, pos, 8)
             self._index = [] if addr == UNDEF else [((0,) * rank, mask, size, addr)]
-        elif itype in (3, 4):  # fixed array; extensible array along an unlimited first axis
+        elif itype == 2:  # implicit: every chunk of the grid, in row-major order, from one address
+            addr = _uint(buf, pos, 8)
+            count = int(np.prod(self._grid(), dtype=np.int64)) if addr != UNDEF else 0
+            self._index = self._grid_entries([(0, nbytes, addr + i * nbytes) for i in range(count)])
+        elif itype in (3, 4):  # fixed array; extensible array along one unlimited axis
             addr = _uint(buf, pos + (1 if itype == 3 else 5), 8)
             unlimited = [i for i, m in enumerate(self._maxshape) if m is None]
-            if itype == 4 and unlimited != [0]:
-                raise NotImplementedError(f"{self.name}: extensible-array chunk index over unlimited axes "
-                                          f"{unlimited} (only the first)")
-            # entries in row-major order over the chunk grid of the maximum shape
-            grid = [-(-m // c) if m is not None else 0 for m, c in zip(self._maxshape, self.chunks)]
+            if itype == 4 and len(unlimited) != 1:
+                raise OSError(f"{self.name}: extensible-array chunk index over unlimited axes {unlimited}")
             read = self.file._fixed_array if itype == 3 else self.file._extensible_array
+            entries = read(addr, nbytes) if addr != UNDEF else []
+            self._index = self._grid_entries(entries, unlimited[0] if itype == 4 else None)
+        elif itype == 5:  # version-2 B-tree of records 10 (address, scaled offsets) or 11 (filtered)
+            addr = _uint(buf, pos + 6, 8)
+            filtered = bool(self._filters)
             self._index = []
-            for i, (mask, size, caddr) in enumerate(read(addr, nbytes) if addr != UNDEF else []):
-                scaled = []
-                for g in reversed(grid[1:]):
-                    i, r = divmod(i, g)
-                    scaled.insert(0, r)
-                offset = tuple(s * c for s, c in zip([i] + scaled, self.chunks))
-                if caddr != UNDEF and all(o < n for o, n in zip(offset, self.shape)):
-                    self._index.append((offset, mask, size, caddr))
+            for rec in (self.file._btree2_records(addr, 11 if filtered else 10) if addr != UNDEF else []):
+                at = len(rec) - 8 * rank  # the scaled offsets end the record
+                offset = tuple(_uint(rec, at + 8 * i, 8) * c for i, c in enumerate(self.chunks))
+                size, mask = (_uint(rec, 8, at - 12), _uint(rec, at - 4, 4)) if filtered else (nbytes, 0)
+                self._index.append((offset, mask, size, _uint(rec, 0, 8)))
         else:
-            kind = {2: "implicit", 5: "version-2 B-tree"}.get(itype, "unknown")
-            raise NotImplementedError(f"{self.name}: {kind} chunk index (type {itype})")
+            raise NotImplementedError(f"{self.name}: chunk index type {itype} (unknown)")
 
-    # -- reads ---------------------------------------------------------------
-    def _decode(self, raw: bytes, count: int) -> np.ndarray:
-        return np.frombuffer(raw, dtype=self.dtype, count=count).copy()
+    def _grid(self) -> List[int]:
+        """Chunks along each axis of the maximum shape (0 where unlimited)."""
+        return [-(-m // c) if m is not None else 0 for m, c in zip(self._maxshape, self.chunks)]
 
-    def _selection(self, key) -> Tuple[List[Tuple[int, int]], List[bool]]:
-        """Per axis, the [start, stop) range and whether the axis is kept."""
+    def _grid_entries(self, entries, unlimited: Optional[int] = None) -> list:
+        """The chunk index of ``entries`` [(filter mask, stored bytes,
+        address)] in row-major order over the chunk grid of the maximum
+        shape; an extensible array's unlimited axis is swizzled to the
+        slowest place (``H5VM_swizzle_coords``). Chunks unallocated or
+        outside the current shape are dropped."""
+        grid = self._grid()
+        order = list(range(len(grid)))
+        if unlimited is not None:
+            order = [unlimited] + [d for d in order if d != unlimited]
+        index = []
+        for i, (mask, size, caddr) in enumerate(entries):
+            scaled = [0] * len(grid)
+            for d in reversed(order[1:]):
+                i, scaled[d] = divmod(i, grid[d])
+            if order:
+                scaled[order[0]] = i
+            offset = tuple(s * c for s, c in zip(scaled, self.chunks))
+            if caddr != UNDEF and all(o < n for o, n in zip(offset, self.shape)):
+                index.append((offset, mask, size, caddr))
+        return index
+
+    # -- selections --------------------------------------------------------------
+    def _selection(self, key) -> list:
+        """Per axis: a slice (start, stop, step >= 1), an int, or an
+        increasing array of indices, as h5py takes them (one index list at
+        most; a step below 1 or an index list out of order raises as h5py
+        raises)."""
         if not isinstance(key, tuple):
             key = (key,)
+        ellipses = [i for i, k in enumerate(key) if k is Ellipsis]
+        if len(ellipses) > 1:
+            raise ValueError("Only one ellipsis may be used.")
+        if ellipses:
+            i = ellipses[0]
+            key = key[:i] + (slice(None),) * max(0, self.ndim - len(key) + 1) + key[i + 1:]
         if len(key) > self.ndim:
             raise IndexError(f"{len(key)} indices for {self.ndim} dimensions")
         key = key + (slice(None),) * (self.ndim - len(key))
-        ranges, keep = [], []
+        if sum(isinstance(k, (list, np.ndarray)) for k in key) > 1:
+            raise TypeError("Only one indexing vector or array is currently allowed for fancy indexing")
+        axes = []
         for k, n in zip(key, self.shape):
             if isinstance(k, slice):
+                if k.step is not None and k.step < 1:
+                    raise ValueError(f"Step must be >= 1 (got {k.step})")
                 start, stop, step = k.indices(n)
-                if step != 1:
-                    raise NotImplementedError("strided slices")
-                ranges.append((start, max(start, stop)))
-                keep.append(True)
-            elif isinstance(k, (int, np.integer)):
+                axes.append(slice(start, max(start, stop), step))
+            elif isinstance(k, (int, np.integer)) and not isinstance(k, (bool, np.bool_)):
                 i = int(k) + n if k < 0 else int(k)
                 if not 0 <= i < n:
                     raise IndexError(f"index {k} out of range for axis of {n}")
-                ranges.append((i, i + 1))
-                keep.append(False)
+                axes.append(i)
+            elif isinstance(k, (list, np.ndarray)):
+                idx = np.asarray(k)
+                if idx.dtype == bool:
+                    raise NotImplementedError("boolean index arrays")
+                if idx.ndim != 1 or idx.size and idx.dtype.kind not in "iu":
+                    raise TypeError(f"index list {k!r}: a list of integers is expected")
+                idx = idx.astype(np.int64)
+                idx = np.where(idx < 0, idx + n, idx)
+                if ((idx < 0) | (idx >= n)).any():
+                    raise IndexError(f"index list {k!r} out of range for axis of {n}")
+                if (np.diff(idx) <= 0).any():
+                    raise TypeError("Indexing elements must be in increasing order")
+                axes.append(idx)
             else:
                 raise NotImplementedError(f"index {k!r}")
-        return ranges, keep
+        return axes
 
     def __getitem__(self, key) -> np.ndarray:
-        if isinstance(key, (list, np.ndarray)):  # rows of the first axis, in order
-            return np.stack([self[int(i)] for i in key]) if len(key) else \
-                np.zeros((0,) + tuple(self.shape[1:]), self.dtype)
-        ranges, keep = self._selection(key)
-        out = self._read(ranges)
-        shape = tuple(b - a for (a, b), k in zip(ranges, keep) if k)
-        out = out.reshape(shape)
-        return out[()] if out.ndim == 0 else out
+        axes = self._selection(key)
+        picks = [np.arange(a.start, a.stop, a.step) if isinstance(a, slice) else
+                 np.array([a]) if isinstance(a, int) else a for a in axes]
+        out = self._gather(picks)[tuple(0 if isinstance(a, int) else slice(None) for a in axes)]
+        out = self._finish(out if out.ndim and out.flags.c_contiguous else np.array(out, order="C"))
+        scalar = out.ndim == 0 and not (key is Ellipsis or isinstance(key, tuple) and Ellipsis in key)
+        return out[()] if scalar else out
+
+    def _runs(self, axis: int, sel: np.ndarray) -> List[np.ndarray]:
+        """The increasing indices ``sel`` along ``axis`` cut into runs that
+        are each read as one span: a run ends where the next index skips
+        ahead into another chunk (for the other layouts, another row of the
+        first axis), so a sparse or strided selection reads and decodes only
+        the chunks or rows that hold its elements."""
+        if not sel.size:
+            return []
+        unit = self.chunks[axis] if self.chunks else 1 if axis == 0 else self.shape[axis]
+        cut = np.nonzero((np.diff(sel) != 1) & (sel[1:] // unit != sel[:-1] // unit))[0] + 1
+        return np.split(sel, cut)
+
+    def _gather(self, picks: List[np.ndarray]) -> np.ndarray:
+        """The stored elements at the outer product of ``picks``, one
+        increasing index array per axis, read one box per combination of
+        the axes' runs (:meth:`_runs`); a single box is returned as read."""
+        per_axis = []
+        for axis, sel in enumerate(picks):
+            runs, at = [], 0
+            for run in self._runs(axis, sel):
+                local = slice(None) if run[-1] - run[0] + 1 == len(run) else run - run[0]
+                runs.append(((int(run[0]), int(run[-1]) + 1), local, slice(at, at + len(run))))
+                at += len(run)
+            per_axis.append(runs)
+        combos = list(itertools.product(*per_axis))
+        out = None if len(combos) == 1 else np.empty(tuple(len(p) for p in picks), self._elem)
+        for combo in combos:
+            box, local, dst = zip(*combo) if combo else ((), (), ())
+            block = self._read(list(box))
+            if sum(not isinstance(i, slice) for i in local) > 1:
+                local = np.ix_(*[np.arange(b - a) if isinstance(i, slice) else i for (a, b), i in zip(box, local)])
+            if out is None:
+                return block[tuple(local)]
+            out[dst] = block[tuple(local)]
+        return out
+
+    def _finish(self, raw: np.ndarray) -> np.ndarray:
+        """Stored elements as h5py returns them: an array type's base
+        values in trailing axes; a partial-precision integer shifted down
+        to its value and sign-extended."""
+        if self._type.kind == "array":
+            base, dims = self.dtype.subdtype
+            return np.frombuffer(raw.tobytes(), base).reshape(raw.shape + dims).copy()
+        if self._type.kind == "compound":
+            return _members_only(raw)
+        if self._type.bits is not None:
+            precision, offset = self._type.bits
+            value = (raw.astype(np.uint64) >> np.uint64(offset)) & np.uint64((1 << precision) - 1)
+            if self.dtype.kind == "i":
+                value = value.astype(np.int64)
+                value = np.where(value >= 1 << (precision - 1), value - (1 << precision), value)
+            return value.astype(self.dtype)
+        return raw
+
+    # -- reads ---------------------------------------------------------------
+    def _decode(self, raw: bytes, count: int) -> np.ndarray:
+        return np.frombuffer(raw, dtype=self._elem, count=count).copy()
 
     def _read(self, ranges: List[Tuple[int, int]]) -> np.ndarray:
+        """The stored elements of the box ``ranges`` ([start, stop) per axis)."""
         sel_shape = tuple(b - a for a, b in ranges)
         n_total = int(np.prod(self.shape, dtype=np.int64))
-        if self._kind == "contiguous":
-            if self._addr == UNDEF:
-                raw = None
-            else:
-                # contiguous rows [r0, r1) of the first axis are one read
-                if self.ndim:
-                    row = int(np.prod(self.shape[1:], dtype=np.int64)) * self._type.size
-                    r0, r1 = ranges[0]
-                    raw = self.file._src.read(self._addr + r0 * row, (r1 - r0) * row)
-                    full = self._decode(raw, (r1 - r0) * row // self._type.size)
-                    full = full.reshape((r1 - r0,) + tuple(self.shape[1:]))
-                    idx = (slice(None),) + tuple(slice(a, b) for a, b in ranges[1:])
-                    return np.ascontiguousarray(full[idx])
-                raw = self.file._src.read(self._addr, n_total * self._type.size)
-            if raw is None:  # never written
-                return self._filled(sel_shape)
-            full = self._decode(raw, n_total).reshape(self.shape)
+        if self._kind == "virtual":
+            return self._read_virtual(ranges)
+        if self._kind == "compact":
+            full = self._decode(self._compact, n_total).reshape(self.shape)
             return np.ascontiguousarray(full[tuple(slice(a, b) for a, b in ranges)])
+        if self._kind == "contiguous":
+            if self._addr == UNDEF:  # never written
+                return self._filled(sel_shape)
+            if self.ndim:  # contiguous rows [r0, r1) of the first axis are one read
+                row = int(np.prod(self.shape[1:], dtype=np.int64)) * self._type.size
+                r0, r1 = ranges[0]
+                raw = self.file._src.read(self._addr + r0 * row, (r1 - r0) * row)
+                full = self._decode(raw, (r1 - r0) * row // self._type.size)
+                full = full.reshape((r1 - r0,) + tuple(self.shape[1:]))
+                idx = (slice(None),) + tuple(slice(a, b) for a, b in ranges[1:])
+                return np.ascontiguousarray(full[idx])
+            return self._decode(self.file._src.read(self._addr, self._type.size), 1).reshape(())
         out = self._filled(sel_shape)  # what no allocated chunk covers reads as the fill value
         csize = int(np.prod(self.chunks, dtype=np.int64))
-        for offset, mask, nbytes, addr in self._index:
+        if self._where is None:
+            self._where = {tuple(o // c for o, c in zip(e[0], self.chunks)): e for e in self._index}
+        for coords in itertools.product(*[range(a // c, -(-b // c)) for (a, b), c in zip(ranges, self.chunks)]):
+            if coords not in self._where:
+                continue
+            offset, mask, nbytes, addr = self._where[coords]
             lo = [max(a, o) for (a, _), o in zip(ranges, offset)]
             hi = [min(b, o + c) for (_, b), o, c in zip(ranges, offset, self.chunks)]
             if any(h <= l for l, h in zip(lo, hi)):
@@ -506,9 +775,10 @@ class Dataset:
     def _filled(self, shape) -> np.ndarray:
         """Storage never written, as HDF5 returns it: the dataset's fill
         value, or zeros where the file defines none."""
-        if self.fillvalue is None:
-            return np.zeros(shape, self.dtype)
-        return np.full(shape, self.fillvalue, self.dtype)
+        n = int(np.prod(shape, dtype=np.int64))
+        if self._fill is None:
+            return np.zeros(shape, self._elem)
+        return np.frombuffer(self._fill * n, self._elem, count=n).reshape(shape).copy()
 
     def _chunk(self, addr: int, nbytes: int, mask: int, count: int) -> np.ndarray:
         """The decoded chunk at ``addr``; the last one is kept, so reads of
@@ -516,23 +786,155 @@ class Dataset:
         last = self._last_chunk
         if last is not None and last[0] == addr:
             return last[1]
-        raw = _unfilter(self.file._src.read(addr, nbytes), self._filters, mask, self._type.size)
+        raw = _unfilter(self.file._src.read(addr, nbytes), self._filters, mask, self._type.size,
+                        count * self._type.size, f"{self.file.filename}: {self.name}: the chunk at {addr}")
         chunk = self._decode(raw, count).reshape(self.chunks)
         self._last_chunk = (addr, chunk)
         return chunk
+
+    # -- virtual datasets ---------------------------------------------------------
+    def _source(self, file_name: str, dset_name: str) -> Optional["Dataset"]:
+        """A mapping's source dataset; None where its file or dataset is
+        missing (HDF5 then reads the mapped elements as the fill value)."""
+        key = (file_name, dset_name)
+        if key not in self._sources:
+            f = self.file if file_name == "." else self.file._external_file(file_name, "HDF5_VDS_PREFIX")
+            try:
+                src = None if f is None else f[dset_name]
+            except KeyError:
+                src = None
+            if src is not None and (not isinstance(src, Dataset) or src.dtype.newbyteorder("=") !=
+                                    self.dtype.newbyteorder("=") or src._type.kind != self._type.kind):
+                raise NotImplementedError(f"{self.name}: virtual source {file_name}:{dset_name} of "
+                                          f"{getattr(src, 'dtype', 'no')} datatype (the dataset's is {self.dtype})")
+            self._sources[key] = src
+        return self._sources[key]
+
+    def _read_virtual(self, ranges: List[Tuple[int, int]]) -> np.ndarray:
+        """The box ``ranges`` of a virtual dataset: each mapping's source
+        elements in its selection's row-major order put at its virtual
+        selection's elements in theirs; the rest the fill value."""
+        out = self._filled(tuple(b - a for a, b in ranges))
+        lo = np.array([a for a, _ in ranges], np.int64)
+        for file_name, dset_name, src_sel, virt_sel in self._mappings:
+            v = _Selected(virt_sel, self.shape)
+            if v.empty or any(h <= a or l >= b for l, h, (a, b) in zip(v.lo, v.hi, ranges)):
+                continue
+            src = self._source(file_name, dset_name)
+            if src is None:
+                continue
+            s = _Selected(src_sel, src.shape)
+            if s.count != v.count:
+                raise OSError(f"{self.name}: a mapping of {file_name}:{dset_name} selects {s.count} source and "
+                              f"{v.count} virtual elements")
+            if v.axes is not None and s.axes is not None and [len(a) for a in v.axes] == [len(a) for a in s.axes]:
+                # products of per-axis indices of equal lengths: read only what the box needs
+                pick = [np.nonzero((a >= l) & (a < h))[0] for a, (l, h) in zip(v.axes, ranges)]
+                if any(p.size == 0 for p in pick):
+                    continue
+                vals = src._gather([a[p] for a, p in zip(s.axes, pick)])
+                out[np.ix_(*[a[p] - l for a, p, l in zip(v.axes, pick, lo)])] = vals.astype(self._elem)
+                continue
+            vals = src._read(list(zip(s.lo, s.hi)))[s.mask()].astype(self._elem)
+            coords = np.nonzero(v.mask())
+            coords = [c + l for c, l in zip(coords, v.lo)]
+            inside = np.ones(len(vals), bool)
+            for c, (a, b) in zip(coords, ranges):
+                inside &= (c >= a) & (c < b)
+            out[tuple(c[inside] - l for c, l in zip(coords, lo))] = vals[inside]
+        return out
+
+
+class _Selected:
+    """A dataspace selection of a virtual dataset's mapping over ``shape``:
+    its bounding box [lo, hi), per-axis index arrays where it is a product
+    of them (all, a regular hyperslab, one block), and its mask over the box."""
+
+    def __init__(self, sel: tuple, shape: Tuple[int, ...]):
+        kind = sel[0]
+        self.axes: Optional[List[np.ndarray]] = None
+        self._blocks = None
+        if kind == "all":
+            self.axes = [np.arange(n, dtype=np.int64) for n in shape]
+        elif kind == "regular":
+            self.axes = [(st + sd * np.arange(cn, dtype=np.int64)[:, None] + np.arange(bk)).ravel()
+                         for st, sd, cn, bk in sel[1]]
+        elif kind == "blocks" and len(sel[1]) == 1:
+            self.axes = [np.arange(a, b + 1, dtype=np.int64) for a, b in zip(*sel[1][0])]
+        elif kind == "blocks":
+            self._blocks = sel[1]
+        if kind == "none" or self._blocks == [] or self.axes is not None and any(a.size == 0 for a in self.axes):
+            self.empty, self.count, self.lo, self.hi = True, 0, (), ()
+            return
+        self.empty = False
+        if self.axes is not None:
+            self.lo = tuple(int(a[0]) for a in self.axes)
+            self.hi = tuple(int(a[-1]) + 1 for a in self.axes)
+            self.count = int(np.prod([a.size for a in self.axes], dtype=np.int64))
+        else:
+            self.lo = tuple(int(min(st[d] for st, _ in self._blocks)) for d in range(len(shape)))
+            self.hi = tuple(int(max(en[d] for _, en in self._blocks)) + 1 for d in range(len(shape)))
+            self.count = int(self.mask().sum())
+
+    def mask(self) -> np.ndarray:
+        """The selected elements of the bounding box (row-major order is
+        HDF5's order of a selection's elements)."""
+        m = np.zeros([h - l for l, h in zip(self.lo, self.hi)], bool)
+        if self.axes is not None:
+            m[np.ix_(*[a - l for a, l in zip(self.axes, self.lo)])] = True
+        else:
+            for st, en in self._blocks:
+                m[tuple(slice(a - l, b + 1 - l) for a, b, l in zip(st, en, self.lo))] = True
+        return m
+
+
+def _parse_selection(buf: bytes, pos: int, what: str) -> Tuple[tuple, int]:
+    """(selection, position after it) of a serialized dataspace selection
+    (``H5S_SELECT_SERIALIZE``): ("all",), ("none",), ("regular", [(start,
+    stride, count, block) per axis]) or ("blocks", [(starts, ends)]) with
+    inclusive ends. Point selections and unlimited counts or blocks raise."""
+    stype, version = _uint(buf, pos, 4), _uint(buf, pos + 4, 4)
+    if stype in (0, 3):  # none, all: type, version, 8 reserved bytes
+        return ("none",) if stype == 0 else ("all",), pos + 16
+    if stype == 1:
+        raise NotImplementedError(f"{what}: a point selection")
+    if stype != 2:
+        raise NotImplementedError(f"{what}: selection type {stype}")
+    if version == 1:  # reserved, length, rank, block count, then 4-byte corners
+        rank, n, at = _uint(buf, pos + 16, 4), _uint(buf, pos + 20, 4), pos + 24
+        corners = [tuple(_uint(buf, at + 4 * (2 * rank * b + i), 4) for i in range(2 * rank)) for b in range(n)]
+        return ("blocks", [(c[:rank], c[rank:]) for c in corners]), at + 8 * rank * n
+    flags = buf[pos + 8]
+    if version == 2:  # flags, length, rank, then 8-byte fields
+        enc, rank, at = 8, _uint(buf, pos + 13, 4), pos + 17
+    elif version == 3:  # flags, the fields' size, rank
+        enc, rank, at = buf[pos + 9], _uint(buf, pos + 10, 4), pos + 14
+    else:
+        raise NotImplementedError(f"{what}: hyperslab selection version {version}")
+    unlimited = (1 << (8 * enc)) - 1
+    if flags & 0x01:  # regular: start, stride, count, block per axis
+        dims = [tuple(_uint(buf, at + enc * (4 * d + j), enc) for j in range(4)) for d in range(rank)]
+        if any(unlimited in (cn, bk) for _, _, cn, bk in dims):
+            raise NotImplementedError(f"{what}: an unlimited mapping")
+        return ("regular", dims), at + 4 * enc * rank
+    if version < 3:
+        raise NotImplementedError(f"{what}: an irregular hyperslab of version {version}")
+    n, at = _uint(buf, at, enc), at + enc
+    corners = [tuple(_uint(buf, at + enc * (2 * rank * b + i), enc) for i in range(2 * rank)) for b in range(n)]
+    return ("blocks", [(c[:rank], c[rank:]) for c in corners]), at + 2 * enc * rank * n
 
 
 FILL_TIME_NEVER = 1  # the fill value's write time: never written to unwritten storage
 
 
-def _parse_fill(new: Optional[bytes], old: Optional[bytes], dtype: np.dtype, name: str):
-    """The value that storage never written reads as, from the fill value
-    message (type 0x5, versions 1-3) or, where a file has only that, the old
-    one (0x4, a size and the value, with no flags); None where the file
-    defines no value (undefined or the library's default, both read as
-    zeros) or never writes it (fill time "never": HDF5 then leaves the
-    reader's buffer, which h5py fills with zeros). The value is in the
-    dataset's datatype."""
+def _parse_fill(new: Optional[bytes], old: Optional[bytes], size: int, name: str) -> Optional[bytes]:
+    """The stored bytes of the value that storage never written reads as,
+    from the fill value message (type 0x5, versions 1-3) or, where a file
+    has only that, the old one (0x4, a size and the value, with no flags);
+    None where the file defines no value (undefined or the library's
+    default, both read as zeros) or never writes it (fill time "never":
+    HDF5 then leaves the reader's buffer, which h5py fills with zeros). The
+    value is one element of the dataset's datatype, ``size`` bytes."""
     if new is not None:
         version = new[0]
         if version in (1, 2):
@@ -544,21 +946,27 @@ def _parse_fill(new: Optional[bytes], old: Optional[bytes], dtype: np.dtype, nam
             raise NotImplementedError(f"{name}: fill value message version {version}")
         if not has_value or fill_time == FILL_TIME_NEVER:
             return None
-        size = _uint(new, pos, 4)
-        raw = new[pos + 4:pos + 4 + size]
+        n = _uint(new, pos, 4)
+        raw = new[pos + 4:pos + 4 + n]
     elif old is not None:
-        size = _uint(old, 0, 4)
-        raw = old[4:4 + size]
+        n = _uint(old, 0, 4)
+        raw = old[4:4 + n]
     else:
         return None
-    if size == 0:  # defined as the library's default: zeros
+    if n == 0:  # defined as the library's default: zeros
         return None
-    if dtype is None or size != dtype.itemsize or len(raw) != size:
-        raise NotImplementedError(f"{name}: a fill value of {size} bytes for {dtype}")
-    return np.frombuffer(raw, dtype=dtype, count=1)[0]
+    if n != size or len(raw) != n:
+        raise NotImplementedError(f"{name}: a fill value of {n} bytes for elements of {size}")
+    return bytes(raw)
 
 
-def _parse_filters(buf: Optional[bytes]) -> List[Tuple[int, Tuple[int, ...]]]:
+FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32, FILTER_NBIT, FILTER_SCALEOFFSET = 1, 2, 3, 5, 6
+FILTER_LZF = 32000  # h5py's own filter
+_FILTERS_READ = (FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32, FILTER_NBIT, FILTER_SCALEOFFSET, FILTER_LZF)
+_FILTER_NAMES = {4: "szip", 307: "bzip2", 32001: "blosc", 32004: "lz4", 32008: "bitshuffle", 32015: "zstd"}
+
+
+def _parse_filters(buf: Optional[bytes], name: str = "") -> List[Tuple[int, Tuple[int, ...]]]:
     """[(filter id, client values)] of a filter pipeline message."""
     if buf is None:
         return []
@@ -582,19 +990,23 @@ def _parse_filters(buf: Optional[bytes]) -> List[Tuple[int, Tuple[int, ...]]]:
         pos += 4 * nvals
         if version == 1 and nvals % 2:
             pos += 4
-        if fid not in (FILTER_DEFLATE, FILTER_SHUFFLE):
-            raise NotImplementedError(f"filter {fid} (only deflate and shuffle)")
+        if fid not in _FILTERS_READ:
+            raise NotImplementedError(f"{name}: filter {fid} ({_FILTER_NAMES.get(fid, 'unknown')}; deflate, "
+                                      f"shuffle, fletcher32, n-bit, scale-offset and lzf are read)")
         filters.append((fid, vals))
     return filters
 
 
-def _unfilter(raw: bytes, filters, mask: int, itemsize: int) -> bytes:
+def _unfilter(raw: bytes, filters, mask: int, itemsize: int, nbytes: int, where: str = "a chunk") -> bytes:
     """Undo a chunk's filters, last applied first; bit i of ``mask`` set
-    means filter i was skipped for this chunk."""
+    means filter i was skipped for this chunk. ``nbytes``, the decoded
+    chunk's size, bounds what lzf may write where its own header does not
+    say (a filter's output exceeds it by 21 bytes at most: scale-offset's
+    header; fletcher32 adds 4)."""
     for i in reversed(range(len(filters))):
         if mask & (1 << i):
             continue
-        fid, _ = filters[i]
+        fid, vals = filters[i]
         if fid == FILTER_DEFLATE:
             raw = zlib.decompress(raw)
         elif fid == FILTER_SHUFFLE:
@@ -602,7 +1014,122 @@ def _unfilter(raw: bytes, filters, mask: int, itemsize: int) -> bytes:
                 n = len(raw) // itemsize
                 body = np.frombuffer(raw, np.uint8, count=n * itemsize)
                 raw = body.reshape(itemsize, n).T.tobytes() + raw[n * itemsize:]
+        elif fid == FILTER_FLETCHER32:
+            raw = _fletcher32_checked(raw, where)
+        elif fid == FILTER_LZF:
+            from climate2weather_tpu_torch.data import native_blosc
+
+            raw = native_blosc.lzf_decompress(raw, vals[2] if len(vals) > 2 and vals[2] else
+                                              nbytes + 32 * len(filters))
+        elif fid == FILTER_NBIT:
+            raw = _nbit_decode(raw, vals)
+        else:
+            raw = _scaleoffset_decode(raw, vals, where)
     return raw
+
+
+def fletcher32(data: bytes) -> int:
+    """HDF5's Fletcher-32 (``H5_checksum_fletcher32``): big-endian 16-bit
+    words summed in blocks of 360, each sum folded to 17 bits after a block,
+    a last odd byte as the high byte of a word."""
+    n = len(data) // 2
+    words = np.frombuffer(data, ">u2", count=n).astype(np.int64)
+    blocks = [words[i:i + 360] for i in range(0, n, 360)]
+    if len(data) % 2:
+        blocks.append(np.array([data[-1] << 8], np.int64))
+    sum1 = sum2 = 0
+    for w in blocks:
+        # after a block: sum2 gains len * sum1 + the sums of the block's prefixes
+        sum2 = (sum2 + len(w) * sum1 + int((w * np.arange(len(w), 0, -1)).sum())) & _M32
+        sum1 = (sum1 + int(w.sum())) & _M32
+        sum1, sum2 = (sum1 & 0xFFFF) + (sum1 >> 16), (sum2 & 0xFFFF) + (sum2 >> 16)
+    sum1, sum2 = (sum1 & 0xFFFF) + (sum1 >> 16), (sum2 & 0xFFFF) + (sum2 >> 16)
+    return (sum2 << 16) | sum1
+
+
+def _fletcher32_checked(raw: bytes, where: str) -> bytes:
+    """``raw`` without its trailing checksum, which must be the Fletcher-32
+    of the rest (in either byte order: older libraries stored it swapped)."""
+    body, stored = raw[:-4], _uint(raw, len(raw) - 4, 4)
+    value = fletcher32(body)
+    if stored not in (value, int.from_bytes(value.to_bytes(4, "little"), "big")):
+        raise ChecksumError(f"{where}: fletcher32 checksum mismatch")
+    return body
+
+
+def _unpack_bits(raw: bytes, n: int, width: int) -> np.ndarray:
+    """``n`` unsigned values of ``width`` bits packed most significant bit
+    first from the start of ``raw``, as uint64. Value ``8k + j`` starts
+    ``width`` bytes after value ``8(k-1) + j`` and at the same bit of its
+    byte, so each phase ``j`` is a strided view of the 8 bytes from its
+    start (shifted by that bit) and the 9th byte's first bits."""
+    if width == 0:
+        return np.zeros(n, np.uint64)
+    m = -(-n // 8)
+    data = np.frombuffer(raw, np.uint8, count=-(-n * width // 8))
+    buf = np.zeros((m + 1) * width + 9, np.uint8)
+    buf[:data.size] = data
+    out = np.empty(8 * m, np.uint64)
+    for j in range(8):
+        start, bit = divmod(j * width, 8)
+        word = np.ndarray((m,), ">u8", buf, start, (width,)).astype(np.uint64)
+        ninth = np.ndarray((m,), np.uint8, buf, start + 8, (width,)).astype(np.uint64)
+        out[j::8] = ((word << np.uint64(bit)) | (ninth >> np.uint64(8 - bit))) >> np.uint64(64 - width)
+    return out[:n]
+
+
+def _nbit_decode(raw: bytes, vals) -> bytes:
+    """Undo the n-bit filter over an atomic datatype: each element's
+    ``precision`` significant bits, packed, put back at its bit offset
+    (``H5Z__nbit_decompress``)."""
+    if vals[1]:  # the datatype uses all its bits: the chunk is stored as it is
+        return raw
+    if vals[3] != 1:
+        raise NotImplementedError("n-bit filter over a compound or array datatype")
+    n, size, order, precision, offset = vals[2], vals[4], vals[5], vals[6], vals[7]
+    value = _unpack_bits(raw, n, precision) << np.uint64(offset)
+    return value.astype(f"{'>' if order else '<'}u{size}").tobytes()
+
+
+SO_FLOAT_DSCALE, SO_INT = 0, 2
+
+
+def _scaleoffset_decode(raw: bytes, vals, where: str) -> bytes:
+    """Undo the scale-offset filter (``H5Z__filter_scaleoffset``): a header
+    of the bits per value and the minimum, the values' offsets from it
+    packed in that many bits; integers add the minimum back, floats of the
+    D-scale variant divide by 10^D and add it. A fill value, where the
+    dataset defines one, is coded as the largest value of those bits."""
+    scale_type, scale_factor, n, cls, size, signed, order, fill_defined = vals[:8]
+    if scale_type not in (SO_FLOAT_DSCALE, SO_INT):
+        raise NotImplementedError(f"{where}: scale-offset of scale type {scale_type} (E-scale)")
+    minbits = _uint(raw, 0, 4)
+    minval = _uint(raw, 5, min(8, raw[4]))
+    utype, full = np.dtype(f"<u{size}"), np.uint64((1 << (8 * size)) - 1)
+    if minbits == 8 * size:  # stored as they are, in memory order
+        codes = np.frombuffer(raw, utype, count=n, offset=21).astype(np.uint64)
+    else:
+        codes = _unpack_bits(raw[21:], n, minbits)
+    fill = b"".join(v.to_bytes(4, "little") for v in vals[8:])[:size] if fill_defined else None
+    is_fill = codes == np.uint64((1 << minbits) - 1) if fill is not None and minbits < 8 * size else None
+    if cls == 0:  # integers
+        out = codes if minbits == 8 * size else (codes + np.uint64(minval)) & full
+        out = out.astype(utype)
+        if is_fill is not None:
+            out[is_fill] = np.frombuffer(fill, utype)[0]
+        kind = f"{'i' if signed else 'u'}{size}"
+    else:  # in the element's own precision, as H5Z_scaleoffset_modify_3/4 (powf for floats)
+        kind = f"f{size}"
+        ftype = np.dtype(f"<f{size}")
+        if minbits == 8 * size:
+            out = codes.astype(utype).view(ftype)
+        else:
+            minimum = np.frombuffer(minval.to_bytes(8, "little")[:size], ftype)[0]
+            signed_codes = codes.astype(utype).view(f"<i{size}").astype(ftype)
+            out = signed_codes / ftype.type(10.0) ** ftype.type(scale_factor) + minimum
+        if is_fill is not None:
+            out[is_fill] = np.frombuffer(fill, ftype)[0]
+    return out.view(f"<{kind}").astype(f"{'>' if order else '<'}{kind}").tobytes()
 
 
 def _chunk_entries(buf: bytes, client: int, esize: int, nbytes: int) -> List[Tuple[int, int, int]]:
@@ -618,9 +1145,10 @@ def _chunk_entries(buf: bytes, client: int, esize: int, nbytes: int) -> List[Tup
             for i in range(0, len(buf), esize)]
 
 
-def _parse_link(buf: bytes, group: str) -> Tuple[Optional[int], str, int]:
-    """(creation order or None, name, object header address) of a link
-    message; soft, external and user-defined links raise."""
+def _parse_link(buf: bytes) -> tuple:
+    """(creation order or None, name, link) of a link message: the object
+    header address of a hard link, ("soft", path), ("external", file name,
+    object path) or ("user", link type)."""
     if buf[0] != 1:
         raise NotImplementedError(f"link message version {buf[0]}")
     flags, pos = buf[1], 2
@@ -635,10 +1163,16 @@ def _parse_link(buf: bytes, group: str) -> Tuple[Optional[int], str, int]:
     size_len = 1 << (flags & 0x03)
     n, pos = _uint(buf, pos, size_len), pos + size_len
     name = buf[pos:pos + n].decode("utf-8")
-    if ltype != 0:
-        kind = {1: "soft", 64: "external"}.get(ltype, "user-defined")
-        raise NotImplementedError(f"{group}: {kind} link {name!r} (type {ltype})")
-    return order, name, _uint(buf, pos + n, 8)
+    pos += n
+    if ltype == 0:
+        return order, name, _uint(buf, pos, 8)
+    info = buf[pos + 2:pos + 2 + _uint(buf, pos, 2)]
+    if ltype == 1:
+        return order, name, ("soft", info.decode("utf-8"))
+    if ltype == 64:  # a version and flags byte, then the file name and the object path
+        file_name, path, _ = info[1:].split(b"\0", 2)
+        return order, name, ("external", file_name.decode("utf-8"), path.decode("utf-8"))
+    return order, name, ("user", ltype)
 
 
 class _FractalHeap:
@@ -762,7 +1296,10 @@ class File(Group):
             raise ValueError("File opens for reading only; write with Writer")
         self._src = _Source(path)
         self.filename = self._src.path
+        self._dir = os.path.dirname(os.path.abspath(self.filename))  # where external names resolve
         self._heaps: Dict[int, "_FractalHeap"] = {}
+        self._externals: Dict[str, "File"] = {}
+        self._committed: Dict[int, bytes] = {}
         try:
             root = self._read_superblock()
             Group.__init__(self, self, _Object(self, root), "/")
@@ -824,11 +1361,71 @@ class File(Group):
         obj = _Object(self, addr)
         if obj.find(MSG_SYMBOL_TABLE) is not None or obj.find(MSG_LINK_INFO) is not None:
             return Group(self, obj, name)
+        if obj.find(MSG_DATATYPE) is not None and obj.find(MSG_LAYOUT) is None:
+            return Datatype(self, obj, name)
         return Dataset(self, obj, name)
 
+    def _resolve(self, group: Group, path: str, depth: int):
+        """The object at ``path`` from ``group`` (from this file's root
+        where the path is absolute)."""
+        obj = self if path.startswith("/") else group
+        for part in path.split("/"):
+            if part in ("", "."):
+                continue
+            if not isinstance(obj, Group):
+                raise KeyError(f"{obj.name} is not a group (looking up {path!r})")
+            obj = obj._follow(part, depth)
+        return obj
+
+    def _external_file(self, name: str, prefix_variable: str) -> Optional["File"]:
+        """The file an external link or a virtual dataset's mapping names,
+        found as HDF5 finds it (``H5F_prefix_open_file``): an absolute name
+        as it is, else its base name; then under each directory of the
+        colon-separated list in the environment variable ``prefix_variable``;
+        then in this file's directory; then from the working directory.
+        None where no candidate opens."""
+        candidates = []
+        if os.path.isabs(name):
+            candidates.append(name)
+            name = os.path.basename(name)
+        for prefix in filter(None, os.environ.get(prefix_variable, "").split(":")):
+            candidates.append(os.path.join(prefix, name))
+        candidates += [os.path.join(self._dir, name), name]
+        for path in candidates:
+            key = os.path.realpath(path)
+            if key == os.path.realpath(self.filename):
+                return self
+            if key not in self._externals and os.path.isfile(path):
+                try:
+                    self._externals[key] = File(path)
+                except (OSError, NotImplementedError):
+                    continue
+            if key in self._externals:
+                return self._externals[key]
+        return None
+
+    def _shared_datatype(self, body: bytes) -> bytes:
+        """The datatype message of the committed datatype that a shared
+        datatype message (of a dataset or an attribute) points at."""
+        version, kind = body[0], body[1]
+        if version == 1:
+            addr = _uint(body, 16, 8)  # after 6 reserved bytes and a local heap offset
+        elif version == 2 or version == 3 and kind == 2:
+            addr = _uint(body, 2, 8)
+        elif version == 3 and kind == 1:
+            raise NotImplementedError("shared datatype in a shared message table")
+        else:
+            raise NotImplementedError(f"shared message version {version} of type {kind}")
+        if addr not in self._committed:
+            msg = _Object(self, addr).find(MSG_DATATYPE)
+            if msg is None:
+                raise OSError(f"{self.filename}: no committed datatype at {addr}")
+            self._committed[addr] = msg
+        return self._committed[addr]
+
     # -- new-style groups and dense attributes -----------------------------------
-    def _read_links(self, messages: List[bytes], linfo: Optional[bytes], name: str) -> Dict[str, int]:
-        """{name: object header address} of a new-style group: its link
+    def _read_links(self, messages: List[bytes], linfo: Optional[bytes], name: str) -> Dict[str, object]:
+        """{name: link (see :func:`_parse_link`)} of a new-style group: its link
         messages, or those in its fractal heap (dense storage), in creation
         order where the group tracks it."""
         if linfo is not None:
@@ -840,9 +1437,9 @@ class File(Group):
             by_order = _uint(linfo, pos + 16, 8) if flags & 0x02 else UNDEF
             if heap != UNDEF:
                 messages = self._dense_objects(heap, by_name, by_order, BT2_LINK_NAME, BT2_LINK_ORDER)
-        links = [_parse_link(m, name) for m in messages]
+        links = [_parse_link(m) for m in messages]
         links.sort(key=lambda link: (link[0] is None, link[0] or 0, link[1]))
-        return {n: addr for _, n, addr in links}
+        return {n: link for _, n, link in links}
 
     def _dense_attributes(self, info: bytes) -> List[bytes]:
         """The attribute messages of an attribute info message's dense
@@ -932,6 +1529,30 @@ class File(Group):
                     out.append(records[i])
 
         walk(root, depth, root_n)
+        return out
+
+    # -- virtual datasets --------------------------------------------------------
+    def _virtual_mappings(self, collection: int, index: int, name: str) -> list:
+        """[(source file, source dataset, source selection, virtual
+        selection)] of a virtual dataset's global heap object (encoding
+        version 0, under a lookup3 checksum). A source named with a printf
+        block number (``%b``) raises; ``%%`` stands for ``%``."""
+        raw = self._global_heap_object(collection, index)
+        if raw[0] != 0:
+            raise NotImplementedError(f"{name}: virtual dataset mappings of encoding version {raw[0]}")
+        if lookup3(raw[:-4]) != _uint(raw, len(raw) - 4, 4):
+            raise ChecksumError(f"{self.filename}: checksum mismatch in the mappings of the virtual dataset {name}")
+        n, pos, out = _uint(raw, 1, 8), 9, []
+        for _ in range(n):
+            names = []
+            for _ in range(2):
+                text, pos = _name_at(raw, pos, False)
+                if b"%b" in text:
+                    raise NotImplementedError(f"{name}: a printf-style source name {text.decode()!r} (%b)")
+                names.append(text.replace(b"%%", b"%").decode("utf-8"))
+            src_sel, pos = _parse_selection(raw, pos, f"{name}: the source selection of {names[0]}:{names[1]}")
+            virt_sel, pos = _parse_selection(raw, pos, f"{name}: the virtual selection of {names[0]}:{names[1]}")
+            out.append((names[0], names[1], src_sel, virt_sel))
         return out
 
     # -- chunk indexes of layout version 4 ----------------------------------------
@@ -1034,9 +1655,16 @@ class File(Group):
             raise OSError(f"no local heap at {addr}")
         return self._src.read(_uint(head, 24, 8), _uint(head, 8, 8))
 
-    def _read_symbol_table(self, btree: int, heap: int) -> Dict[str, int]:
+    def _read_symbol_table(self, btree: int, heap: int) -> Dict[str, object]:
+        """{name: link} of an old-style group: an object header address, or
+        ("soft", path) for an entry of cache type 2 (its scratch pad holds
+        the path's offset in the group's local heap)."""
         names = self._local_heap_data(heap)
-        members: Dict[str, int] = {}
+
+        def text(off: int) -> str:
+            return names[off:names.index(b"\0", off)].decode("utf-8")
+
+        members: Dict[str, object] = {}
         for snod in self._btree_children(btree, node_type=0, rank=0):
             head = self._src.read(snod, 8)
             if head[:4] != b"SNOD":
@@ -1045,9 +1673,8 @@ class File(Group):
             entries = self._src.read(snod + 8, 40 * n)
             for i in range(n):
                 e = entries[40 * i:40 * (i + 1)]
-                off = _uint(e, 0, 8)
-                name = names[off:names.index(b"\0", off)].decode("utf-8")
-                members[name] = _uint(e, 8, 8)
+                soft = _uint(e, 16, 4) == 2
+                members[text(_uint(e, 0, 8))] = ("soft", text(_uint(e, 24, 4))) if soft else _uint(e, 8, 8)
         return members
 
     def _btree_node(self, addr: int, node_type: int, rank: int):
@@ -1116,8 +1743,8 @@ class File(Group):
             pad = lambda n: (n + 7) // 8 * 8  # noqa: E731
             pos = 8
         elif version in (2, 3):
-            if buf[1] & 0x03:
-                raise NotImplementedError("attribute of a shared datatype or dataspace")
+            if buf[1] & 0x02:
+                raise NotImplementedError("attribute of a shared dataspace")
             pad = lambda n: n  # noqa: E731
             pos = 8 if version == 2 else 9  # version 3 adds the name's character set
         else:
@@ -1128,8 +1755,10 @@ class File(Group):
         pos += pad(type_size)
         shape, _ = _parse_dataspace(buf, pos)
         pos += pad(space_size)
+        type_buf, tpos = (self._shared_datatype(buf[tpos:tpos + type_size]), 0) if version > 1 and buf[1] & 0x01 \
+            else (buf, tpos)
         try:
-            dtype, _ = _parse_datatype(buf, tpos)
+            dtype, _ = _parse_datatype(type_buf, tpos)
         except _Unsupported:
             return None, None
         if shape is None:
@@ -1147,6 +1776,8 @@ class File(Group):
             arr = np.frombuffer(data, dtype.dtype, count=count).reshape(shape)
             if dtype.padding == 2:  # space padded
                 arr = np.char.rstrip(arr, b" ")
+        elif dtype.kind == "compound":  # h5py keeps the members' byte order
+            arr = _members_only(np.frombuffer(data, dtype.dtype, count=count).reshape(shape))
         else:
             arr = np.frombuffer(data, dtype.dtype, count=count).astype(
                 dtype.dtype.newbyteorder("=")).reshape(shape)
@@ -1156,6 +1787,8 @@ class File(Group):
         return name, arr
 
     def close(self) -> None:
+        for other in self._externals.values():
+            other.close()
         self._src.close()
 
     def __enter__(self) -> "File":
@@ -1167,7 +1800,7 @@ class File(Group):
 
 def open_file(path):
     """An HDF5 file opened for reading by :class:`File`; where it raises
-    ``NotImplementedError`` (a soft link in the root group, say) and
+    ``NotImplementedError`` (a shared-message table, say) and
     h5py is installed, by ``h5py.File`` instead. Both give ``keys()``,
     ``[name]``, ``attrs`` and numpy-style reads."""
     try:

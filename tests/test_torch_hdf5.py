@@ -9,6 +9,7 @@ import h5py
 import numpy as np
 import pytest
 
+from _h5py_layout_fixtures import write_small_addresses
 from climate2weather_tpu.data.grid import GridDataset as JaxGrid
 from climate2weather_tpu.data.grid import QuantileDataset as JaxQuantiles
 from climate2weather_tpu.data.grid import open_grid as jax_open_grid
@@ -193,17 +194,21 @@ def test_port_grid_files_read_back_through_the_jax_readers(tmp_path):
 
 
 def test_latest_libver_raises_not_implemented(tmp_path):
-    """What ``libver='latest'`` writes for a dataset chunked along two
-    unlimited axes, a version-2 B-tree chunk index, is not read (the rest of
-    the file is: tests/test_torch_hdf5_netcdf.py)."""
+    """Of what ``libver='latest'`` writes, a szip-filtered dataset is not
+    read: it raises naming the filter, while the rest of the file reads as
+    h5py reads it, a dataset chunked along two unlimited axes (a version-2
+    B-tree chunk index) among them (tests/test_torch_hdf5_netcdf.py and
+    tests/test_torch_hdf5_layouts.py hold the rest)."""
     path = tmp_path / "latest.h5"
     with h5py.File(path, "w", libver="latest") as f:
         f.create_dataset("x", data=np.ones(3))
-        f.create_dataset("y", shape=(4, 4), maxshape=(None, None), chunks=(2, 2), dtype=np.float32)
+        f.create_dataset("y", data=np.arange(16.0).reshape(4, 4), maxshape=(None, None), chunks=(2, 2))
+        f.create_dataset("z", data=np.arange(64.0), chunks=(32,), compression="szip")
     with hdf5.File(path) as f:
         np.testing.assert_array_equal(f["x"][:], np.ones(3))
-        with pytest.raises(NotImplementedError, match="version-2 B-tree chunk index"):
-            f["y"]
+        np.testing.assert_array_equal(f["y"][:], np.arange(16.0).reshape(4, 4))
+        with pytest.raises(NotImplementedError, match="filter 4 \\(szip"):
+            f["z"]
 
 
 def _compact_dataset(f):
@@ -214,11 +219,12 @@ def _compact_dataset(f):
         h5py.h5s.ALL, h5py.h5s.ALL, np.arange(4, dtype=np.float32))
 
 
-# No writer of the JAX package asks for a checksum or a compact layout
+# No writer of the JAX package asks for these; h5py writes them
 @pytest.mark.parametrize("make, match", [
-    (lambda f: f.create_dataset("x", data=np.arange(8.0), chunks=(4,), fletcher32=True), "filter 3"),
-    (_compact_dataset, "layout class 0"),
-], ids=["fletcher32", "compact_layout"])
+    (lambda f: f.create_dataset("x", data=np.arange(8.0), chunks=(8,), compression="szip",
+                                compression_opts=("nn", 8)), "filter 4"),
+    (lambda f: f.create_dataset("x", data=np.array([b"ab", b"cd", b"ef", b"gh"], "V2")), "datatype class 5"),
+], ids=["szip", "opaque"])
 def test_uncovered_dataset_features_raise_not_implemented(tmp_path, make, match):
     path = tmp_path / "uncovered.h5"
     with h5py.File(path, "w") as f:
@@ -229,13 +235,30 @@ def test_uncovered_dataset_features_raise_not_implemented(tmp_path, make, match)
         f["x"]
 
 
+# a checksum and a compact layout: not read before the port's HDF5 reader
+# took the structures h5py writes; now read as h5py reads them
+@pytest.mark.parametrize("make", [
+    lambda f: f.create_dataset("x", data=np.arange(8.0), chunks=(4,), fletcher32=True),
+    _compact_dataset,
+], ids=["fletcher32", "compact_layout"])
+def test_formerly_uncovered_dataset_features_read_as_h5py(tmp_path, make):
+    path = tmp_path / "covered.h5"
+    with h5py.File(path, "w") as f:
+        make(f)
+    with h5py.File(path, "r") as h, hdf5.File(path) as f:
+        want = h["x"][:]
+        assert want.size in (4, 8) and f["x"].dtype == h["x"].dtype
+        assert f["x"][:].tobytes() == want.tobytes()
+
+
 def test_open_file_falls_back_to_h5py_where_installed(tmp_path):
-    """A layout the port does not read opens through h5py when h5py is
-    installed (as here); the port's own files open through the port."""
-    path = tmp_path / "latest.h5"
-    with h5py.File(path, "w", libver="latest") as f:
-        f.create_dataset("x", data=np.arange(6.0).reshape(2, 3))
-        f["s"] = h5py.SoftLink("/x")  # the port reads no soft link
+    """A file the port does not read (4-byte addresses) opens through h5py
+    when h5py is installed (as here); the port's own files open through the
+    port."""
+    path = tmp_path / "small_addresses.h5"
+    write_small_addresses(path)
+    with pytest.raises(NotImplementedError, match="offsets of 4"):
+        hdf5.File(path)
     with hdf5.open_file(path) as f:
         assert isinstance(f, h5py.File)
         np.testing.assert_array_equal(f["x"][1], [3.0, 4.0, 5.0])

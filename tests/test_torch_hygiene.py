@@ -71,7 +71,7 @@ if mode == "sampling":
     out = {"p3": p3, "p4_forwards": p4["unet_forwards"], "p4_shape": p4["samples_shape"]}
 elif mode == "predict":
     from climate2weather_tpu_torch.ops import winograd
-    p6 = chip_smoke.phase6_predict(snap, cpu, res=32, steps_override=2)
+    p6 = chip_smoke.phase6_predict(snap, cpu, res=32, steps_override=2, observation=None)
     p7 = chip_smoke.phase7_tiny_training(cpu, steps=2)
     x = torch.randn(2, 8, 8, 16)
     k, b = torch.randn(3, 3, 16, 16) / 12, torch.zeros(16)
@@ -307,6 +307,10 @@ def test_data_layer_phase_needs_only_stdlib_torch_numpy(tmp_path):
         assert all(a[name]["equal"].values()) and len(a[name]["equal"]) == 12
     assert a["latest"]["superblock"] == 3 and a["v108"]["superblock"] == 2
     assert len(a["checksum_faults"]) == 14 and all(a["checksum_faults"].values())
+    layouts = a["h5py_layouts"]  # the structures h5py writes, read with h5py blocked
+    assert layouts["equal"] and layouts["datasets"] == 55 and layouts["undamaged_read"]
+    assert layouts["fletcher32_fault"] == "fletcher32 checksum mismatch" and all(layouts["dangling_raise"].values())
+    assert layouts["observation"] == [9, 8, 8]
     assert b["kept"] == dict.fromkeys(["psl", "tas", "uas", "vas"], 3) and b["test_hours"] == 12
     assert b["train_x_shape"] == [24, 4, 32, 32] and b["nan_audit"] == {"nr_of_times": 1, "which_times": [5]}
     assert len(b["losses"]) == 2 and b["train_launches"] == {"attention_fwd": 0, "attention_bwd": 0}  # the CPU
@@ -463,6 +467,27 @@ def test_study_phase_needs_only_stdlib_torch_numpy(tmp_path):
 FORBIDDEN = {"jax", "flax", "optax", "yaml", "msgpack", "scripts", "climate2weather_tpu"}
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "climate2weather_tpu_torch").rglob("*.py")) + [
     "chip_smoke.py", "tests/_reference_pickle.py"]
+
+
+SHELL_DRIVERS = sorted(str(p.relative_to(REPO)) for p in (REPO / "climate2weather_tpu_torch" / "scripts").glob("*.sh"))
+
+
+@pytest.mark.parametrize("path", SHELL_DRIVERS)
+def test_shell_drivers_run_only_the_port(path):
+    """A shell driver of the port starts no module of the JAX package, no
+    root ``experiment.py``/``train.py`` and no JAX script of ``scripts/``:
+    only ``python -m climate2weather_tpu_torch...`` and the repository's
+    text-only verdict composers (``"$REPO/scripts/*_verdict.py"``); it sets
+    no JAX platform variable."""
+    import re
+
+    text = (REPO / path).read_text()
+    code = "\n".join(line for line in text.splitlines() if not line.lstrip().startswith("#"))
+    assert not re.search(r"climate2weather_tpu\.|C2W_PLATFORM|JAX_|experiment\.py|train\.py|__graft_entry__", code)
+    for call in re.findall(r"python3? +(\S+)", code):
+        assert call == "-m" or re.fullmatch(r'"\$REPO/scripts/\w+_verdict\.py"', call), (path, call)
+    for module in re.findall(r"python3? +-m +(\S+)", code):
+        assert module.startswith("climate2weather_tpu_torch.") or module == "pytest", (path, module)
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
