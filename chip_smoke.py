@@ -62,11 +62,14 @@ Numbered phases, each printing one JSON line with its seconds:
    external-observation and ``guidance_off`` modes (8 steps), reading every
    ``.nc`` back: finite,
    A(x) = y where the config projects, 6 attention launches per forward;
-   the external-observation run reads the committed
-   ``tests/fixtures/observation_latest.nc`` (that observation written by
-   h5py with ``libver='latest'``: a version-2 B-tree chunk index, shuffle,
-   lzf and fletcher32, compact coordinates) once its times and coordinates
-   are those of the written observation;
+   the committed ``tests/fixtures/observation_latest.nc`` (that
+   observation written by h5py with ``libver='latest'``: a version-2
+   B-tree chunk index, shuffle, lzf and fletcher32, compact coordinates)
+   and ``observation_szip.nc`` (szip on a version-2 B-tree index, the
+   coordinates in external raw storage beside it, found as
+   ``HDF5_EXTFILE_PREFIX=${ORIGIN}`` finds them) are each held against the
+   written observation bit for bit, and the external-observation run reads
+   the szip one;
 7. the canonical training drive, ``python -m climate2weather_tpu_torch.train``
    with ``configs/tiny_unet.yml`` at 32 x 32 (attention over 256 tokens,
    forward and backward) from a file the port wrote, 4 steps: finite losses
@@ -162,11 +165,21 @@ Numbered phases, each printing one JSON line with its seconds:
    symbol-table and new-style groups, implicit, version-2 B-tree and
    swizzled extensible-array chunk indexes, compact and virtual layouts,
    fletcher32, lzf, n-bit and scale-offset filters, enum, array, compound
-   and committed datatypes, h5py's selections), every dataset and selection
-   equal to ``h5py_layouts_contents.npz`` bit for bit, the dangling links
-   listed and raising ``KeyError`` only when followed, a flipped byte in a
-   fletcher32 chunk raising ``ChecksumError``; (11b) the drill of
-   ``tests/test_cosmo_layout.py`` through ``python -m
+   and committed datatypes, h5py's selections; szip over float32/64 of
+   either byte order, int8-64 and uint8/16, ``nn`` and ``ec``, 8-32
+   pixels a block, 1-3-D with edge chunks and after shuffle, every chunk
+   stored filtered; external raw storage in one and in several segments;
+   a multi-year virtual dataset over printf-named yearly files and one
+   growing by an unlimited mapping past a year no file holds; bitfields),
+   every dataset and selection equal to ``h5py_layouts_contents.npz`` bit
+   for bit, the dangling links listed and raising ``KeyError`` only when
+   followed, a flipped byte in a fletcher32 chunk raising
+   ``ChecksumError``, a szip chunk cut short and one with its stream's
+   first byte flipped raising ``OSError`` naming the chunk (and every
+   byte of it flipped in turn decoding or raising), the external fixture
+   without its raw files raising as h5py raises, and the host codecs'
+   decode rates on a year's chunk of bytes (szip, lzf, deflate); (11b)
+   the drill of ``tests/test_cosmo_layout.py`` through ``python -m
    climate2weather_tpu_torch.data.cli``: a raw archive over 473 x 500 (four
    variables, a 2005 decoy, a missing tas hour), ``extract-patch-folder
    --years 2006-2014`` per variable and ``preproc-all`` (the 128 x 128
@@ -312,6 +325,7 @@ phases 0, 1 and 13 (13d then compares 13c's directory with itself),
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pathlib
@@ -1335,11 +1349,29 @@ PREDICT_RUNS = (
 )
 # offset and scale of each variable in physical units (Pa, K, m/s)
 PHYSICAL = {"psl": (101000.0, 800.0), "tas": (285.0, 5.0), "uas": (0.0, 4.0), "vas": (0.0, 4.0)}
-# the external-observation run's file at 128 x 128 and 49 hours from seed 0:
+# the external-observation run's files at 128 x 128 and 49 hours from seed 0:
 # coarse_observation(predict_grid()) written by h5py (libver 'latest', a
-# version-2 B-tree chunk index, shuffle + lzf + fletcher32, compact
-# coordinates; tests/_h5py_layout_fixtures.py)
+# version-2 B-tree chunk index; tests/_h5py_layout_fixtures.py): shuffle +
+# lzf + fletcher32 with compact coordinates, and szip with the coordinates
+# in external raw storage (the run reads the last)
 OBSERVATION_FIXTURE = REPO / "tests" / "fixtures" / "observation_latest.nc"
+OBSERVATION_FIXTURES = (OBSERVATION_FIXTURE, REPO / "tests" / "fixtures" / "observation_szip.nc")
+
+
+@contextlib.contextmanager
+def extfile_origin():
+    """External raw storage found beside the file naming it, as
+    ``HDF5_EXTFILE_PREFIX=${ORIGIN}`` has HDF5 (and the port's reader) find
+    it; the variable restored after."""
+    before = os.environ.get("HDF5_EXTFILE_PREFIX")
+    os.environ["HDF5_EXTFILE_PREFIX"] = "${ORIGIN}"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("HDF5_EXTFILE_PREFIX", None)
+        else:
+            os.environ["HDF5_EXTFILE_PREFIX"] = before
 
 
 def predict_grid(res=128, hours=49, seed=0, start="2014-04-07T04"):
@@ -1429,12 +1461,25 @@ def _consistency(A, xs, y, bf16=False) -> tuple:
     return err, tol + (bf16_ulp(x_max) / 2 if bf16 else 0.0)
 
 
+def samples_digest(samples) -> str:
+    """The SHA-256 of written samples' values (each sample's variables in
+    name order): two runs wrote the same bits where it is equal."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for smp in samples:
+        for k in sorted(smp.data_vars):
+            digest.update(np.ascontiguousarray(smp.data_vars[k]).tobytes())
+    return digest.hexdigest()
+
+
 def _predict_runs(root, paths, snapshot_dir, device, runs, hours, steps_override=None) -> list:
     """``exp/downscaling.run`` on each ``(name, config, overrides)`` of
     ``runs`` from the files ``paths``: each output ``.nc`` read back with the
     port's reader and checked finite; where the config projects, A(x) = y in
     normalized space under phase 4's tolerance; the attention launches 6 per
-    UNet forward on the card. Returns one record per run."""
+    UNet forward on the card; the samples' digest (:func:`samples_digest`).
+    Returns one record per run."""
     from climate2weather_tpu_torch.data.grid import open_grid
     from climate2weather_tpu_torch.exp import downscaling
     from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
@@ -1468,7 +1513,7 @@ def _predict_runs(root, paths, snapshot_dir, device, runs, hours, steps_override
         finite = all(bool(np.isfinite(v).all()) for smp in samples for v in smp.data_vars.values())
         rec = {"run": name, "seconds": seconds, "attention_launches": launches,
                "expected_launches": expect, "finite": finite,
-               "outputs": sorted(p.name for p in out_dir.iterdir())}
+               "outputs": sorted(p.name for p in out_dir.iterdir()), "samples_sha256": samples_digest(samples)}
         if cfg.get("t0_project"):
             consistency, tol = _written_consistency(out_dir, samples, cfg, paths["quantiles"])
             rec.update(A_x_minus_y_max=consistency, A_tol=tol)
@@ -1483,13 +1528,14 @@ def _predict_runs(root, paths, snapshot_dir, device, runs, hours, steps_override
 
 
 def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_override=None,
-                   observation=OBSERVATION_FIXTURE) -> dict:
+                   observation=OBSERVATION_FIXTURES) -> dict:
     """``exp/downscaling.run`` (the ``predict`` entry point) from files the
     phase writes with the port's writers, with h5py made unimportable: the
-    runs of ``PREDICT_RUNS``, checked by :func:`_predict_runs`. The
-    external-observation run reads ``observation``, which must hold the
-    observation written here (:func:`_fixture_observation`); None keeps
-    the written one, for sizes the committed fixture is not made at."""
+    runs of ``PREDICT_RUNS``, checked by :func:`_predict_runs`. Each file of
+    ``observation`` must hold the observation written here, bit for bit
+    (:func:`_fixture_observation`); the external-observation run reads the
+    last. None keeps the written one, for sizes the committed fixtures are
+    not made at."""
     import shutil
     import tempfile
 
@@ -1498,34 +1544,40 @@ def phase6_predict(snapshot_dir, device, res=128, hours=49, seed=0, steps_overri
     root = pathlib.Path(tempfile.mkdtemp(prefix="c2w-predict-"))
     try:
         paths = write_predict_inputs(root, res, hours, seed)
-        observation = {"observation": "written by write_predict_inputs"} if observation is None else \
-            _fixture_observation(paths, pathlib.Path(observation))
-        records = _predict_runs(root, paths, snapshot_dir, device, PREDICT_RUNS, hours, steps_override)
+        with extfile_origin():
+            observation = {"observation": "written by write_predict_inputs"} if observation is None else \
+                _fixture_observation(paths, [pathlib.Path(p) for p in observation])
+            records = _predict_runs(root, paths, snapshot_dir, device, PREDICT_RUNS, hours, steps_override)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit(6, t0, runs=records, **observation)
     return {"runs": records, **observation}
 
 
-def _fixture_observation(paths: dict, fixture_path: pathlib.Path) -> dict:
-    """Point ``paths["obs"]`` at ``fixture_path`` once its variables
-    and coordinates are those of the observation :func:`write_predict_inputs`
-    wrote (times equal, latitudes and longitudes within 1e-9 degrees); the
-    values' largest difference is recorded (another numpy's FFT may round
-    the synthetic fields apart from the fixture's)."""
+def _fixture_observation(paths: dict, fixtures: list) -> dict:
+    """Point ``paths["obs"]`` at the last of ``fixtures`` once each holds
+    the observation :func:`write_predict_inputs` wrote, bit for bit: its
+    variables, times, coordinates and attributes. Each one's largest value
+    difference is recorded beside."""
     from climate2weather_tpu_torch.data.grid import open_grid
 
-    fixture, written = open_grid(str(fixture_path)), open_grid(paths["obs"])
-    coords = {c: float(np.abs(getattr(fixture, c) - getattr(written, c)).max()) for c in ("rlat", "rlon")}
-    rec = {"observation": os.path.relpath(fixture_path, REPO),
-           "observation_times_equal": bool(np.array_equal(fixture.time, written.time)),
-           "observation_coord_max_diff": coords,
-           "observation_value_max_diff": max(float(np.abs(fixture.data_vars[v] - written.data_vars[v]).max())
-                                             for v in written.data_vars)}
-    if sorted(fixture.data_vars) != sorted(written.data_vars) or not rec["observation_times_equal"] \
-            or max(coords.values()) > 1e-9:
-        raise AssertionError(f"the observation fixture is not phase 6's observation: {rec}")
-    paths["obs"] = str(fixture_path)
+    written = open_grid(paths["obs"])
+    rec = {"observation": os.path.relpath(fixtures[-1], REPO), "observation_fixtures": {}}
+    for path in fixtures:
+        fixture = open_grid(str(path))
+        equal = {"vars": sorted(fixture.data_vars) == sorted(written.data_vars),
+                 "attrs": fixture.attrs == written.attrs,
+                 **{c: getattr(fixture, c).tobytes() == getattr(written, c).tobytes()
+                    for c in ("time", "rlat", "rlon")},
+                 **{v: fixture.data_vars[v].tobytes() == written.data_vars[v].tobytes() for v in written.data_vars
+                    if v in fixture.data_vars}}
+        rec["observation_fixtures"][path.name] = {
+            "bits_equal": all(equal.values()), "unequal": [k for k, v in equal.items() if not v],
+            "value_max_diff": max(float(np.abs(fixture.data_vars[v] - written.data_vars[v]).max())
+                                  for v in written.data_vars if v in fixture.data_vars)}
+    if not all(r["bits_equal"] for r in rec["observation_fixtures"].values()):
+        raise AssertionError(f"an observation fixture is not phase 6's observation: {rec}")
+    paths["obs"] = str(fixtures[-1])
     return rec
 
 
@@ -3254,24 +3306,94 @@ def phase11a_netcdf(root) -> dict:
     return rec
 
 
+# a year's training-file chunk: (24, 4, 128, 128) float32 (data/processing.py's
+# chunk_hours of 24 at the 72.1M net's 128 x 128)
+YEAR_CHUNK_SHAPE = (24, 4, 128, 128)
+CODEC_RATE_FRAME = FIXTURES / "codec_rate_frame.h5"
+
+
+def tiled_szip(chunk: bytes, copies: int, pad_bits: int) -> bytes:
+    """A szip chunk of ``copies`` times the samples of ``chunk``: its AEC
+    stream, less the ``pad_bits`` that end its last byte, repeated bit for
+    bit (each copy's samples fill whole scanlines, so every copy starts a
+    reference sample interval), after the decoded size."""
+    bits = np.unpackbits(np.frombuffer(chunk, np.uint8, offset=4))
+    stream = np.packbits(np.tile(bits[:bits.size - pad_bits], copies)).tobytes()
+    return (int.from_bytes(chunk[:4], "little") * copies).to_bytes(4, "little") + stream
+
+
+def tiled_szip_bytes(frame: bytes, copies: int, width: int) -> bytes:
+    """What :func:`tiled_szip` decodes to where ``frame`` is pixels of
+    ``width`` bytes coded as byte planes: the planes of every copy in turn,
+    read back as planes of the whole."""
+    planes = np.frombuffer(frame, np.uint8).reshape(-1, width).T.ravel()
+    return np.tile(planes, copies).reshape(width, -1).T.tobytes()
+
+
+def codec_rates(repeats: int = 3) -> dict:
+    """The host codecs' decode rates (MB of decoded output a second, the
+    best of ``repeats``) on a year's chunk of bytes from the committed frame
+    (``tests/_h5py_layout_fixtures.write_codec_rate_frame``): its szip
+    stream tiled bit for bit (:func:`tiled_szip`), its lzf stream (after
+    shuffle) repeated (an LZF stream's matches are relative, so streams
+    concatenate), and deflate at h5py's level 4 of what that lzf stream
+    decodes to, one stream a frame (one deflate stream of the repeated
+    frames would be mostly matches back one frame); each decoded output
+    checked against one frame's."""
+    import zlib
+
+    from climate2weather_tpu_torch.data import native_blosc
+    from climate2weather_tpu_torch.io import hdf5
+
+    with hdf5.File(CODEC_RATE_FRAME) as f:
+        frame = f["szip"][()]
+        pad = int(f["szip"].attrs["pad_bits"])
+        chunks = {name: (f._src.read(addr, size), f[name]._filters)
+                  for name in ("szip", "lzf") for (_, _, size, addr) in f[name]._index}
+    copies = int(np.prod(YEAR_CHUNK_SHAPE)) // frame.size
+    szip_chunk, ((_, vals),) = chunks["szip"]
+    lzf_chunk = chunks["lzf"][0]
+    one = native_blosc.lzf_decompress(lzf_chunk, frame.nbytes)
+    shuffled, deflated = one * copies, zlib.compress(one, 4)
+    streams = {"szip": (tiled_szip(szip_chunk, copies, pad), tiled_szip_bytes(frame.tobytes(), copies, 4),
+                        lambda raw, n: native_blosc.szip_decompress(raw, vals, n)),
+               "lzf": (lzf_chunk * copies, shuffled, native_blosc.lzf_decompress),
+               "deflate": (deflated * copies, shuffled,
+                           lambda raw, n: b"".join(zlib.decompress(deflated) for _ in range(copies)))}
+    rec = {"decoded_bytes": len(shuffled), "frame": list(frame.shape), "copies": copies}
+    for name, (raw, want, decode) in streams.items():
+        seconds = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            out = decode(raw, len(want))
+            seconds.append(time.perf_counter() - t0)
+            if out != want:
+                raise AssertionError(f"the {name} codec decodes the tiled year chunk wrong")
+        rec[name] = {"stored_bytes": len(raw), "best_s": min(seconds), "mb_s": len(want) / min(seconds) / 1e6}
+    return rec
+
+
 def _layout_fixtures(root) -> dict:
     """The committed fixtures of the HDF5 structures h5py writes
     (``tests/_h5py_layout_fixtures.py``) through ``io.hdf5.File``: every
     dataset, link followed, and every read of ``LAYOUT_SELECTIONS`` equal to
     ``h5py_layouts_contents.npz`` bit for bit; the dangling links listed
     and raising ``KeyError`` only when followed; a flipped byte in a
-    fletcher32 chunk raising ``ChecksumError``; phase 6's observation
-    through ``open_grid``."""
+    fletcher32 chunk raising ``ChecksumError``; the checks of
+    :func:`_storage_checks`; phase 6's observations through ``open_grid``.
+    External raw storage is found as ``HDF5_EXTFILE_PREFIX=${ORIGIN}`` has
+    it found."""
     from climate2weather_tpu_torch.data.grid import open_grid
     from climate2weather_tpu_torch.io import hdf5
 
     want = np.load(FIXTURES / "h5py_layouts_contents.npz")
     equal = {}
-    for key in want.files:
-        kind, path = key.split("/", 1)
-        with hdf5.File(FIXTURES / f"h5py_{kind}.h5") as f:
-            name, sel = LAYOUT_SELECTIONS.get(path, (path, ())) if kind == "selections" else (path, ())
-            equal[key] = _bits_equal(f[name][sel], want[key])
+    with extfile_origin():
+        for key in want.files:
+            kind, path = key.split("/", 1)
+            with hdf5.File(FIXTURES / f"h5py_{kind}.h5") as f:
+                name, sel = LAYOUT_SELECTIONS.get(path, (path, ())) if kind == "selections" else (path, ())
+                equal[key] = _bits_equal(f[name][sel], want[key])
     with hdf5.File(FIXTURES / "h5py_links.h5") as f:
         listed = all(k in f.keys() and k in f for k in LAYOUT_DANGLING)
         dangling = {}
@@ -3294,13 +3416,81 @@ def _layout_fixtures(root) -> dict:
         except hdf5.ChecksumError as e:
             fletcher = str(e).rsplit(": ", 1)[1]
         intact = _bits_equal(f["lzf"][()], want["filters/lzf"])  # another dataset of the damaged file
-    obs = open_grid(str(FIXTURES / "observation_latest.nc"))
+    with extfile_origin():
+        observations = [open_grid(str(p)) for p in OBSERVATION_FIXTURES]
     rec = {"datasets": len(equal), "equal": all(equal.values()), "unequal": [k for k, v in equal.items() if not v],
            "dangling_listed": listed, "dangling_raise": dangling, "fletcher32_fault": fletcher,
-           "undamaged_read": intact, "observation": [len(obs.time), *np.shape(obs.data_vars["tas"])[1:]]}
+           "undamaged_read": intact, "observation": [len(observations[0].time),
+                                                    *np.shape(observations[0].data_vars["tas"])[1:]],
+           "observations_equal": all(a.tobytes() == b.tobytes() for a, b in zip(
+               [observations[0].time, *observations[0].data_vars.values()],
+               [observations[1].time, *observations[1].data_vars.values()])),
+           "storage": _storage_checks(root)}
     if not rec["equal"] or len(equal) != len(want.files) or not listed or not all(dangling.values()) \
-            or fletcher is None or not intact or rec["observation"] != [9, 8, 8]:
+            or fletcher is None or not intact or rec["observation"] != [9, 8, 8] or not rec["observations_equal"]:
         raise AssertionError(f"the h5py layout fixtures read wrong: {rec}")
+    return rec
+
+
+def _storage_checks(root) -> dict:
+    """The structures read since ROADMAP A 10's last: every chunk of the szip
+    fixture stored szip-coded (filter mask 0: HDF5 skips the optional filter
+    where it cannot shrink a chunk); the first chunk of ``f4_nn8`` cut to
+    half and, in a copy of the file, its stream's first byte flipped, each
+    raising ``OSError`` naming the dataset and the chunk, and each of its
+    bytes flipped in turn decoding or raising, never crashing; the external
+    fixture without its raw files raising ``OSError`` as h5py raises; the
+    multi-year virtual datasets' extents and the year no file holds (NaN);
+    the host codecs' decode rates (:func:`codec_rates`)."""
+    import shutil
+
+    from climate2weather_tpu_torch.io import hdf5
+
+    path = FIXTURES / "h5py_szip.h5"
+    with hdf5.File(path) as f:
+        masks = {name: sorted({m for _, m, _, _ in f[name]._index}) for name in f}
+        d = f["f4_nn8"]
+        _, mask, size, addr = d._index[0]
+        raw = f._src.read(addr, size)
+        nbytes = int(np.prod(d.chunks)) * d._type.size
+
+        def decode(stream: bytes):
+            try:
+                hdf5._unfilter(stream, d._filters, mask, d._type.size, nbytes, f"{d.name}: the chunk at {addr}")
+            except OSError as e:
+                return str(e)
+            return None
+
+        truncated = decode(raw[:size // 2])
+        flips = [decode(raw[:i] + bytes([raw[i] ^ 0x10]) + raw[i + 1:]) for i in range(size)]
+    damaged = bytearray(path.read_bytes())
+    damaged[addr + 4] ^= 0x10  # the stream's first byte: its first block's option
+    (root / "h5py_szip_flipped.h5").write_bytes(bytes(damaged))
+    with hdf5.File(root / "h5py_szip_flipped.h5") as f:
+        try:
+            f["f4_nn8"][()]
+            flipped = None
+        except OSError as e:
+            flipped = str(e).split(": ", 1)[1]
+    shutil.copy(FIXTURES / "h5py_external.h5", root / "h5py_external.h5")  # without its raw files
+    with extfile_origin(), hdf5.File(root / "h5py_external.h5") as f:
+        try:
+            f["one"][()]
+            missing = None
+        except OSError as e:
+            missing = str(e).split(": ", 1)[1]
+    with hdf5.File(FIXTURES / "h5py_multiyear.h5") as f:
+        multiyear = {"x": list(f["x"].shape), "growing": list(f["growing"].shape),
+                     "year_held_by_no_file_nan": bool(np.isnan(f["growing"][4:8]).all())}
+    rec = {"szip_masks": sorted({m for v in masks.values() for m in v}), "szip_datasets": len(masks),
+           "szip_truncated": truncated, "szip_flipped": flipped,
+           "szip_byte_flips": {"bytes": size, "raised": sum(e is not None for e in flips)},
+           "external_missing": missing, "multiyear": multiyear, "codec_rates": codec_rates()}
+    if rec["szip_masks"] != [0] or not all(e and "the chunk at" in e and "szip decompress failed" in e
+                                           for e in (truncated, flipped)) \
+            or "unable to open external raw data file" not in (missing or "") \
+            or multiyear != {"x": [12, 4, 6, 6], "growing": [12, 4, 6, 6], "year_held_by_no_file_nan": True}:
+        raise AssertionError(f"the structures read since A 10's last read wrong: {rec}")
     return rec
 
 

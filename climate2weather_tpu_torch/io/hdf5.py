@@ -30,12 +30,23 @@ low bound) and what h5py writes with any ``libver``. This module covers:
   extensible array (``EAHD``, ``EAIB``, ``EASB``, ``EADB``) along one
   unlimited axis (swizzled to the slowest where it is not the first), or a
   version-2 B-tree (record types 10 and 11); a virtual dataset's mappings
-  (all, regular and irregular hyperslabs of fixed extent) from sources in
-  the same file (``"."``) or found as external links' files are (under
-  ``HDF5_VDS_PREFIX``), elements no source maps reading as the fill value;
+  (all, regular and irregular hyperslabs) from sources in the same file
+  (``"."``) or found as external links' files are (under
+  ``HDF5_VDS_PREFIX``), elements no source maps reading as the fill value,
+  and its unlimited mappings under h5py's default view (the last
+  available): a printf-named source (``%b``, the block number; ``%%``)
+  for each block of an unlimited count up to the first missing file, an
+  unlimited source selection clipped to its source's current extent, the
+  dataset's extent theirs;
+- contiguous data in external raw storage (the external data files list):
+  segments across files, found under ``HDF5_EXTFILE_PREFIX`` (a leading
+  ``${ORIGIN}`` the file's directory) or else from the working directory,
+  a short file reading as zeros past its end, a missing one raising
+  ``OSError`` when read, as HDF5 1.14 reads them;
 - integer (of partial precision too, shifted and sign-extended as HDF5
-  converts it), floating-point, enumerated (as its base integers, or bool
-  as h5py writes it), array (as trailing axes) and compound (a structured
+  converts it), floating-point, bitfield (as the unsigned integer of its
+  size, as h5py reads it), enumerated (as its base integers, or bool as
+  h5py writes it), array (as trailing axes) and compound (a structured
   dtype) data of either byte order, fixed-length and variable-length
   strings (the latter in the global heap), committed datatypes and the
   shared datatype messages of datasets and attributes that point at them;
@@ -45,8 +56,9 @@ low bound) and what h5py writes with any ``libver``. This module covers:
   h5py reads it;
 - the deflate, shuffle, fletcher32 (verified; a mismatch raises
   :class:`ChecksumError`), n-bit, scale-offset (integers, and floats by
-  D-scale) and lzf (h5py's, through the host codec
-  ``data/native/blosc.cc``) filters;
+  D-scale), szip (through the host codec ``data/native/szip.cc``: a
+  damaged stream raises ``OSError`` naming the dataset and the chunk) and
+  lzf (h5py's, through ``data/native/blosc.cc``) filters;
 - reads as h5py takes them: integers, slices of positive step, ``...`` and
   one increasing list of indices; what h5py refuses raises as it does.
 
@@ -54,13 +66,16 @@ Every Jenkins lookup3 checksum of these structures is verified: a mismatch
 raises :class:`ChecksumError`. Attributes of other types (the object
 references of dimension scales, for example) are skipped. Anything else
 raises ``NotImplementedError`` naming what it found, so a file is read
-right or not at all: the szip filter (its AEC decoder would be a host
-codec of its own), shared-message tables and the "don't filter partial
-edge chunks" flag (h5py here can write neither), reference, opaque,
-bitfield and time datatypes and variable-length sequences (no reader of
-the package reads them as data), layout messages of versions 1 and 2,
-filtered fractal heaps, point selections, unlimited mappings and
-printf-named sources of a virtual dataset, external raw storage.
+right or not at all: shared-message tables and the "don't filter partial
+edge chunks" flag (h5py here can write neither, so no file holds the
+reading to), reference, opaque and time datatypes and variable-length
+sequences (the package's readers take data as float32, which fails on
+them under h5py too; h5py refuses time), bitfields of partial precision
+(h5py writes none), layout messages of versions 1 and 2 (no HDF5 since
+1.6.3 writes them), filtered fractal heaps (they hold links and
+attributes, not data), a virtual dataset's point selections (HDF5 1.14
+refuses to write them) and printf-named mappings unlimited in their
+block.
 
 :class:`File` opens a file for reading. A chunked dataset's index is read
 when the dataset is opened; a slice then reads only the chunks it overlaps,
@@ -189,7 +204,7 @@ class _Datatype:
 
 
 _IEEE_FLOATS = {2: (0, 16, 10, 5, 0, 10, 15), 4: (0, 32, 23, 8, 0, 23, 127), 8: (0, 64, 52, 11, 0, 52, 1023)}
-_CLASS_NAMES = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference"}
+_CLASS_NAMES = {2: "time", 5: "opaque", 7: "reference"}
 
 
 def _name_at(buf: bytes, pos: int, padded: bool) -> Tuple[bytes, int]:
@@ -219,6 +234,11 @@ def _parse_datatype(buf: bytes, pos: int) -> Tuple[_Datatype, int]:
         offset, precision = _uint(buf, pos + 8, 2), _uint(buf, pos + 10, 2)
         partial = (precision, offset) if (precision, offset) != (8 * size, 0) else None
         return _Datatype("int", size, np.dtype(f"{order}{'i' if signed else 'u'}{size}"), bits=partial), 12
+    if cls == 4:  # bitfield: h5py reads it as the unsigned integer of its size
+        offset, precision = _uint(buf, pos + 8, 2), _uint(buf, pos + 10, 2)
+        if size not in (1, 2, 4, 8) or (precision, offset) != (8 * size, 0):
+            raise _Unsupported(f"bitfield of {size} bytes, {precision} bits at bit {offset}")
+        return _Datatype("int", size, np.dtype(f"{order}u{size}")), 12
     if cls == 1:  # floating-point
         if size not in (2, 4, 8):
             raise _Unsupported(f"float of {size} bytes")
@@ -510,8 +530,8 @@ class Dataset:
         # array element, the unsigned word of a partial-precision integer
         self._elem = np.dtype(f"V{self._type.size}") if self._type.kind == "array" else \
             np.dtype(self.dtype.str.replace("i", "u")) if self._type.bits is not None else self.dtype
-        if obj.find(MSG_EXTERNAL) is not None:
-            raise NotImplementedError(f"{name}: external storage")
+        external = obj.find(MSG_EXTERNAL)
+        self._segments = None if external is None else self._external_segments(external)
         self._filters = _parse_filters(obj.find(MSG_FILTERS), name)
         self._fill = _parse_fill(obj.find(MSG_FILL), obj.find(MSG_FILL_OLD), self._type.size, name)
         self.fillvalue = None if self._fill is None else \
@@ -527,6 +547,58 @@ class Dataset:
             raise TypeError("len() of a scalar dataset")
         return self.shape[0]
 
+    def _external_segments(self, buf: bytes) -> List[Tuple[str, int, int]]:
+        """[(path, offset in the file, size)] of external raw storage (the
+        external data files list message): each name from the message's
+        local heap, found as HDF5 1.14 finds it (``H5D__build_file_prefix``):
+        under the ``HDF5_EXTFILE_PREFIX`` variable, whose leading
+        ``${ORIGIN}`` stands for this file's directory, else from the
+        working directory. The last size may be unlimited (``UNDEF``)."""
+        if buf[0] != 1:
+            raise NotImplementedError(f"{self.name}: external data files list version {buf[0]}")
+        used, heap = _uint(buf, 6, 2), _uint(buf, 8, 8)
+        names = self.file._local_heap_data(heap)
+        prefix = os.environ.get("HDF5_EXTFILE_PREFIX", "")
+        if prefix.startswith("${ORIGIN}"):
+            prefix = self.file._dir + "/" + prefix[len("${ORIGIN}"):]
+        segments = []
+        for i in range(used):
+            at = 16 + 24 * i
+            off = _uint(buf, at, 8)
+            name = names[off:names.index(b"\0", off)].decode("utf-8")
+            if prefix and prefix != "." and not os.path.isabs(name):
+                name = prefix + ("" if prefix.endswith("/") else "/") + name
+            segments.append((name, _uint(buf, at + 8, 8), _uint(buf, at + 16, 8)))
+        return segments
+
+    def _external_read(self, start: int, n: int) -> bytes:
+        """``n`` bytes from ``start`` of external raw storage, across its
+        segments and files; a file shorter than its segment reads as zeros
+        past its end and a missing one raises, as HDF5 reads them."""
+        out, at = [], 0
+        for path, offset, size in self._segments:
+            if n <= 0:
+                break
+            end = at + size if size != UNDEF else start + n
+            if end > start:
+                skip = start - at
+                count = min(end - start, n)
+                try:
+                    fd = os.open(path, os.O_RDONLY)
+                except OSError:
+                    raise OSError(f"{self.file.filename}: {self.name}: unable to open external raw data file "
+                                  f"{path!r}") from None
+                try:
+                    got = os.pread(fd, count, offset + skip)
+                finally:
+                    os.close(fd)
+                out.append(got + b"\0" * (count - len(got)))
+                start, n = start + count, n - count
+            at = end
+        if n > 0:
+            raise OSError(f"{self.file.filename}: {self.name}: read past the end of its external storage")
+        return b"".join(out)
+
     def _parse_layout(self, buf: bytes) -> None:
         version, cls = buf[0], buf[1]
         if version not in (3, 4):
@@ -541,8 +613,9 @@ class Dataset:
             return
         if cls == 3:  # virtual: the mappings are an object of the global heap
             self._kind = "virtual"
-            self._mappings = self.file._virtual_mappings(_uint(buf, 2, 8), _uint(buf, 10, 4), self.name)
             self._sources: Dict[Tuple[str, str], Optional[Dataset]] = {}
+            self._mappings = self._expand_mappings(
+                self.file._virtual_mappings(_uint(buf, 2, 8), _uint(buf, 10, 4), self.name))
             return
         if cls != 2:
             raise NotImplementedError(f"{self.name}: layout class {cls} (unknown)")
@@ -743,17 +816,19 @@ class Dataset:
             full = self._decode(self._compact, n_total).reshape(self.shape)
             return np.ascontiguousarray(full[tuple(slice(a, b) for a, b in ranges)])
         if self._kind == "contiguous":
-            if self._addr == UNDEF:  # never written
+            if self._addr == UNDEF and self._segments is None:  # never written
                 return self._filled(sel_shape)
+            read = self._external_read if self._segments is not None else \
+                lambda start, n: self.file._src.read(self._addr + start, n)
             if self.ndim:  # contiguous rows [r0, r1) of the first axis are one read
                 row = int(np.prod(self.shape[1:], dtype=np.int64)) * self._type.size
                 r0, r1 = ranges[0]
-                raw = self.file._src.read(self._addr + r0 * row, (r1 - r0) * row)
+                raw = read(r0 * row, (r1 - r0) * row)
                 full = self._decode(raw, (r1 - r0) * row // self._type.size)
                 full = full.reshape((r1 - r0,) + tuple(self.shape[1:]))
                 idx = (slice(None),) + tuple(slice(a, b) for a, b in ranges[1:])
                 return np.ascontiguousarray(full[idx])
-            return self._decode(self.file._src.read(self._addr, self._type.size), 1).reshape(())
+            return self._decode(read(0, self._type.size), 1).reshape(())
         out = self._filled(sel_shape)  # what no allocated chunk covers reads as the fill value
         csize = int(np.prod(self.chunks, dtype=np.int64))
         if self._where is None:
@@ -793,6 +868,59 @@ class Dataset:
         return chunk
 
     # -- virtual datasets ---------------------------------------------------------
+    def _expand_mappings(self, mappings: list) -> list:
+        """The mappings as fixed selections, and the dataset's extent as
+        h5py's default view (``H5D_VDS_LAST_AVAILABLE``) gives it: a mapping
+        unlimited along an axis of the virtual space covers what its sources
+        now hold. A printf-named source (``%b`` in its file or dataset name)
+        maps block ``b`` of its virtual selection's unlimited count to the
+        source named with ``b``, for b = 0, 1, ... up to the first that is
+        missing (HDF5's default printf gap of 0); any other unlimited mapping
+        maps the slices of its source's unlimited selection within the
+        source's extent to as many slices of its virtual selection. Along
+        such an axis the extent is the end of the last slice mapped, or of a
+        fixed mapping where that lies further; elsewhere it is the
+        dataspace's."""
+        out, ends, fixed_ends = [], {}, [0] * len(self.shape)
+        for file_name, dset_name, src_sel, virt_sel in mappings:
+            axis = _unlimited_axis(virt_sel)
+            if axis is None:
+                v = _Selected(virt_sel, self.shape)
+                if not v.empty:
+                    fixed_ends = [max(e, h) for e, h in zip(fixed_ends, v.hi)]
+                out.append((_printf_name(file_name, None), _printf_name(dset_name, None), src_sel, virt_sel))
+                continue
+            start, stride, count, block = virt_sel[1][axis]
+            if "%b" in file_name.replace("%%", "") or "%b" in dset_name.replace("%%", ""):
+                if count is not None or block is None:  # one source per block of the unlimited count
+                    raise NotImplementedError(f"{self.name}: a printf-named mapping unlimited in its block")
+                b = 0
+                while True:
+                    names = _printf_name(file_name, b), _printf_name(dset_name, b)
+                    if self._source(*names) is None:
+                        break
+                    dims = list(virt_sel[1])
+                    dims[axis] = (start + b * stride, 1, 1, block)
+                    out.append((*names, src_sel, ("regular", dims)))
+                    b += 1
+                ends[axis] = max(ends.get(axis, 0), start + (b - 1) * stride + block if b else 0)
+                continue
+            names = _printf_name(file_name, None), _printf_name(dset_name, None)
+            src, src_axis = self._source(*names), _unlimited_axis(src_sel)
+            if src_axis is None:
+                raise NotImplementedError(f"{self.name}: an unlimited mapping from a limited source selection")
+            picked = 0 if src is None else _slices_within(*src_sel[1][src_axis], src.shape[src_axis])
+            ends.setdefault(axis, 0)
+            if picked:
+                src_axes = [_unlimited_indices(*d, picked if i == src_axis else None)
+                            for i, d in enumerate(src_sel[1])]
+                virt_axes = [_unlimited_indices(*d, picked if i == axis else None)
+                             for i, d in enumerate(virt_sel[1])]
+                out.append((*names, ("axes", src_axes), ("axes", virt_axes)))
+                ends[axis] = max(ends[axis], int(virt_axes[axis][-1]) + 1)
+        self.shape = tuple(max(ends[d], fixed_ends[d]) if d in ends else n for d, n in enumerate(self.shape))
+        return out
+
     def _source(self, file_name: str, dset_name: str) -> Optional["Dataset"]:
         """A mapping's source dataset; None where its file or dataset is
         missing (HDF5 then reads the mapped elements as the fill value)."""
@@ -856,6 +984,8 @@ class _Selected:
         self._blocks = None
         if kind == "all":
             self.axes = [np.arange(n, dtype=np.int64) for n in shape]
+        elif kind == "axes":
+            self.axes = list(sel[1])
         elif kind == "regular":
             self.axes = [(st + sd * np.arange(cn, dtype=np.int64)[:, None] + np.arange(bk)).ravel()
                          for st, sd, cn, bk in sel[1]]
@@ -888,11 +1018,59 @@ class _Selected:
         return m
 
 
+def _unlimited_axis(sel: tuple) -> Optional[int]:
+    """The axis of a regular hyperslab whose count or block is unlimited."""
+    if sel[0] != "regular":
+        return None
+    return next((d for d, (_, _, cn, bk) in enumerate(sel[1]) if cn is None or bk is None), None)
+
+
+def _slices_within(start: int, stride: int, count: Optional[int], block: Optional[int], extent: int) -> int:
+    """How many slices of a regular hyperslab's axis lie below ``extent``."""
+    if extent <= start:
+        return 0
+    if block is None:
+        return extent - start
+    q, r = divmod(extent - start, stride)
+    n = q * block + min(r, block)
+    return n if count is None else min(n, count * block)
+
+
+def _unlimited_indices(start: int, stride: int, count: Optional[int], block: Optional[int],
+                       n: Optional[int]) -> np.ndarray:
+    """The first ``n`` indices a regular hyperslab selects along one axis
+    (all of them where ``n`` is None: the axis is limited)."""
+    if block is None:
+        return start + np.arange(n, dtype=np.int64)
+    blocks = count if n is None else -(-n // block)
+    idx = (start + stride * np.arange(blocks, dtype=np.int64)[:, None] + np.arange(block)).ravel()
+    return idx if n is None else idx[:n]
+
+
+def _printf_name(text: str, block: Optional[int]) -> str:
+    """A virtual mapping's source name with ``%b`` replaced by ``block``
+    and ``%%`` by ``%`` (HDF5's printf-style names); another ``%`` raises."""
+    out, i = [], 0
+    while i < len(text):
+        nxt = text[i + 1:i + 2]
+        if text[i] != "%":
+            out.append(text[i])
+            i += 1
+            continue
+        if nxt == "%" or nxt == "b" and block is not None:
+            out.append("%" if nxt == "%" else str(block))
+        else:
+            raise NotImplementedError(f"virtual source name {text!r}: the specifier %{nxt} (HDF5 takes %b and %%)")
+        i += 2
+    return "".join(out)
+
+
 def _parse_selection(buf: bytes, pos: int, what: str) -> Tuple[tuple, int]:
     """(selection, position after it) of a serialized dataspace selection
     (``H5S_SELECT_SERIALIZE``): ("all",), ("none",), ("regular", [(start,
-    stride, count, block) per axis]) or ("blocks", [(starts, ends)]) with
-    inclusive ends. Point selections and unlimited counts or blocks raise."""
+    stride, count, block) per axis], an unlimited count or block None) or
+    ("blocks", [(starts, ends)]) with inclusive ends. Point selections
+    raise."""
     stype, version = _uint(buf, pos, 4), _uint(buf, pos + 4, 4)
     if stype in (0, 3):  # none, all: type, version, 8 reserved bytes
         return ("none",) if stype == 0 else ("all",), pos + 16
@@ -912,10 +1090,9 @@ def _parse_selection(buf: bytes, pos: int, what: str) -> Tuple[tuple, int]:
     else:
         raise NotImplementedError(f"{what}: hyperslab selection version {version}")
     unlimited = (1 << (8 * enc)) - 1
-    if flags & 0x01:  # regular: start, stride, count, block per axis
-        dims = [tuple(_uint(buf, at + enc * (4 * d + j), enc) for j in range(4)) for d in range(rank)]
-        if any(unlimited in (cn, bk) for _, _, cn, bk in dims):
-            raise NotImplementedError(f"{what}: an unlimited mapping")
+    if flags & 0x01:  # regular: start, stride, count, block per axis (None where unlimited)
+        dims = [tuple(None if v == unlimited else v for v in (_uint(buf, at + enc * (4 * d + j), enc)
+                                                                for j in range(4))) for d in range(rank)]
         return ("regular", dims), at + 4 * enc * rank
     if version < 3:
         raise NotImplementedError(f"{what}: an irregular hyperslab of version {version}")
@@ -960,10 +1137,11 @@ def _parse_fill(new: Optional[bytes], old: Optional[bytes], size: int, name: str
     return bytes(raw)
 
 
-FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32, FILTER_NBIT, FILTER_SCALEOFFSET = 1, 2, 3, 5, 6
+FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32, FILTER_SZIP, FILTER_NBIT, FILTER_SCALEOFFSET = 1, 2, 3, 4, 5, 6
 FILTER_LZF = 32000  # h5py's own filter
-_FILTERS_READ = (FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32, FILTER_NBIT, FILTER_SCALEOFFSET, FILTER_LZF)
-_FILTER_NAMES = {4: "szip", 307: "bzip2", 32001: "blosc", 32004: "lz4", 32008: "bitshuffle", 32015: "zstd"}
+_FILTERS_READ = (FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32, FILTER_SZIP, FILTER_NBIT, FILTER_SCALEOFFSET,
+                 FILTER_LZF)
+_FILTER_NAMES = {307: "bzip2", 32001: "blosc", 32004: "lz4", 32008: "bitshuffle", 32015: "zstd"}
 
 
 def _parse_filters(buf: Optional[bytes], name: str = "") -> List[Tuple[int, Tuple[int, ...]]]:
@@ -992,7 +1170,7 @@ def _parse_filters(buf: Optional[bytes], name: str = "") -> List[Tuple[int, Tupl
             pos += 4
         if fid not in _FILTERS_READ:
             raise NotImplementedError(f"{name}: filter {fid} ({_FILTER_NAMES.get(fid, 'unknown')}; deflate, "
-                                      f"shuffle, fletcher32, n-bit, scale-offset and lzf are read)")
+                                      f"shuffle, fletcher32, szip, n-bit, scale-offset and lzf are read)")
         filters.append((fid, vals))
     return filters
 
@@ -1000,9 +1178,9 @@ def _parse_filters(buf: Optional[bytes], name: str = "") -> List[Tuple[int, Tupl
 def _unfilter(raw: bytes, filters, mask: int, itemsize: int, nbytes: int, where: str = "a chunk") -> bytes:
     """Undo a chunk's filters, last applied first; bit i of ``mask`` set
     means filter i was skipped for this chunk. ``nbytes``, the decoded
-    chunk's size, bounds what lzf may write where its own header does not
-    say (a filter's output exceeds it by 21 bytes at most: scale-offset's
-    header; fletcher32 adds 4)."""
+    chunk's size, bounds what lzf and szip may write (a filter's output
+    exceeds it by 21 bytes at most: scale-offset's header; fletcher32 adds
+    4). A corrupt szip stream raises ``OSError`` naming ``where``."""
     for i in reversed(range(len(filters))):
         if mask & (1 << i):
             continue
@@ -1021,6 +1199,13 @@ def _unfilter(raw: bytes, filters, mask: int, itemsize: int, nbytes: int, where:
 
             raw = native_blosc.lzf_decompress(raw, vals[2] if len(vals) > 2 and vals[2] else
                                               nbytes + 32 * len(filters))
+        elif fid == FILTER_SZIP:
+            from climate2weather_tpu_torch.data import native_blosc
+
+            try:
+                raw = native_blosc.szip_decompress(raw, vals, nbytes + 32 * len(filters))
+            except ValueError as e:
+                raise OSError(f"{where}: {e}") from None
         elif fid == FILTER_NBIT:
             raw = _nbit_decode(raw, vals)
         else:
@@ -1535,8 +1720,8 @@ class File(Group):
     def _virtual_mappings(self, collection: int, index: int, name: str) -> list:
         """[(source file, source dataset, source selection, virtual
         selection)] of a virtual dataset's global heap object (encoding
-        version 0, under a lookup3 checksum). A source named with a printf
-        block number (``%b``) raises; ``%%`` stands for ``%``."""
+        version 0, under a lookup3 checksum), the names as stored, printf
+        specifiers and all (:meth:`Dataset._expand_mappings` resolves them)."""
         raw = self._global_heap_object(collection, index)
         if raw[0] != 0:
             raise NotImplementedError(f"{name}: virtual dataset mappings of encoding version {raw[0]}")
@@ -1547,9 +1732,7 @@ class File(Group):
             names = []
             for _ in range(2):
                 text, pos = _name_at(raw, pos, False)
-                if b"%b" in text:
-                    raise NotImplementedError(f"{name}: a printf-style source name {text.decode()!r} (%b)")
-                names.append(text.replace(b"%%", b"%").decode("utf-8"))
+                names.append(text.decode("utf-8"))
             src_sel, pos = _parse_selection(raw, pos, f"{name}: the source selection of {names[0]}:{names[1]}")
             virt_sel, pos = _parse_selection(raw, pos, f"{name}: the virtual selection of {names[0]}:{names[1]}")
             out.append((names[0], names[1], src_sel, virt_sel))

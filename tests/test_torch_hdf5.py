@@ -194,21 +194,24 @@ def test_port_grid_files_read_back_through_the_jax_readers(tmp_path):
 
 
 def test_latest_libver_raises_not_implemented(tmp_path):
-    """Of what ``libver='latest'`` writes, a szip-filtered dataset is not
-    read: it raises naming the filter, while the rest of the file reads as
+    """Of what ``libver='latest'`` writes, an opaque dataset is not read: it
+    raises naming its datatype class, while the rest of the file reads as
     h5py reads it, a dataset chunked along two unlimited axes (a version-2
-    B-tree chunk index) among them (tests/test_torch_hdf5_netcdf.py and
-    tests/test_torch_hdf5_layouts.py hold the rest)."""
+    B-tree chunk index) and a szip-filtered one among them
+    (tests/test_torch_hdf5_netcdf.py, tests/test_torch_hdf5_layouts.py and
+    tests/test_torch_hdf5_szip.py hold the rest)."""
     path = tmp_path / "latest.h5"
     with h5py.File(path, "w", libver="latest") as f:
         f.create_dataset("x", data=np.ones(3))
         f.create_dataset("y", data=np.arange(16.0).reshape(4, 4), maxshape=(None, None), chunks=(2, 2))
         f.create_dataset("z", data=np.arange(64.0), chunks=(32,), compression="szip")
-    with hdf5.File(path) as f:
+        f.create_dataset("w", data=np.array([b"ab", b"cd"], "V2"))
+    with hdf5.File(path) as f, h5py.File(path, "r") as h:
         np.testing.assert_array_equal(f["x"][:], np.ones(3))
         np.testing.assert_array_equal(f["y"][:], np.arange(16.0).reshape(4, 4))
-        with pytest.raises(NotImplementedError, match="filter 4 \\(szip"):
-            f["z"]
+        assert f["z"][:].tobytes() == h["z"][:].tobytes() == np.arange(64.0).tobytes()
+        with pytest.raises(NotImplementedError, match="datatype class 5 \\(opaque"):
+            f["w"]
 
 
 def _compact_dataset(f):
@@ -221,10 +224,8 @@ def _compact_dataset(f):
 
 # No writer of the JAX package asks for these; h5py writes them
 @pytest.mark.parametrize("make, match", [
-    (lambda f: f.create_dataset("x", data=np.arange(8.0), chunks=(8,), compression="szip",
-                                compression_opts=("nn", 8)), "filter 4"),
     (lambda f: f.create_dataset("x", data=np.array([b"ab", b"cd", b"ef", b"gh"], "V2")), "datatype class 5"),
-], ids=["szip", "opaque"])
+], ids=["opaque"])
 def test_uncovered_dataset_features_raise_not_implemented(tmp_path, make, match):
     path = tmp_path / "uncovered.h5"
     with h5py.File(path, "w") as f:
@@ -235,12 +236,15 @@ def test_uncovered_dataset_features_raise_not_implemented(tmp_path, make, match)
         f["x"]
 
 
-# a checksum and a compact layout: not read before the port's HDF5 reader
-# took the structures h5py writes; now read as h5py reads them
+# a checksum, a compact layout and szip: not read before the port's HDF5
+# reader took the structures h5py writes (szip: its last); now read as h5py
+# reads them
 @pytest.mark.parametrize("make", [
     lambda f: f.create_dataset("x", data=np.arange(8.0), chunks=(4,), fletcher32=True),
     _compact_dataset,
-], ids=["fletcher32", "compact_layout"])
+    lambda f: f.create_dataset("x", data=np.arange(8.0), chunks=(8,), compression="szip",
+                               compression_opts=("nn", 8)),
+], ids=["fletcher32", "compact_layout", "szip"])
 def test_formerly_uncovered_dataset_features_read_as_h5py(tmp_path, make):
     path = tmp_path / "covered.h5"
     with h5py.File(path, "w") as f:

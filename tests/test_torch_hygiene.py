@@ -308,9 +308,19 @@ def test_data_layer_phase_needs_only_stdlib_torch_numpy(tmp_path):
     assert a["latest"]["superblock"] == 3 and a["v108"]["superblock"] == 2
     assert len(a["checksum_faults"]) == 14 and all(a["checksum_faults"].values())
     layouts = a["h5py_layouts"]  # the structures h5py writes, read with h5py blocked
-    assert layouts["equal"] and layouts["datasets"] == 55 and layouts["undamaged_read"]
+    assert layouts["equal"] and layouts["datasets"] == 81 and layouts["undamaged_read"]
     assert layouts["fletcher32_fault"] == "fletcher32 checksum mismatch" and all(layouts["dangling_raise"].values())
-    assert layouts["observation"] == [9, 8, 8]
+    assert layouts["observation"] == [9, 8, 8] and layouts["observations_equal"]
+    storage = layouts["storage"]  # szip, external raw storage, multi-year virtual datasets
+    assert storage["szip_masks"] == [0] and storage["szip_datasets"] == 16
+    assert "szip decompress failed: truncated" in storage["szip_truncated"]
+    assert "szip decompress failed: corrupt" in storage["szip_flipped"]
+    assert 0 < storage["szip_byte_flips"]["raised"] < storage["szip_byte_flips"]["bytes"]
+    assert "unable to open external raw data file" in storage["external_missing"]
+    assert storage["multiyear"]["x"] == [12, 4, 6, 6] and storage["multiyear"]["year_held_by_no_file_nan"]
+    rates = storage["codec_rates"]
+    assert rates["decoded_bytes"] == 24 * 4 * 128 * 128 * 4
+    assert all(rates[c]["mb_s"] > 0 for c in ("szip", "lzf", "deflate"))
     assert b["kept"] == dict.fromkeys(["psl", "tas", "uas", "vas"], 3) and b["test_hours"] == 12
     assert b["train_x_shape"] == [24, 4, 32, 32] and b["nan_audit"] == {"nr_of_times": 1, "which_times": [5]}
     assert len(b["losses"]) == 2 and b["train_launches"] == {"attention_fwd": 0, "attention_bwd": 0}  # the CPU
