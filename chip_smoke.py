@@ -1239,6 +1239,7 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
     from climate2weather_tpu_torch.exp.downscaling import load_net, sample_arrays
     from climate2weather_tpu_torch.io.snapshot import yaml_load_file
     from climate2weather_tpu_torch.ops.attention import launch_counts
+    from climate2weather_tpu_torch.utils import trace
 
     t0 = time.time()
     cfg = yaml_load_file(config_path)
@@ -1254,10 +1255,20 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
     net, snap_cfg = load_net(str(snapshot_dir), device)
     if device.type == "cuda":
         torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()  # the program's own count of the work and its spans (utils/trace.py), beside the arithmetic below
     t_sample = time.time()
-    samples, nan_flags = sample_arrays(net, snap_cfg, cfg, gt, calib_frames=train, device=device)
+    try:
+        samples, nan_flags = sample_arrays(net, snap_cfg, cfg, gt, calib_frames=train, device=device)
+    finally:
+        trace.disable()
     t_end = time.time()  # sample_arrays ends in a copy to the host
     launches = dict(launch_counts)
+    counted = {k: trace.counters().get(k, 0) for k in ("window_evals", "forwards")}
+    records = trace.records()
+    trace.reset()
+    groups = {r.id for r in records if r.name == "c2w.sample.group"}
+    post = [r for r in records if r.name == "c2w.sample.postprocess"]
     t_psd = time.time()  # the host-side calibration target, which sample_arrays computes once
     climatological_annulus_psd(train, s_step=int(cfg["s_step"]))
     psd_s = time.time() - t_psd
@@ -1285,6 +1296,9 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
         "expected_launches": expect, "load_s": t_sample - t_load, "sampling_s": t_end - t_sample,
         "calib_target_s": psd_s, "wall_s": t_end - t_load, "window_evals": window_evals,
         "window_evals_per_s": window_evals / (t_end - t_sample),
+        "counted_window_evals": counted["window_evals"], "counted_forwards": counted["forwards"],
+        "groups": len(groups), "postprocess_device_ms": [r.device_ms for r in post],
+        "postprocess_host_ms": [(r.end_ns - r.start_ns) / 1e6 for r in post],
     }
     emit(4, t0, **result)
     if not result["finite"] or nan_flags.any():
@@ -1293,6 +1307,13 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
         raise AssertionError(f"A(x) != y after the projection: {consistency} > {tol}")
     if launches.get("attention_fwd", 0) != expect:
         raise AssertionError(f"attention launches {launches} != 6 x forwards = {expect}")
+    if (counted["window_evals"], counted["forwards"]) != (window_evals, forwards):
+        raise AssertionError(f"the program counted {counted}, the config's shapes give "
+                             f"{window_evals} window evaluations in {forwards} forwards")
+    n_groups = -(-n_samples // int(cfg.get("ensemble_batch", 1)))
+    if len(groups) != n_groups or sorted(r.parent for r in post) != sorted(groups):
+        raise AssertionError(f"{len(post)} post-processing spans in {len(groups)} groups, "
+                             f"one in each of {n_groups} groups expected")
     return {"launches": launches, **result}
 
 
@@ -1900,10 +1921,10 @@ def phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides) -> 
     written every ``sample_resume_every`` calls of 8 steps and removed, the
     attention launches 6 per UNet forward; sampling, I/O and peak memory."""
     from climate2weather_tpu_torch.data.grid import open_grid
-    from climate2weather_tpu_torch.diffusion import long_sampler
     from climate2weather_tpu_torch.exp import downscaling
     from climate2weather_tpu_torch.io.snapshot import yaml_dump_file, yaml_load_file
     from climate2weather_tpu_torch.ops.attention import launch_counts
+    from climate2weather_tpu_torch.utils import trace
 
     t0 = time.time()
     paths = write_predict_inputs(root, res, hours, seed, start="2014-01-01T00")
@@ -1913,14 +1934,9 @@ def phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides) -> 
     yaml_dump_file(cfg, config_path)
     snap_cfg = yaml_load_file(pathlib.Path(snapshot_dir) / "config.yaml")
     window = int(snap_cfg["dataset_kwargs"]["train"]["window"])
-    saves, real_save = [], long_sampler._save_carry
-
-    def counted_save(*args):
-        saves.append(args[2])  # the step index written
-        real_save(*args)
-
     stats = {}
-    long_sampler._save_carry = counted_save
+    trace.reset()
+    trace.enable()  # the resume files the long sampler wrote, by its own spans and counters (utils/trace.py)
     try:
         _peak_reset(device)
         for k in launch_counts:
@@ -1931,7 +1947,10 @@ def phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides) -> 
         run_s = time.time() - t_run
         launches = launch_counts["attention_fwd"]
     finally:
-        long_sampler._save_carry = real_save
+        trace.disable()
+    saves = [r.attrs["step"] for r in trace.records() if r.name == "c2w.sample.resume_save"]
+    counted, saved_bytes = (trace.counters().get(k, 0) for k in ("resume_saves", "resume_bytes"))
+    trace.reset()
     forwards = _expected_forwards({**cfg, "ensemble_batch": 1}, hours, window)
     per_call = min(hours - window + 1, int(cfg["batch_size"]))
     steps, every = int(cfg["num_sampling_steps"]), int(cfg["sample_resume_every"])
@@ -1942,7 +1961,8 @@ def phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides) -> 
         "hours": hours, "res": res, "steps": steps, "long_path": stats["long_path"],
         "traj_dtype": stats["traj_dtype"], "finite": all(bool(np.isfinite(v).all()) for v in sample.data_vars.values()),
         "A_x_minus_y_max": consistency, "A_tol": tol,
-        "resume_saves_at_step": saves, "expected_saves": [8 * c for c in range(1, calls) if c % every == 0],
+        "resume_saves_at_step": saves, "resume_bytes": saved_bytes,
+        "expected_saves": [8 * c for c in range(1, calls) if c % every == 0],
         "left_in_dir": sorted(p.name for p in out_dir.iterdir()),
         "attention_launches": launches, "unet_forwards": forwards,
         "expected_launches": _attention_blocks(snap_cfg["network_kwargs"]) * forwards if device.type == "cuda" else 0,
@@ -1957,7 +1977,7 @@ def phase8a_predict(root, snapshot_dir, device, res, hours, seed, overrides) -> 
         raise AssertionError(f"the year run did not take the long path or wrote non-finite values: {rec}")
     if consistency > tol:
         raise AssertionError(f"A(x) != y in the year sample: {rec}")
-    if saves != rec["expected_saves"] or any(n.startswith(".sample_resume") for n in rec["left_in_dir"]):
+    if saves != rec["expected_saves"] or counted != len(saves) or (saves and not saved_bytes) or any(n.startswith(".sample_resume") for n in rec["left_in_dir"]):
         raise AssertionError(f"resume files not written as configured or left behind: {rec}")
     if launches != rec["expected_launches"]:
         raise AssertionError(f"attention launches {launches} != 6 per UNet forward: {rec}")

@@ -24,6 +24,8 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
+from climate2weather_tpu_torch.utils import trace
+
 
 def _fft2_shifted(x: torch.Tensor) -> torch.Tensor:
     """fftshift(fft2) over the two spatial axes of [..., H, W, C]."""
@@ -201,27 +203,29 @@ class GaussianGuidance:
         gradient taken: each member's part is its own gradient."""
         check_observation_shape(self, x.shape[-4:])
         self.check_exact()
-        mu, sigma = process.mu(t), process.sigma(t)
-        std = torch.as_tensor(self.std, dtype=torch.float32, device=x.device)
-        gamma = torch.as_tensor(self.gamma, dtype=torch.float32, device=x.device)
-        var = std**2 + gamma * float((sigma / mu) ** 2)
-        L = x.shape[-4]
         eps = score_fn(x, t)
-        x0 = process.denoise(x, t, eps)
-        err = (self.y.float() - self.A(x0).float()) / var
-        if self.exact_grad:
-            u = self.A.adjoint(err.to(x.dtype), L)
-            return eps, (u - float(sigma) * eps_vjp(score_fn, x, t, u)) / float(mu)
-        if self.prolong:
-            spread = self.A.prolong(err.to(x.dtype), L, method=self.prolong_method())
-        else:
-            spread = self.A.adjoint(err.to(x.dtype), L)
-        return eps, spread / float(mu)
+        with trace.span("c2w.sample.guidance"):
+            mu, sigma = process.mu(t), process.sigma(t)
+            std = torch.as_tensor(self.std, dtype=torch.float32, device=x.device)
+            gamma = torch.as_tensor(self.gamma, dtype=torch.float32, device=x.device)
+            var = std**2 + gamma * float((sigma / mu) ** 2)
+            L = x.shape[-4]
+            x0 = process.denoise(x, t, eps)
+            err = (self.y.float() - self.A(x0).float()) / var
+            if self.exact_grad:
+                u = self.A.adjoint(err.to(x.dtype), L)
+                return eps, (u - float(sigma) * eps_vjp(score_fn, x, t, u)) / float(mu)
+            if self.prolong:
+                spread = self.A.prolong(err.to(x.dtype), L, method=self.prolong_method())
+            else:
+                spread = self.A.adjoint(err.to(x.dtype), L)
+            return eps, spread / float(mu)
 
     def guided_eps(self, score_fn: Callable, process, x: torch.Tensor, t) -> torch.Tensor:
         """eps - w sigma grad log p(y | x_t) (:meth:`eps_and_grad`)."""
         eps, grad = self.eps_and_grad(score_fn, process, x, t)
-        return eps - (self.anneal_weight(t) * float(process.sigma(t))) * grad
+        with trace.span("c2w.sample.guidance"):
+            return eps - (self.anneal_weight(t) * float(process.sigma(t))) * grad
 
 
 def eps_vjp(score_fn: Callable, x: torch.Tensor, t, cotangent: torch.Tensor) -> torch.Tensor:

@@ -63,6 +63,7 @@ from climate2weather_tpu_torch.diffusion import steprules
 from climate2weather_tpu_torch.diffusion.guidance import GaussianGuidance, check_observation_shape
 from climate2weather_tpu_torch.diffusion.sampler import logsnr_time_grid
 from climate2weather_tpu_torch.diffusion.window import WindowScoreFn
+from climate2weather_tpu_torch.utils import trace
 
 
 def _in_dtype(value, dtype: torch.dtype) -> float:
@@ -150,7 +151,14 @@ def _save_carry(path: str, state: dict, step: int, digest: str, rng: Optional[to
     """Write the sampler's state atomically (a temporary file, then
     ``os.replace``): each tensor of ``state`` (bf16 as a uint16 view; .npy has
     no bf16) with its dtype, the step index, the digest and the generator's
-    state."""
+    state. Counted as ``resume_saves`` and ``resume_bytes``."""
+    with trace.span("c2w.sample.resume_save", step=step):
+        _write_carry(path, state, step, digest, rng)
+    trace.count("resume_saves")
+    trace.count("resume_bytes", os.path.getsize(path))
+
+
+def _write_carry(path: str, state: dict, step: int, digest: str, rng: Optional[torch.Generator]) -> None:
     payload = {"step": np.int64(step), "digest": np.str_(digest),
                "names": np.asarray(sorted(state)),
                "dtypes": np.asarray([str(state[k].dtype) for k in sorted(state)])}
@@ -258,26 +266,36 @@ def _guided_eps_and_err(score: WindowScoreFn, guidance, process, x: torch.Tensor
     eps = score(x, t)
     if guidance is None:
         return eps, None
-    err = obs_error(guidance, process, x, eps, t)
-    if not guidance.exact_grad:
-        return eps, err
-    # grad log p = (u - sigma J_eps^T u) / mu, u = A^T(err) nonzero at the observed frames
-    mu, sigma = float(process.mu(t)), float(process.sigma(t))
-    u = guidance.A.adjoint(err, x.shape[0]).to(x.dtype)
-    grad = (u.float() - sigma * score.vjp(x, t, u).float()) / mu
-    return eps - (guidance.anneal_weight(t) * sigma * grad).to(eps.dtype), None
+    with trace.span("c2w.sample.guidance"):
+        err = obs_error(guidance, process, x, eps, t)
+        if not guidance.exact_grad:
+            return eps, err
+        # grad log p = (u - sigma J_eps^T u) / mu, u = A^T(err) nonzero at the observed frames
+        mu, sigma = float(process.mu(t)), float(process.sigma(t))
+        u = guidance.A.adjoint(err, x.shape[0]).to(x.dtype)
+        grad = (u.float() - sigma * score.vjp(x, t, u).float()) / mu
+        return eps - (guidance.anneal_weight(t) * sigma * grad).to(eps.dtype), None
 
 
-def _final_denoise(score, guidance, process, x: torch.Tensor, F: int) -> torch.Tensor:
-    """The guided posterior mean at t = 0, chunked over frames."""
-    eps, err = _guided_eps_and_err(score, guidance, process, x, 0.0)
-    mu, sigma = _in_dtype(process.mu(0.0), x.dtype), _in_dtype(process.sigma(0.0), x.dtype)
-    out = torch.empty_like(x)
-    for _, f0 in _frame_chunks(x.shape[0], F):
-        sl = slice(f0, f0 + F)
-        eg = guided_eps_chunk(guidance, process, eps[sl], err, f0, 0.0)
-        out[sl] = steprules.predict_x0(x[sl], eg, mu, sigma)
-    return out
+def _guided_chunk(guidance, process, eps: torch.Tensor, err, f0: int, t) -> torch.Tensor:
+    """:func:`guided_eps_chunk` under the guidance span."""
+    with trace.span("c2w.sample.guidance"):
+        return guided_eps_chunk(guidance, process, eps, err, f0, t)
+
+
+def _final_denoise(score, guidance, process, x: torch.Tensor, F: int, step: int) -> torch.Tensor:
+    """The guided posterior mean at t = 0, chunked over frames: evaluation
+    ``step``."""
+    with trace.span("c2w.sample.eval", step=step):
+        eps, err = _guided_eps_and_err(score, guidance, process, x, 0.0)
+        mu, sigma = _in_dtype(process.mu(0.0), x.dtype), _in_dtype(process.sigma(0.0), x.dtype)
+        out = torch.empty_like(x)
+        for _, f0 in _frame_chunks(x.shape[0], F):
+            sl = slice(f0, f0 + F)
+            eg = _guided_chunk(guidance, process, eps[sl], err, f0, 0.0)
+            with trace.span("c2w.sample.update"):
+                out[sl] = steprules.predict_x0(x[sl], eg, mu, sigma)
+        return out
 
 
 def _draw(z, draw: int, sl: slice, shape, rng, x: torch.Tensor) -> torch.Tensor:
@@ -337,30 +355,34 @@ def sample_guided_long(
         out = torch.empty_like(x)
         for _, f0 in chunks:
             sl = slice(f0, f0 + F)
-            eg = guided_eps_chunk(guidance, process, eps[sl], err, f0, t)
-            if delta is None:
-                out[sl] = steprules.ddim_step(x[sl], eg, mu, sigma, mu2, sigma2)
-            else:
-                zc = _draw(z, draw, sl, (F,) + tuple(x.shape[1:]), rng, x)
-                out[sl] = steprules.langevin_step(x[sl], eg, zc, delta, sigma2, sqrt2delta=scale)
+            eg = _guided_chunk(guidance, process, eps[sl], err, f0, t)
+            with trace.span("c2w.sample.update"):
+                if delta is None:
+                    out[sl] = steprules.ddim_step(x[sl], eg, mu, sigma, mu2, sigma2)
+                else:
+                    zc = _draw(z, draw, sl, (F,) + tuple(x.shape[1:]), rng, x)
+                    out[sl] = steprules.langevin_step(x[sl], eg, zc, delta, sigma2, sqrt2delta=scale)
         return out
 
     def guided_sumsq(eps, err, t):
         acc = torch.zeros((), dtype=torch.float32, device=eps.device)
         for ci, f0 in chunks:
-            eg = guided_eps_chunk(guidance, process, eps[f0 : f0 + F], err, f0, t)
-            acc += (eg[ci * F - f0 :].float() ** 2).sum()  # each frame once
+            eg = _guided_chunk(guidance, process, eps[f0 : f0 + F], err, f0, t)
+            with trace.span("c2w.sample.update"):
+                acc += (eg[ci * F - f0 :].float() ** 2).sum()  # each frame once
         return acc
 
     def step(state, i):
         t = times[i]
         t2 = float(np.float32(t) - dt)
-        eps, err = _guided_eps_and_err(score, guidance, process, state["x"], t)
-        x = frame_pass(state["x"], eps, err, t, t2)
+        with trace.span("c2w.sample.eval", step=i):
+            eps, err = _guided_eps_and_err(score, guidance, process, state["x"], t)
+            x = frame_pass(state["x"], eps, err, t, t2)
         for c in range(corrections):
-            eps, err = _guided_eps_and_err(score, guidance, process, x, t2)
-            delta = steprules.langevin_delta(tau, guided_sumsq(eps, err, t2) / eps.numel())
-            x = frame_pass(x, eps, err, t2, t2, delta=delta, draw=i * corrections + c)
+            with trace.span("c2w.sample.eval", step=i, correction=c):
+                eps, err = _guided_eps_and_err(score, guidance, process, x, t2)
+                delta = steprules.langevin_delta(tau, guided_sumsq(eps, err, t2) / eps.numel())
+                x = frame_pass(x, eps, err, t2, t2, delta=delta, draw=i * corrections + c)
         return {"x": x, "nan": state["nan"] | _nan(x)}
 
     init = {"x": noise, "nan": torch.zeros((), dtype=torch.bool, device=noise.device)}
@@ -370,7 +392,7 @@ def sample_guided_long(
                             score.group)
     x, nan_flag = state["x"], state["nan"]
     if denoise_final:
-        x = _final_denoise(score, guidance, process, x, F)
+        x = _final_denoise(score, guidance, process, x, F, steps)
         nan_flag = nan_flag | _nan(x)
     return x, nan_flag
 
@@ -425,6 +447,10 @@ def sample_dpmpp2m_long(
     times = [float(t) for t in logsnr_time_grid(process, steps)]
 
     def step(state, i):
+        with trace.span("c2w.sample.eval", step=i):
+            return dpm_step(state, i)
+
+    def dpm_step(state, i):
         x, prev_x0 = state["x"], state["prev_x0"]
         d = x.dtype
         t_prev, t_cur = times[i], times[i + 1]
@@ -443,21 +469,22 @@ def sample_dpmpp2m_long(
         out, x0_buf = torch.empty_like(x), torch.empty_like(x)
         for _, f0 in chunks:
             sl = slice(f0, f0 + F)
-            eg = guided_eps_chunk(guidance, process, eps[sl], err, f0, t_prev)
-            x0 = steprules.predict_x0(x[sl], eg, mu, sigma)
-            if use_sde:
-                decay, growth, corr, nscale = coeffs
-                zc = _draw(z, i, sl, (F,) + tuple(x.shape[1:]), rng, x)
-                out[sl] = steprules.dpm_sde_step(x[sl], x0, prev_x0[sl], zc, decay, growth, corr, nscale,
-                                                 multi)
-            else:
-                sigma_ratio, growth, c_cur, c_prev = coeffs
-                if third:
-                    dd = steprules.dpm3_data_estimate(x0, prev_x0[sl], state["prev2_x0"][sl], *w3)
+            eg = _guided_chunk(guidance, process, eps[sl], err, f0, t_prev)
+            with trace.span("c2w.sample.update"):
+                x0 = steprules.predict_x0(x[sl], eg, mu, sigma)
+                if use_sde:
+                    decay, growth, corr, nscale = coeffs
+                    zc = _draw(z, i, sl, (F,) + tuple(x.shape[1:]), rng, x)
+                    out[sl] = steprules.dpm_sde_step(x[sl], x0, prev_x0[sl], zc, decay, growth, corr, nscale,
+                                                     multi)
                 else:
-                    dd = steprules.dpm_data_estimate(x0, prev_x0[sl], c_cur, c_prev, multi)
-                out[sl] = steprules.dpm_step(x[sl], dd, sigma_ratio, growth)
-            x0_buf[sl] = x0
+                    sigma_ratio, growth, c_cur, c_prev = coeffs
+                    if third:
+                        dd = steprules.dpm3_data_estimate(x0, prev_x0[sl], state["prev2_x0"][sl], *w3)
+                    else:
+                        dd = steprules.dpm_data_estimate(x0, prev_x0[sl], c_cur, c_prev, multi)
+                    out[sl] = steprules.dpm_step(x[sl], dd, sigma_ratio, growth)
+                x0_buf[sl] = x0
         new = {"x": out, "prev_x0": x0_buf, "prev_h": h.reshape(()).float(),
                "is_first": torch.zeros((), dtype=torch.bool), "nan": state["nan"] | _nan(out)}
         if order == 3:
@@ -475,6 +502,6 @@ def sample_dpmpp2m_long(
                             rng if use_sde and z is None else None, score.group)
     x, nan_flag = state["x"], state["nan"]
     if denoise_final:
-        x = _final_denoise(score, guidance, process, x, F)
+        x = _final_denoise(score, guidance, process, x, F, steps)
         nan_flag = nan_flag | _nan(x)
     return x, nan_flag

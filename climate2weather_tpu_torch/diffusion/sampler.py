@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from climate2weather_tpu_torch.diffusion import steprules
+from climate2weather_tpu_torch.utils import trace
 
 Generators = Union[torch.Generator, Sequence[torch.Generator]]
 
@@ -59,36 +60,36 @@ def sample(
     per_member = (-1,) + (1,) * (noise.dim() - batch_dims)  # [*batch] -> broadcast over x
     nan_flag = torch.zeros(lead, dtype=torch.bool, device=noise.device)
     draw = 0
-    for t in times:
+    for i, t in enumerate(times):
         t2 = float(np.float32(t) - np.float32(dt))
-        eps = score_fn(x, t)
-        x = steprules.ddim_step(
-            x, eps, float(process.mu(t)), float(process.sigma(t)),
-            float(process.mu(t2)), float(process.sigma(t2)), proc_x0=proc_x0,
-        )
-        for _ in range(corrections):
-            if z is not None:
-                zc = z[draw].to(device=x.device, dtype=x.dtype)
-            else:
-                zc = draw_normal(x.shape, rng, x.device, batch_dims).to(x.dtype)
-            draw += 1
-            eps_c = score_fn(x, t2)
-            mean_sq = (eps_c.float() ** 2).reshape(*lead, -1).mean(dim=-1)
-            delta = steprules.langevin_delta(tau, mean_sq)
-            noise_scale = steprules.langevin_noise_scale(tau, delta, corrector_variance_exact)
-            if batch_dims:
-                delta, noise_scale = delta.reshape(per_member), noise_scale.reshape(per_member)
-            x = steprules.langevin_step(
-                x, eps_c, zc, delta.to(x.dtype), float(process.sigma(t2)),
-                sqrt2delta=noise_scale.to(x.dtype),
-            )
+        with trace.span("c2w.sample.eval", step=i):
+            eps = score_fn(x, t)
+            with trace.span("c2w.sample.update"):
+                x = steprules.ddim_step(
+                    x, eps, float(process.mu(t)), float(process.sigma(t)),
+                    float(process.mu(t2)), float(process.sigma(t2)), proc_x0=proc_x0,
+                )
+        for c in range(corrections):
+            with trace.span("c2w.sample.eval", step=i, correction=c):
+                eps_c = score_fn(x, t2)
+                with trace.span("c2w.sample.update"):
+                    if z is not None:
+                        zc = z[draw].to(device=x.device, dtype=x.dtype)
+                    else:
+                        zc = draw_normal(x.shape, rng, x.device, batch_dims).to(x.dtype)
+                    draw += 1
+                    mean_sq = (eps_c.float() ** 2).reshape(*lead, -1).mean(dim=-1)
+                    delta = steprules.langevin_delta(tau, mean_sq)
+                    noise_scale = steprules.langevin_noise_scale(tau, delta, corrector_variance_exact)
+                    if batch_dims:
+                        delta, noise_scale = delta.reshape(per_member), noise_scale.reshape(per_member)
+                    x = steprules.langevin_step(
+                        x, eps_c, zc, delta.to(x.dtype), float(process.sigma(t2)),
+                        sqrt2delta=noise_scale.to(x.dtype),
+                    )
         nan_flag |= _nan_flag(x, batch_dims)
     if denoise_final:
-        eps = score_fn(x, 0.0)
-        x = process.denoise(x, 0.0, eps)
-        if proc_x0 is not None:
-            x = proc_x0(x)
-        nan_flag |= _nan_flag(x, batch_dims)
+        x, nan_flag = _denoise_final(process, score_fn, x, proc_x0, nan_flag, batch_dims, len(times))
     return x, nan_flag
 
 
@@ -107,6 +108,18 @@ def logsnr_time_grid(process, steps: int, grid_points: int = 20001) -> np.ndarra
 
 def _nan_flag(x: torch.Tensor, batch_dims: int) -> torch.Tensor:
     return ~torch.isfinite(x).reshape(*x.shape[:batch_dims], -1).all(dim=-1)
+
+
+def _denoise_final(process, score_fn: Callable, x: torch.Tensor, proc_x0, nan_flag: torch.Tensor,
+                   batch_dims: int, step: int):
+    """The posterior mean at t = 0, one more evaluation: ``(x0, nan_flag)``."""
+    with trace.span("c2w.sample.eval", step=step):
+        eps = score_fn(x, 0.0)
+        with trace.span("c2w.sample.update"):
+            x = process.denoise(x, 0.0, eps)
+            if proc_x0 is not None:
+                x = proc_x0(x)
+            return x, nan_flag | _nan_flag(x, batch_dims)
 
 
 def draw_normal(shape, generators: Generators, device, batch_dims: int) -> torch.Tensor:
@@ -162,33 +175,31 @@ def sample_dpmpp2m(
     nan_flag = torch.zeros(noise.shape[:batch_dims], dtype=torch.bool, device=noise.device)
     for i in range(steps):
         t_prev, t_cur = times[i], times[i + 1]
-        eps = score_fn(x, t_prev)
-        x0 = process.denoise(x, t_prev, eps)
-        if proc_x0 is not None:
-            x0 = proc_x0(x0)
-        if sde_eta > 0:
-            zi = z[i] if z is not None else draw_normal(x.shape, rng, x.device, batch_dims)
-            h, decay, growth, corr, nscale = steprules.dpm_sde_scalar_coeffs(
-                process, t_prev, t_cur, prev_h, sde_eta
-            )
-            x = steprules.dpm_sde_step(
-                x, x0, prev_x0, zi.to(x.dtype), float(decay), float(growth),
-                float(corr), float(nscale), i > 0,
-            )
-        else:
-            h, sigma_ratio, growth, c_cur, c_prev = steprules.dpm_scalar_coeffs(
-                process, t_prev, t_cur, prev_h
-            )
-            d = steprules.dpm_data_estimate(x0, prev_x0, float(c_cur), float(c_prev), i > 0)
-            x = steprules.dpm_step(x, d, float(sigma_ratio), float(growth))
-        nan_flag |= _nan_flag(x, batch_dims)
+        with trace.span("c2w.sample.eval", step=i):
+            eps = score_fn(x, t_prev)
+            with trace.span("c2w.sample.update"):
+                x0 = process.denoise(x, t_prev, eps)
+                if proc_x0 is not None:
+                    x0 = proc_x0(x0)
+                if sde_eta > 0:
+                    zi = z[i] if z is not None else draw_normal(x.shape, rng, x.device, batch_dims)
+                    h, decay, growth, corr, nscale = steprules.dpm_sde_scalar_coeffs(
+                        process, t_prev, t_cur, prev_h, sde_eta
+                    )
+                    x = steprules.dpm_sde_step(
+                        x, x0, prev_x0, zi.to(x.dtype), float(decay), float(growth),
+                        float(corr), float(nscale), i > 0,
+                    )
+                else:
+                    h, sigma_ratio, growth, c_cur, c_prev = steprules.dpm_scalar_coeffs(
+                        process, t_prev, t_cur, prev_h
+                    )
+                    d = steprules.dpm_data_estimate(x0, prev_x0, float(c_cur), float(c_prev), i > 0)
+                    x = steprules.dpm_step(x, d, float(sigma_ratio), float(growth))
+                nan_flag |= _nan_flag(x, batch_dims)
         prev_x0, prev_h = x0, h
     if denoise_final:
-        eps = score_fn(x, 0.0)
-        x = process.denoise(x, 0.0, eps)
-        if proc_x0 is not None:
-            x = proc_x0(x)
-        nan_flag |= _nan_flag(x, batch_dims)
+        x, nan_flag = _denoise_final(process, score_fn, x, proc_x0, nan_flag, batch_dims, steps)
     return x, nan_flag
 
 
@@ -224,25 +235,23 @@ def sample_dpmpp3m(
     nan_flag = torch.zeros(noise.shape[:batch_dims], dtype=torch.bool, device=noise.device)
     for i in range(steps):
         t_prev, t_cur = times[i], times[i + 1]
-        eps = score_fn(x, t_prev)
-        x0 = process.denoise(x, t_prev, eps)
-        if proc_x0 is not None:
-            x0 = proc_x0(x0)
-        h, sigma_ratio, growth, c_cur, c_prev = steprules.dpm_scalar_coeffs(process, t_prev, t_cur, prev_h)
-        if i >= 2:
-            _, _, _, w0, w1, w2 = steprules.dpm3_scalar_coeffs(process, t_prev, t_cur, prev_h, prev2_h)
-            d = steprules.dpm3_data_estimate(x0, prev_x0, prev2_x0, float(w0), float(w1), float(w2))
-        else:
-            d = steprules.dpm_data_estimate(x0, prev_x0, float(c_cur), float(c_prev), i >= 1)
-        x = steprules.dpm_step(x, d, float(sigma_ratio), float(growth))
-        nan_flag |= _nan_flag(x, batch_dims)
+        with trace.span("c2w.sample.eval", step=i):
+            eps = score_fn(x, t_prev)
+            with trace.span("c2w.sample.update"):
+                x0 = process.denoise(x, t_prev, eps)
+                if proc_x0 is not None:
+                    x0 = proc_x0(x0)
+                h, sigma_ratio, growth, c_cur, c_prev = steprules.dpm_scalar_coeffs(process, t_prev, t_cur, prev_h)
+                if i >= 2:
+                    _, _, _, w0, w1, w2 = steprules.dpm3_scalar_coeffs(process, t_prev, t_cur, prev_h, prev2_h)
+                    d = steprules.dpm3_data_estimate(x0, prev_x0, prev2_x0, float(w0), float(w1), float(w2))
+                else:
+                    d = steprules.dpm_data_estimate(x0, prev_x0, float(c_cur), float(c_prev), i >= 1)
+                x = steprules.dpm_step(x, d, float(sigma_ratio), float(growth))
+                nan_flag |= _nan_flag(x, batch_dims)
         prev2_x0, prev_x0, prev2_h, prev_h = prev_x0, x0, prev_h, h
     if denoise_final:
-        eps = score_fn(x, 0.0)
-        x = process.denoise(x, 0.0, eps)
-        if proc_x0 is not None:
-            x = proc_x0(x)
-        nan_flag |= _nan_flag(x, batch_dims)
+        x, nan_flag = _denoise_final(process, score_fn, x, proc_x0, nan_flag, batch_dims, steps)
     return x, nan_flag
 
 

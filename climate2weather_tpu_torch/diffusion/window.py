@@ -35,6 +35,8 @@ from typing import Callable, Optional
 
 import torch
 
+from climate2weather_tpu_torch.utils import trace
+
 # Windows through the network in one backward of :meth:`WindowScoreFn.vjp`.
 # The 72.1M net at 128 x 128 in bf16 holds 0.30 GB per window under grad
 # (38.4 GB at 128 windows on an NVIDIA H100 80GB HBM3: exp/profile_vjp.py,
@@ -169,24 +171,29 @@ class WindowScoreFn:
         m = xb.shape[0]
         # each entry is written once, by the chunk that owns it; split, the
         # other ranks' entries stay zero for the sum
-        out = torch.empty_like(xb) if self.group is None else torch.zeros_like(xb)
-        for ci, a, b in self._work(n_chunks, m * B):
-            if a == b:
-                continue
-            start = min(ci * B, n - B)
-            owned = owned_windows(ci, n_chunks, B, n)
-            pieces = member_pieces(a, b, B)
-            o = self.eps_fn(self._gather(xb, start, pieces), t).to(x.dtype).reshape(b - a, H, W, w, C)
-            for mi, lo, hi, off in pieces:
-                if lo < owned:
-                    end = min(hi, owned)
-                    out[mi, k + start + lo : k + start + end] = o[off : off + end - lo, :, :, k]
-                if k > 0 and ci == 0 and lo == 0:
-                    out[mi, :k] = o[off, :, :, :k].permute(2, 0, 1, 3)
-                if k > 0 and ci == n_chunks - 1 and hi == B:
-                    out[mi, k + n :] = o[off + B - 1 - lo, :, :, w - k :].permute(2, 0, 1, 3)
-        if self.group is not None:
-            self.group.all_reduce(out)
+        with trace.span("c2w.window.pass"):
+            out = torch.empty_like(xb) if self.group is None else torch.zeros_like(xb)
+            for ci, a, b in self._work(n_chunks, m * B):
+                if a == b:
+                    continue
+                start = min(ci * B, n - B)
+                owned = owned_windows(ci, n_chunks, B, n)
+                pieces = member_pieces(a, b, B)
+                xw = self._gather(xb, start, pieces)
+                with trace.span("c2w.model.forward", windows=b - a):
+                    o = self.eps_fn(xw, t)
+                _count_forward(b - a)
+                o = o.to(x.dtype).reshape(b - a, H, W, w, C)
+                for mi, lo, hi, off in pieces:
+                    if lo < owned:
+                        end = min(hi, owned)
+                        out[mi, k + start + lo : k + start + end] = o[off : off + end - lo, :, :, k]
+                    if k > 0 and ci == 0 and lo == 0:
+                        out[mi, :k] = o[off, :, :, :k].permute(2, 0, 1, 3)
+                    if k > 0 and ci == n_chunks - 1 and hi == B:
+                        out[mi, k + n :] = o[off + B - 1 - lo, :, :, w - k :].permute(2, 0, 1, 3)
+            if self.group is not None:
+                self.group.all_reduce(out)
         return out.reshape(*batch, L, H, W, C)
 
     def vjp(self, x: torch.Tensor, t, cotangent: torch.Tensor) -> torch.Tensor:
@@ -244,9 +251,18 @@ class WindowScoreFn:
         parameter gradient is formed)."""
         with torch.enable_grad():
             leaf = xw.detach().requires_grad_(True)
-            out = self.eps_fn(leaf, t).to(xw.dtype)
-            (g,) = torch.autograd.grad(out, leaf, grad_outputs=co)
+            with trace.span("c2w.model.forward", windows=len(xw)):
+                out = self.eps_fn(leaf, t)
+            _count_forward(len(xw))
+            (g,) = torch.autograd.grad(out.to(xw.dtype), leaf, grad_outputs=co)
         return g
+
+
+def _count_forward(windows: int) -> None:
+    """Count one launch of the network over ``windows`` windows: completed
+    work once the device has caught up."""
+    trace.count("window_evals", windows)
+    trace.count("forwards")
 
 
 class ConditionedScoreFn:

@@ -101,6 +101,7 @@ from climate2weather_tpu_torch.io.snapshot import load_snapshot, yaml_dump_file,
 from climate2weather_tpu_torch.models.score_net import build_score_unet
 from climate2weather_tpu_torch.parallel import mesh
 from climate2weather_tpu_torch.utils.device import resolve_device, set_reference_numerics
+from climate2weather_tpu_torch.utils import trace
 from climate2weather_tpu_torch.utils.seeding import derive_seed, set_random_seed
 
 _T0_METHODS = ("", "spectral", "block")
@@ -362,14 +363,15 @@ def iter_samples(
         return kw
 
     def postprocess(out):
-        if use_long:
-            return postprocess_long(out, calib_target, s_step, y if t0_project else None, t_step,
-                                    t0_project, int(cfg.get("t0_project_iters", 3)))
-        if calib_target is not None:
-            out = calibrate_trajectory(out, calib_target, s_step)
-        if y is not None and t0_project:
-            out = A.project(out, y, iters=int(cfg.get("t0_project_iters", 3)), method=t0_project)
-        return out
+        with trace.span("c2w.sample.postprocess"):
+            if use_long:
+                return postprocess_long(out, calib_target, s_step, y if t0_project else None, t_step,
+                                        t0_project, int(cfg.get("t0_project_iters", 3)))
+            if calib_target is not None:
+                out = calibrate_trajectory(out, calib_target, s_step)
+            if y is not None and t0_project:
+                out = A.project(out, y, iters=int(cfg.get("t0_project_iters", 3)), method=t0_project)
+            return out
 
     def generator(sid):
         return torch.Generator(device=dev).manual_seed(derive_seed(seed, "sample", sid))
@@ -386,27 +388,29 @@ def iter_samples(
                 (L, H, W, C), generator=generator(sid), device=dev).cpu().numpy()
             yield sids, run_host(x_init, sid)[None], np.zeros(1, bool)  # a non-finite step raises
             continue
-        if noise is not None:
-            x_init = torch.as_tensor(np.asarray(noise[sids], np.float32), device=dev)
-            gens = None
-        else:
-            gens = [generator(sid) for sid in sids]
-            x_init = torch.stack([torch.randn((L, H, W, C), generator=g, device=dev) for g in gens])
-        zs = None
-        if z is not None and n_draws:
-            zg = np.asarray(z[sids], np.float32)  # [members, draws, L, H, W, C]
-            zs = [torch.as_tensor(zg[:, i], device=dev) for i in range(n_draws)]
-        if use_long:  # one sample, without the group dimension
-            x_init = x_init[0].to(traj_dtype or x_init.dtype)  # a bf16 run keeps no fp32 draw
-            out, nan_flag = run_sampler(x_init, gens[0] if gens else None,
-                                        [zi[0] for zi in zs] if zs else None, sids[0])
-            out, nan_flag = postprocess(out)[None], nan_flag[None]
-        else:
-            out, nan_flag = run_sampler(x_init, gens, zs, sids[0])
-            out = postprocess(out)
-        if split:
-            groups.check_agree(f"samples {sids}", out, nan_flag)
-        yield sids, out.float().cpu().numpy(), nan_flag.cpu().numpy()
+        with trace.span("c2w.sample.group", samples=sids):
+            if noise is not None:
+                x_init = torch.as_tensor(np.asarray(noise[sids], np.float32), device=dev)
+                gens = None
+            else:
+                gens = [generator(sid) for sid in sids]
+                x_init = torch.stack([torch.randn((L, H, W, C), generator=g, device=dev) for g in gens])
+            zs = None
+            if z is not None and n_draws:
+                zg = np.asarray(z[sids], np.float32)  # [members, draws, L, H, W, C]
+                zs = [torch.as_tensor(zg[:, i], device=dev) for i in range(n_draws)]
+            if use_long:  # one sample, without the group dimension
+                x_init = x_init[0].to(traj_dtype or x_init.dtype)  # a bf16 run keeps no fp32 draw
+                out, nan_flag = run_sampler(x_init, gens[0] if gens else None,
+                                            [zi[0] for zi in zs] if zs else None, sids[0])
+                out, nan_flag = postprocess(out)[None], nan_flag[None]
+            else:
+                out, nan_flag = run_sampler(x_init, gens, zs, sids[0])
+                out = postprocess(out)
+            if split:
+                groups.check_agree(f"samples {sids}", out, nan_flag)
+            done = sids, out.float().cpu().numpy(), nan_flag.cpu().numpy()
+        yield done
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,11 @@ takes three warm train steps of the device-data path (gradient
 accumulation over ``batch / batch_gpu`` microbatches, AdamW, EMA), then
 traces two more with ``torch.profiler`` (CPU and CUDA activities). It
 prints one JSON line: the wall time per step, device kernel time by group,
-the top kernels and the device's busy share. The Chrome trace goes to
-``--out``. It runs on the card; ``--device cpu`` with a small ``--res`` and
-``--model-config configs/tiny_unet.yml`` only rehearses the script.
+the top kernels, the device's busy share, and the program's spans
+(``utils/trace.py``, enabled for the traced steps) per step. The Chrome
+trace, which carries the spans, goes to ``--out``. It runs on the card;
+``--device cpu`` with a small ``--res`` and ``--model-config
+configs/tiny_unet.yml`` only rehearses the script.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from climate2weather_tpu_torch.exp.profile_forward import group_of
+from climate2weather_tpu_torch.exp.profile_forward import device_kernels, group_of, span_totals
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 
@@ -49,6 +51,7 @@ def main(argv=None) -> None:
         make_optimizer,
         step_generator,
     )
+    from climate2weather_tpu_torch.utils import trace
     from climate2weather_tpu_torch.utils.device import resolve_device, set_reference_numerics
 
     dev = resolve_device(args.device)
@@ -77,21 +80,19 @@ def main(argv=None) -> None:
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     traced = 2
+    trace.reset()
+    trace.enable()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.time()
         for _ in range(traced):
             one_step()
         sync()
         wall_ms = 1e3 * (time.time() - t0)
+    trace.disable()
     pathlib.Path(args.out).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(pathlib.Path(args.out) / "train_step.json"))
 
-    kernels = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.setdefault(evt.name, [0.0, 0])
-            kernels[evt.name][0] += evt.device_time / 1e3  # us -> ms
-            kernels[evt.name][1] += 1
+    kernels = device_kernels(prof)
     device_ms = sum(v[0] for v in kernels.values())
     groups = {}
     for name, (ms, _) in kernels.items():
@@ -107,6 +108,7 @@ def main(argv=None) -> None:
         "top_kernels": [{"name": n[:90], "ms_per_step": v[0] / traced, "calls": v[1]}
                         for n, v in top],
         "kernel_launches_per_step": int(np.sum([v[1] for v in kernels.values()])) // traced,
+        "spans_per_step": span_totals(trace.records(), traced),
     }), flush=True)
 
 

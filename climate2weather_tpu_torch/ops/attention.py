@@ -23,8 +23,11 @@ import functools
 
 import torch
 
-# Launches of each CUDA kernel, counted by its wrapper where it launches.
-launch_counts = {"attention_fwd": 0, "attention_bwd": 0}
+from climate2weather_tpu_torch.utils import trace
+
+# Launches of each CUDA kernel, counted by its wrapper where it launches
+# (entries of the counter registry in utils/trace.py).
+launch_counts = trace.CounterView("attention_fwd", "attention_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCES = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu"}
@@ -173,7 +176,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         )
     if err != 0:
         raise RuntimeError(f"attention_fwd launch failed: cudaError {err}")
-    launch_counts["attention_fwd"] += 1
+    trace.count("attention_fwd")
     return out
 
 
@@ -206,7 +209,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
         )
     if err != 0:
         raise RuntimeError(f"attention_bwd launch failed: cudaError {err}")
-    launch_counts["attention_bwd"] += 1
+    trace.count("attention_bwd")
     return dq, dk, dv
 
 

@@ -33,9 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from climate2weather_tpu_torch.models.unet import channel_norm
+from climate2weather_tpu_torch.utils import trace
 
-# Launches of the CUDA kernel, counted by its wrapper where it launches.
-launch_counts = {"winograd_conv3x3": 0}
+# Launches of the CUDA kernel, counted by its wrapper where it launches
+# (an entry of the counter registry in utils/trace.py).
+launch_counts = trace.CounterView("winograd_conv3x3")
 
 _SOURCE = "winograd_conv3x3.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -217,7 +219,7 @@ def winograd_fwd(x, kernel, bias, vec=None, residual=None, pre=None, ddof=0) -> 
         )
     if err != 0:
         raise RuntimeError(f"winograd_conv3x3 launch failed: cudaError {err}")
-    launch_counts["winograd_conv3x3"] += 1
+    trace.count("winograd_conv3x3")
     return out
 
 

@@ -9,8 +9,9 @@ resume through ``load_latest`` with the batch-size check; ``slice_ndata``;
 the choice between a device-resident dataset (windows gathered on the card,
 only indices cross per step) and the streaming loader under
 ``C2W_DEVICE_DATA_BUDGET``; ``C2W_REMAT``; ``C2W_PROFILE_DIR``, here a
-``torch.profiler`` trace. Host copies for checkpoints and snapshots are
-made on the main thread; only the file writes run on the writer thread.
+``torch.profiler`` trace that carries the steps' spans (``utils/trace.py``).
+Host copies for checkpoints and snapshots are made on the main thread; only
+the file writes run on the writer thread.
 
 Several ranks (a process group started by ``parallel.mesh``): the world
 size is the group's, each rank takes its ``batch_size // world`` rows a step

@@ -35,6 +35,7 @@ from torch import nn
 
 from climate2weather_tpu_torch.parallel import mesh
 from climate2weather_tpu_torch.training.ema import ema_init, ema_update
+from climate2weather_tpu_torch.utils import trace
 from climate2weather_tpu_torch.utils.seeding import derive_seed
 
 Draws = Optional[Sequence[tuple]]  # per microbatch: (t [B,1,1,1], eps like x)
@@ -94,7 +95,8 @@ def apply_update(state: TrainState, schedule: Callable, ema_rates, rounds: int =
     for group in state.optimizer.param_groups:
         group["lr"] = schedule(state.step)  # optax's schedule sees the update count
     state.optimizer.step()
-    ema_update(state.emas, dict(state.net.named_parameters()), ema_rates)
+    with trace.span("c2w.train.ema"):
+        ema_update(state.emas, dict(state.net.named_parameters()), ema_rates)
     state.step += 1
 
 
@@ -123,23 +125,27 @@ def _make_step(microbatch: Callable, process, schedule: Callable, ema_rates,
                    generator: Optional[torch.Generator] = None, draws: Draws = None):
         if draws is not None and len(draws) != rounds:
             raise ValueError(f"{len(draws)} injected draws for {rounds} rounds")
-        world = mesh.world_size()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_sum = None
-        for r in range(rounds):
-            x = microbatch(inputs, r)
-            t, eps = draws[r] if draws is not None else (None, None)
-            if world > 1:
-                t, eps = _rank_rows(x, generator, t, eps, mesh.rank(), world)
-            loss = process.loss(lambda xt, tt, forcing: net_apply(state.net, xt, tt), x,
-                                generator=generator, t=t, eps=eps) * loss_scaling
-            loss.backward()
-            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        if mesh.distributed():
-            params = [p for p in state.net.parameters() if p.requires_grad]
-            loss_sum = mesh.all_reduce_grads(params, loss_sum) / world
-        apply_update(state, schedule, ema_rates, rounds, world)
-        return state, loss_sum / rounds
+        with trace.span("c2w.train.step", step=state.step):
+            world = mesh.world_size()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss_sum = None
+            for r in range(rounds):
+                with trace.span("c2w.train.gather", round=r):
+                    x = microbatch(inputs, r)
+                with trace.span("c2w.train.forward", round=r):
+                    t, eps = draws[r] if draws is not None else (None, None)
+                    if world > 1:
+                        t, eps = _rank_rows(x, generator, t, eps, mesh.rank(), world)
+                    loss = process.loss(lambda xt, tt, forcing: net_apply(state.net, xt, tt), x,
+                                        generator=generator, t=t, eps=eps) * loss_scaling
+                with trace.span("c2w.train.backward", round=r):
+                    loss.backward()
+                    loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            if mesh.distributed():
+                params = [p for p in state.net.parameters() if p.requires_grad]
+                loss_sum = mesh.all_reduce_grads(params, loss_sum) / world
+            apply_update(state, schedule, ema_rates, rounds, world)
+            return state, loss_sum / rounds
 
     return train_step
 

@@ -1,0 +1,10 @@
+"""Device milliseconds a step spends in its forwards and losses (the
+program's ``c2w.train.forward`` spans: the (t, eps) draws, the network, the
+loss, every microbatch), over the traced slice's steps."""
+from h100_bench import spans
+
+
+def read(layer: dict):
+    if "trace" not in layer:
+        return None
+    return spans.per(layer, "slice_steps", *layer["trace"].range_device_s("c2w.train.forward"))

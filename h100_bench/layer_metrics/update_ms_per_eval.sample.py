@@ -1,0 +1,10 @@
+"""Device milliseconds an evaluation spends in the sampler's update (the
+program's ``c2w.sample.update`` spans: the DPM-Solver++ step, its noise
+draw, the NaN flag), over the traced slice's evaluations."""
+from h100_bench import spans
+
+
+def read(layer: dict):
+    if "trace" not in layer:
+        return None
+    return spans.per(layer, "slice_evals", *layer["trace"].range_device_s("c2w.sample.update"))

@@ -239,6 +239,7 @@ def test_year_path_and_metrics_need_only_stdlib_torch_numpy(tmp_path):
     a, b, c, d = (out["p8"][k] for k in ("8a", "8b", "8c", "8d"))
     assert a["long_path"] and a["finite"] and a["A_x_minus_y_max"] <= a["A_tol"]
     assert a["resume_saves_at_step"] == [16] and ".sample_resume_000.npz" not in a["left_in_dir"]
+    assert a["resume_bytes"] > 0
     assert a["unet_forwards"] == 25 and a["attention_launches"] == 0  # 24 steps + the final denoise
     assert b["resumed_equal"] and b["uninterrupted_equal"] and b["saved_step"] == 8
     assert b["resumed_forwards"] == b["expected_forwards"] == 8

@@ -12,6 +12,12 @@ def test_profile_forward_rehearsal_on_cpu(tmp_path, capsys):
     assert out["device"] == "cpu" and out["windows_per_forward"] == 32
     assert out["wall_ms"] > 0 and out["kernel_launches"] == 0  # no CUDA activity on the CPU
     assert (tmp_path / "guided_evaluation.json").exists()
+    # one guided evaluation: two chunked forwards in one window pass, the
+    # guidance's gradient and its combination with the score
+    spans = out["spans"]
+    assert {n: s["count"] for n, s in spans.items()} == {
+        "c2w.window.pass": 1, "c2w.model.forward": 2, "c2w.sample.guidance": 2}
+    assert all(s["host_ms"] > 0 and s["device_ms"] is None for s in spans.values())
 
 
 def test_kernel_groups():
@@ -19,6 +25,10 @@ def test_kernel_groups():
     assert profile_forward.group_of("sm90_xmma_fprop_implicit_gemm_bf16") == "convolution"
     assert profile_forward.group_of("at::native::reduce_kernel<512>") == "reduction"
     assert profile_forward.group_of("mystery") == "other"
+    # cuDNN's layout transposes are not convolutions, though their names say cudnn
+    for name in ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16, __nv_bfloat16, float>",
+                 "void cudnn::engines_precompiled::nhwcToNchwKernel<__nv_bfloat16, __nv_bfloat16, float>"):
+        assert profile_forward.group_of(name) == "layout transpose"
 
 
 def test_profile_train_step_rehearsal_on_cpu(tmp_path, capsys):
@@ -31,6 +41,9 @@ def test_profile_train_step_rehearsal_on_cpu(tmp_path, capsys):
     assert out["device"] == "cpu" and out["traced_steps"] == 2 and out["batch_gpu"] == 2
     assert out["wall_ms_per_step"] > 0 and out["kernel_launches_per_step"] == 0
     assert (tmp_path / "train_step.json").exists()
+    per_step = {n: s["count"] for n, s in out["spans_per_step"].items()}
+    assert per_step == {"c2w.train.step": 1, "c2w.train.gather": 2, "c2w.train.forward": 2,
+                        "c2w.train.backward": 2, "c2w.train.ema": 1}  # 4 / 2 microbatches a step
     assert profile_forward.group_of("void attention_bwd_grads_kernel<__nv_bfloat16>") == \
         "attention backward kernel"
 
