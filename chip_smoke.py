@@ -35,7 +35,16 @@ Numbered phases, each printing one JSON line with its seconds:
    exceed; gradients reaching x, the kernel, the bias, vec and the
    residual; timed at level 0's conv1 and conv0 and level 4's conv1
    (``timing_winograd``), each with its device time from a CUDA graph of
-   the launch alone and the wrapper's host time per call;
+   the launch alone and the wrapper's host time per call; the channel
+   norm's forward and backward kernels in bf16 at the main paths' rows
+   (``NORM_SHAPES``: the 72.1M net's levels 0, 2, 3 and 4 at 480 windows,
+   sda_unet_large's 768 channels), with the block's shift at ddof 0 and
+   without it at ddof 1, each within one bf16 ulp of the plain version's
+   scale and, against float64, its max and mean distance at most
+   ``FORWARD_SLACK`` times the plain version's, which the output moved one
+   ulp away from zero must exceed; the backward called twice for the same
+   bits; both timed at each shape beside the plain version and
+   ``F.layer_norm`` (``timing_channel_norm``; level 0 in the kernels line);
 3. the 72.1M-parameter snapshot in ``artifacts/`` loaded through the port's
    own readers, one forward at [96, 128, 128, 52] with the kernel: each of its
    6 attention launches held to phase 2's limits on its own inputs (one bf16
@@ -59,7 +68,8 @@ Numbered phases, each printing one JSON line with its seconds:
    cut to 3, one ensemble group) on a synthetic 49-hour 128 x 128 trajectory,
    as its two steps ``load_net`` and ``sample_arrays`` timed apart, checked
    for finite samples, A(x) = y at the observed frames, and a kernel launch
-   count of 6 per UNet forward;
+   count of 6 attention and 40 channel-norm launches per UNet forward (no
+   norm on the plain version);
 5. training: ``training_loop`` on the 72.1M network of ``configs/sda_unet.yml``
    (flax-style init from the seed, bf16 compute, fp32 parameters) at
    128 x 128 from a [140, 4, 128, 128] training file written by the port's
@@ -67,9 +77,9 @@ Numbered phases, each printing one JSON line with its seconds:
    microbatches of 32, to 1024 ndata with a checkpoint and a snapshot, then
    resumed to 2048: finite and falling losses, the checkpoint restored
    exactly, the first resumed step's draws and loss against an
-   uninterrupted run's, 6 forward and 6 backward attention launches per
-   microbatch, each backward launch of one step against the plain version,
-   the fp16 snapshot loaded by ``load_net``, step time and peak memory;
+   uninterrupted run's, 6 forward and 6 backward attention launches and 40
+   forward and 40 backward channel-norm launches per microbatch, each
+   backward launch of one step against the plain version, the fp16 snapshot loaded by ``load_net``, step time and peak memory;
 6. ``predict`` from files with h5py made unimportable: the phase writes a
    49-hour 128 x 128 grid, its quantiles, a training file and a coarse
    observation grid with the port's writers, then runs
@@ -106,7 +116,8 @@ Numbered phases, each printing one JSON line with its seconds:
 9. the other sampler and guidance modes, h5py unimportable: (9a)
    ``run_arrays`` at ``s16_t6_spectral.yml`` with ``use_exact_grad: true``,
    3 samples in one group (96 windows a chunk), 8 steps: finite, A(x) = y,
-   the forward launches of both passes and the backward's, each backward
+   the forward launches of both passes and the backward's (attention and
+   channel norm), each backward
    launch of the first evaluation against the plain version, sampling time,
    window-evals/s and peak memory; then the exact gradient at full width in
    fp32 against a central difference of log p along a random direction,
@@ -389,6 +400,12 @@ WINO_RAGGED = ((3, 10, 14, 40), 20)
 WINO_TIMED = (("level0_conv1", WINO_SHAPES[0], 128, "silu", True, True),
               ("level0_conv0", WINO_SHAPES[0], 128, "norm", True, False),
               ("level4_conv1", WINO_SHAPES[1], 512, "silu", False, True))
+# the channel norm's rows as the UNet hands them over, [B, C, *spatial]
+# channels-last: the 72.1M net's levels 0 (the kernels line's row), 2, 3
+# and 4 at a sampling forward's 480 windows, and sda_unet_large's level 5
+# (768 channels at 256 x 256) at a training microbatch of 32
+NORM_SHAPES = ((480, 128, 128, 128), (480, 256, 32, 32), (480, 384, 16, 16), (480, 512, 8, 8), (32, 768, 8, 8))
+NORM_CHUNK = 2 ** 27  # values a float64 comparison takes at once
 
 
 def emit(phase, t0, **fields):
@@ -545,6 +562,14 @@ def _norm_f64(x, eps=1e-5, ddof=0, dim=1):
     """The channel norm with its statistics in x's dtype (float64 here)."""
     mean = x.mean(dim=dim, keepdim=True)
     return (x - mean) * torch.rsqrt(x.var(dim=dim, keepdim=True, correction=ddof) + eps)
+
+
+def _fused_norm_f64(x, shift=None, ddof=0, eps=1e-5, dim=1):
+    """``fused_channel_norm``'s function with the add and the statistics in
+    x's dtype (float64 here)."""
+    if shift is not None:
+        x = x + shift.reshape(*shift.shape, *(1,) * (x.dim() - 2))
+    return _norm_f64(x, eps, ddof, dim)
 
 
 def _attention_f64(q, k, v):
@@ -779,12 +804,14 @@ def phase2_kernels(device: torch.device, seed: int) -> tuple:
                                     host_ms=host_time_ms(lambda: fused_attention(q, k, v)))
     bwd_checks, bwd_row, bwd_long, bwd_exact = phase2_backward(device, g)
     wino_checks, wino_rows = phase2_winograd(device, g)
-    rows = {"attention_fwd": timed[MAIN_SHAPE], "attention_bwd": bwd_row, "winograd_conv3x3": wino_rows[0]}
-    emit(2, t0, checks=checks + bwd_checks + wino_checks, timing=list(rows.values()),
+    norm_checks, norm_fwd, norm_bwd = phase2_channel_norm(device, g)
+    rows = {"attention_fwd": timed[MAIN_SHAPE], "attention_bwd": bwd_row, "winograd_conv3x3": wino_rows[0],
+            "channel_norm_fwd": norm_fwd[0], "channel_norm_bwd": norm_bwd[0]}
+    emit(2, t0, checks=checks + bwd_checks + wino_checks + norm_checks, timing=list(rows.values()),
          timing_train_fwd=timed[TRAIN_SHAPE], timing_year_fwd=timed[YEAR_SHAPE],
          timing_t256=[timed[LONG_TIMED], bwd_long], timing_exact_bwd=bwd_exact,
-         timing_winograd=wino_rows[1:])
-    _raise_failed("phase 2", checks + wino_checks)
+         timing_winograd=wino_rows[1:], timing_channel_norm=norm_fwd[1:] + norm_bwd[1:])
+    _raise_failed("phase 2", checks + wino_checks + norm_checks)
     return rows, timed[YEAR_SHAPE], bwd_exact
 
 
@@ -944,6 +971,115 @@ def phase2_winograd(device: torch.device, g: torch.Generator) -> tuple:
                    host_ms=host_time_ms(lambda: winograd.winograd_fwd(*args)))
         rows.append(row)
     return checks, rows
+
+
+def _chunked_f64(exact_fn, candidates: dict, b: int) -> dict:
+    """(max, mean) distance of each candidate [B, ...] from ``exact_fn(i, j)``,
+    the float64 yardstick of the batch rows [i, j), a few rows at a time."""
+    n = next(iter(candidates.values())).numel()
+    step = max(1, NORM_CHUNK * b // n)
+    top, total = dict.fromkeys(candidates, 0.0), dict.fromkeys(candidates, 0.0)
+    for i in range(0, b, step):
+        exact = exact_fn(i, i + step)
+        for k, y in candidates.items():
+            d = (y[i:i + step].double() - exact).abs()
+            top[k], total[k] = max(top[k], float(d.max())), total[k] + float(d.sum())
+        del exact
+    return {k: (top[k], total[k] / n) for k in candidates}
+
+
+def _norm_gate(rec, got, plain, dists) -> None:
+    """The channel norm's limits on one record: the kernel within one bf16
+    ulp of the plain version's output scale, its max and mean distance from
+    float64 at most ``FORWARD_SLACK`` times the plain version's, and the
+    output moved one ulp away from zero over that limit. Appends to
+    ``rec["failed"]``."""
+    scale = float(plain.abs().max())
+    base = dists["plain"]
+    rec.update(max_abs_err=float((got.float() - plain.float()).abs().max()), one_ulp=bf16_ulp(scale),
+               plain_f64=list(base), f64_ratios=[_over(d, b) for d, b in zip(dists["kernel"], base)],
+               faults={"one_ulp_biased": [_over(d, b) for d, b in zip(dists["one_ulp_biased"], base)]},
+               failed=[])
+    if rec["max_abs_err"] > rec["one_ulp"]:
+        rec["failed"].append("the kernel is more than one bf16 ulp of the output scale from the plain version")
+    if max(rec["f64_ratios"]) > FORWARD_SLACK:
+        rec["failed"].append("the kernel is farther from float64 than FORWARD_SLACK times the plain version")
+    rec["failed"] += [f"the float64 limit cannot see {k}" for k, r in rec["faults"].items()
+                      if max(r) <= FORWARD_SLACK]
+
+
+def phase2_channel_norm(device: torch.device, g: torch.Generator) -> tuple:
+    """The channel-norm kernels at ``NORM_SHAPES`` in bf16, channels-last:
+    the forward with the block's shift at ddof 0 (the 72.1M net's) and
+    without it at ddof 1 (imported snapshots'), and the backward on the
+    forward's statistics, each against the plain version and float64 by
+    ``_norm_gate``; the backward called twice for the same bits. Each
+    shape's forward and backward with the shift at ddof 0 are timed back to
+    back beside the plain version and ``F.layer_norm`` on the rounded sum
+    (the library's norm, never called by the port), forward and backward.
+    Returns (checks, timing rows: the forward's and the backward's at each
+    shape, level 0's first); the caller raises on a failed check once it
+    has printed them."""
+    from climate2weather_tpu_torch.ops import channel_norm as cn
+
+    checks, fwd_rows, bwd_rows = [], [], []
+    for shape in NORM_SHAPES:
+        b, c, *spatial = shape
+        x = (torch.randn((b, *spatial, c), generator=g, device=device) * 2 + 0.5).to(torch.bfloat16).movedim(-1, 1)
+        s = torch.randn((b, c), generator=g, device=device).to(torch.bfloat16)
+        dy = torch.randn((b, *spatial, c), generator=g, device=device).to(torch.bfloat16).movedim(-1, 1)
+        for shift, ddof in ((s, 0), (None, 1)):
+            def h64(i, j):  # the sum rounded to bf16, as the kernel and x + proj round it
+                return (x[i:j] if shift is None else x[i:j] + shift[i:j].reshape(-1, c, 1, 1)).double()
+
+            y, mean, rstd = cn.channel_norm_fwd(x, shift, ddof, stats=True)
+            plain = cn.channel_norm_reference(x, shift, ddof)
+            fwd = {"kernel": "channel_norm_fwd", "shape": list(shape), "shift": shift is not None, "ddof": ddof}
+            _norm_gate(fwd, y, plain, _chunked_f64(
+                lambda i, j: _norm_f64(h64(i, j), ddof=ddof),
+                {"kernel": y, "plain": plain, "one_ulp_biased": _one_ulp_biased(y)}, b))
+            del y, plain
+            dh = cn.channel_norm_bwd(dy, x, shift, mean, rstd, ddof)
+            again = cn.channel_norm_bwd(dy, x, shift, mean, rstd, ddof)
+            plain = cn.channel_norm_bwd_reference(dy, x, shift, ddof)
+            bwd = {"kernel": "channel_norm_bwd", "shape": list(shape), "shift": shift is not None, "ddof": ddof}
+            _norm_gate(bwd, dh, plain, _chunked_f64(
+                lambda i, j: cn.channel_norm_bwd_reference(dy[i:j].double(), h64(i, j), None, ddof),
+                {"kernel": dh, "plain": plain, "one_ulp_biased": _one_ulp_biased(dh)}, b))
+            bwd["same_bits_twice"] = bool(torch.equal(dh, again))
+            if not bwd["same_bits_twice"]:
+                bwd["failed"].append("the backward gives other bits on a second call")
+            checks += [fwd, bwd]
+            del dh, again, plain, mean, rstd
+        # timed: the block's norm, shift at ddof 0 (the errors of its checks,
+        # checks[-4] and checks[-3], beside)
+        _, mean, rstd = cn.channel_norm_fwd(x, s, 0, stats=True)
+        rows = x.numel() // c
+        hl = (x + s.reshape(b, c, 1, 1)).movedim(1, -1)  # [..., C] rows, contiguous
+        lib_in = hl.detach().requires_grad_(True)
+        lib_out = torch.nn.functional.layer_norm(lib_in, (c,))
+        dyl = dy.movedim(1, -1)
+        el = x.element_size()
+        fwd_ms = cuda_time_ms(lambda: cn.channel_norm_fwd(x, s, 0))
+        fwd_plain = cuda_time_ms(lambda: cn.channel_norm_reference(x, s, 0))
+        fwd_lib = cuda_time_ms(lambda: torch.nn.functional.layer_norm(hl, (c,)))
+        # x read and y written; about 7 operations a value (add, sum, subtract,
+        # square, sum, subtract, multiply)
+        fwd_rows.append(timing_row(
+            "channel_norm_fwd", "climate2weather_tpu_torch/csrc/channel_norm.cu",
+            "climate2weather_tpu/models/unet.py:40", checks[-4]["max_abs_err"], fwd_ms, fwd_plain, fwd_lib, 2 * x.numel() * el + s.numel() * el, 7 * x.numel(), shape))
+        bwd_ms = cuda_time_ms(lambda: cn.channel_norm_bwd(dy, x, s, mean, rstd, 0))
+        bwd_plain = cuda_time_ms(lambda: cn.channel_norm_bwd_reference(dy, x, s, 0))
+        bwd_lib = cuda_time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dyl, retain_graph=True))
+        # dy and x read, dh written, the row's mean and rstd read; about 12
+        # operations a value (the add, xhat, two sums, the closed form)
+        bwd_rows.append(timing_row(
+            "channel_norm_bwd", "climate2weather_tpu_torch/csrc/channel_norm.cu",
+            "climate2weather_tpu/models/unet.py:40", checks[-3]["max_abs_err"], bwd_ms, bwd_plain, bwd_lib,
+            3 * x.numel() * el + s.numel() * el + 8 * rows, 12 * x.numel(), shape))
+        del x, s, dy, mean, rstd, hl, lib_in, lib_out, dyl
+        torch.cuda.empty_cache()
+    return checks, fwd_rows, bwd_rows
 
 
 def phase3b_winograd_blocks(snapshot_dir, device, batch=32, seed=0) -> dict:
@@ -1251,6 +1387,7 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
         torch.cuda.synchronize()
     for k in launch_counts:
         launch_counts[k] = 0
+    _reset_norm_counts()
     t_load = time.time()
     net, snap_cfg = load_net(str(snapshot_dir), device)
     if device.type == "cuda":
@@ -1264,6 +1401,7 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
         trace.disable()
     t_end = time.time()  # sample_arrays ends in a copy to the host
     launches = dict(launch_counts)
+    norm_launches = _norm_counts()
     counted = {k: trace.counters().get(k, 0) for k in ("window_evals", "forwards")}
     records = trace.records()
     trace.reset()
@@ -1284,6 +1422,9 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
     n_attn = 2 * sum(int(b) for i, b in enumerate(nk["hidden_blocks"])
                      if i in nk.get("attention_levels", ()))
     expect = n_attn * forwards if device.type == "cuda" else 0
+    # every norm of every forward on the kernel, none on the plain version
+    expect_norm = {"channel_norm_fwd": _norms_per_forward(nk) * forwards if device.type == "cuda" else 0,
+                   "channel_norm_bwd": 0}
     window_evals = n_samples * evals * n_chunks * per_call
     A = SpatioTemporalCoarsening(int(cfg["s_step"]), int(cfg["t_step"]))
     consistency, tol = _consistency(A, [torch.from_numpy(samples)], A(torch.from_numpy(gt)))
@@ -1293,7 +1434,8 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
         "nan_flags": nan_flags.tolist(), "sample_abs_max": x_max,
         "A_x_minus_y_max": consistency, "A_tol": tol,
         "unet_forwards": forwards, "attention_launches": launches.get("attention_fwd", 0),
-        "expected_launches": expect, "load_s": t_sample - t_load, "sampling_s": t_end - t_sample,
+        "expected_launches": expect, "norm_launches": norm_launches, "expected_norm_launches": expect_norm,
+        "load_s": t_sample - t_load, "sampling_s": t_end - t_sample,
         "calib_target_s": psd_s, "wall_s": t_end - t_load, "window_evals": window_evals,
         "window_evals_per_s": window_evals / (t_end - t_sample),
         "counted_window_evals": counted["window_evals"], "counted_forwards": counted["forwards"],
@@ -1307,6 +1449,8 @@ def phase4_slice(snapshot_dir, config_path, device, L=49, res=128, n_train=64, s
         raise AssertionError(f"A(x) != y after the projection: {consistency} > {tol}")
     if launches.get("attention_fwd", 0) != expect:
         raise AssertionError(f"attention launches {launches} != 6 x forwards = {expect}")
+    if norm_launches != expect_norm:
+        raise AssertionError(f"channel-norm launches {norm_launches} != {expect_norm}")
     if (counted["window_evals"], counted["forwards"]) != (window_evals, forwards):
         raise AssertionError(f"the program counted {counted}, the config's shapes give "
                              f"{window_evals} window evaluations in {forwards} forwards")
@@ -1408,13 +1552,14 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
         RecordingProcess.records = []
         for name in attention.launch_counts:
             attention.launch_counts[name] = 0
+        _reset_norm_counts()
         if cuda:
             # torch keeps a cuBLAS workspace for every stream that ran cuBLAS
             # (phase 2's graph timings) allocated until cleared: not training's
             torch._C._cuda_clearCublasWorkspaces()
             torch.cuda.reset_peak_memory_stats(device)
         state1 = training_loop(run_dir, total_ndata=ndata, **kwargs)
-        launches1 = dict(attention.launch_counts)
+        launches1, norms1 = dict(attention.launch_counts), _norm_counts()
         records = list(RecordingProcess.records)
         peak = torch.cuda.max_memory_allocated(device) if cuda else None
 
@@ -1465,12 +1610,13 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
         RecordingProcess.records = []
         for name in attention.launch_counts:
             attention.launch_counts[name] = 0
+        _reset_norm_counts()
         attention.attention_bwd = recorded_bwd
         try:
             training_loop(run_dir, total_ndata=2 * ndata, **kwargs)
         finally:
             attention.attention_bwd = plain_bwd
-        launches2 = dict(attention.launch_counts)
+        launches2, norms2 = dict(attention.launch_counts), _norm_counts()
         records += RecordingProcess.records
         resumed = RecordingProcess.records[0]
         if cuda:
@@ -1487,7 +1633,11 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
         # the two forwards run the same kernels on the same bits
         resume_tol = 1e-6 * abs(float(uninterrupted["loss"]))
         per_run = n_attn * rounds * (ndata // batch) if cuda else 0
-        want_fwd = per_run * (2 if os.environ.get("C2W_REMAT", "0") == "1" else 1)
+        remat = 2 if os.environ.get("C2W_REMAT", "0") == "1" else 1  # the forward again in the backward
+        want_fwd = per_run * remat
+        # the norms of every microbatch's forward and backward on the kernels
+        norms = _norms_per_forward(net_kwargs) * rounds * (ndata // batch) if cuda else 0
+        want_norm = {"channel_norm_fwd": norms * remat, "channel_norm_bwd": norms}
         per_launch = []
         with torch.no_grad():
             for q, k, v, do, got in bwd_calls:
@@ -1514,6 +1664,7 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
             "resume_loss_diff": resume_loss_diff, "resume_tol": resume_tol,
             "launches_run1": launches1, "launches_run2": launches2,
             "expected_fwd": want_fwd, "expected_bwd": per_run,
+            "norm_launches_run1": norms1, "norm_launches_run2": norms2, "expected_norm": want_norm,
             "bwd_per_launch": per_launch,
             "snapshot_forward_finite": bool(torch.isfinite(y.float()).all()),
             "step_ms_warm": [1e3 * w for w in warm],
@@ -1533,9 +1684,11 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
         raise AssertionError("the resumed step differs from the uninterrupted one: "
                              f"draws equal {draws_equal}, loss diff {resume_loss_diff}")
     if check_launches:
-        for name, got in (("run 1", launches1), ("run 2", launches2)):
+        for name, got, norms in (("run 1", launches1, norms1), ("run 2", launches2, norms2)):
             if got["attention_fwd"] != want_fwd or got["attention_bwd"] != per_run:
                 raise AssertionError(f"{name}: launches {got}, want fwd {want_fwd} bwd {per_run}")
+            if norms != want_norm:
+                raise AssertionError(f"{name}: channel-norm launches {norms}, want {want_norm}")
     if len(bwd_calls) != n_attn * rounds or any(
             any(e > tl for e, tl in zip(c["max_abs_err"], c["tol"])) for c in per_launch):
         raise AssertionError(f"a backward launch in training disagrees: {per_launch}")
@@ -1543,7 +1696,8 @@ def phase5_training(device, seed=0, model_config=MODEL_CONFIG, res=128, frames=1
         raise AssertionError(f"the per-launch check cannot see a dropped row sum: {per_launch}")
     if not result["snapshot_forward_finite"]:
         raise AssertionError("the snapshot's forward is not finite")
-    return {"launches": {k: launches1[k] + launches2[k] for k in launches1}, **result}
+    return {"launches": {k: launches1[k] + launches2[k] for k in launches1},
+            "norm_launches": {k: norms1[k] + norms2[k] for k in norms1}, **result}
 
 
 PREDICT_CONFIGS = REPO / "exp" / "configs" / "000_on-model-eval"
@@ -1626,6 +1780,27 @@ def _attention_blocks(network_kwargs: dict) -> int:
     blocks (down and up) per residual block of an attention level."""
     return 2 * sum(int(b) for i, b in enumerate(network_kwargs["hidden_blocks"])
                    if i in network_kwargs.get("attention_levels", ()))
+
+
+def _norms_per_forward(network_kwargs: dict) -> int:
+    """Channel-norm launches per UNet forward (and per backward): one per
+    residual block (down and up), one per attention block, one per tail
+    above level 0; 40 for the 72.1M net, 53 for sda_unet_large."""
+    blocks = [int(b) for b in network_kwargs["hidden_blocks"]]
+    return 2 * sum(blocks) + _attention_blocks(network_kwargs) + len(blocks) - 1
+
+
+def _reset_norm_counts() -> None:
+    from climate2weather_tpu_torch.ops import channel_norm
+
+    for name in channel_norm.launch_counts:
+        channel_norm.launch_counts[name] = 0
+
+
+def _norm_counts() -> dict:
+    from climate2weather_tpu_torch.ops import channel_norm
+
+    return dict(channel_norm.launch_counts)
 
 
 def _expected_forwards(cfg: dict, L: int, window: int) -> int:
@@ -2210,6 +2385,9 @@ def phase9a_exact(snapshot_dir, device, L=49, res=128, n_train=64, seed=0, overr
     members = min(int(cfg["num_samples"]), int(cfg["ensemble_batch"]))
     evals = int(cfg["num_sampling_steps"]) + int(bool(cfg.get("denoise_final", False)))
     want_fwd, want_bwd = _exact_launches(n_attn, evals, chunks, members * per_call, device)
+    norm_fwd, norm_bwd = _exact_launches(_norms_per_forward(snap_cfg["network_kwargs"]), evals, chunks,
+                                         members * per_call, device)
+    want_norm = {"channel_norm_fwd": norm_fwd, "channel_norm_bwd": norm_bwd}
     plain_bwd, bwd_calls = attention.attention_bwd, []
     first_eval = want_bwd // evals
 
@@ -2221,6 +2399,7 @@ def phase9a_exact(snapshot_dir, device, L=49, res=128, n_train=64, seed=0, overr
 
     for k in attention.launch_counts:
         attention.launch_counts[k] = 0
+    _reset_norm_counts()
     _peak_reset(device)
     attention.attention_bwd = recorded_bwd
     try:
@@ -2231,6 +2410,7 @@ def phase9a_exact(snapshot_dir, device, L=49, res=128, n_train=64, seed=0, overr
         attention.attention_bwd = plain_bwd
     peak = _peak(device)
     launches = dict(attention.launch_counts)
+    norm_launches = _norm_counts()
     per_launch = []
     with torch.no_grad():
         for q, k, v, do, got in bwd_calls:
@@ -2246,6 +2426,7 @@ def phase9a_exact(snapshot_dir, device, L=49, res=128, n_train=64, seed=0, overr
            "A_x_minus_y_max": consistency, "A_tol": tol, "steps": int(cfg["num_sampling_steps"]),
            "attention_launches": launches, "expected_launches": {"attention_fwd": want_fwd,
                                                                  "attention_bwd": want_bwd},
+           "norm_launches": norm_launches, "expected_norm_launches": want_norm,
            "bwd_checked": len(per_launch), "bwd_per_launch": per_launch, "sampling_s": sampling_s,
            "window_evals": window_evals, "window_evals_per_s": window_evals / sampling_s,
            "max_memory_allocated": peak}
@@ -2256,6 +2437,8 @@ def phase9a_exact(snapshot_dir, device, L=49, res=128, n_train=64, seed=0, overr
         raise AssertionError(f"A(x) != y after exact guidance: {rec}")
     if launches.get("attention_fwd", 0) != want_fwd or launches.get("attention_bwd", 0) != want_bwd:
         raise AssertionError(f"attention launches {launches} != {rec['expected_launches']}")
+    if norm_launches != want_norm:
+        raise AssertionError(f"channel-norm launches {norm_launches} != {want_norm}")
     if len(per_launch) != first_eval:
         raise AssertionError(f"{len(per_launch)} backward launches recorded, want {first_eval}")
     for one in per_launch:
@@ -4173,12 +4356,12 @@ def phase12d_fused(snapshot_dir, device, batch=8, timed_batch=96, res=128, seed=
         fused = fused_net(x, t)
         n_fused = sum(isinstance(m, unet.NearestUpConv2x) for m in fused_net.modules())
         del fused_net
-        real = unet.channel_norm, unet.fused_attention
-        unet.channel_norm, unet.fused_attention = _norm_f64, _attention_f64
+        real = unet.fused_channel_norm, unet.fused_attention
+        unet.fused_channel_norm, unet.fused_attention = _fused_norm_f64, _attention_f64
         try:
             ref = built(torch.float64, False)(x, t)
         finally:
-            unet.channel_norm, unet.fused_attention = real
+            unet.fused_channel_norm, unet.fused_attention = real
     (p_max, p_mean), (f_max, f_mean) = _diff(plain, ref), _diff(fused, ref)
     rec = {"fp32_batch": batch, "fused_tails": n_fused, "plain_vs_f64": [p_max, p_mean],
            "fused_vs_f64": [f_max, f_mean], "fused_vs_plain": list(_diff(fused, plain)),
@@ -6097,6 +6280,12 @@ def _run(args) -> int:
     for name, by_part in study_launches(study).items():
         rows[name]["study_path"] = {f"{k}_launches": v for k, v in by_part.items()}
     rows["winograd_conv3x3"]["launches"] = blocks["launches"]
+    # the channel norm's launches on the main paths (each gated against the
+    # forwards and backwards of its phase): sampling (4), training (5, both
+    # runs) and exact guidance's forwards and VJPs (9a)
+    for name in ("channel_norm_fwd", "channel_norm_bwd"):
+        rows[name]["launches"] = {"4": main_path["norm_launches"][name], "5": training["norm_launches"][name],
+                                  "9a": modes["9a"]["norm_launches"][name]}
     print(json.dumps({"total_seconds": round(time.time() - t_all, 3)}), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,11 @@ rank is 1, 2 or 3 (``spatial``), as in JAX. Tensors are channels-first
 ``[B, C, *spatial]`` inside the network; the caller (``ScoreUNet``) hands in
 a channels-last tensor with its channel axis moved to dim 1, i.e.
 ``channels_last`` (``channels_last_3d`` for 3-D) memory, which cuDNN's bf16
-convolutions take directly. Module names follow the flax module names, so
-the snapshot's parameter tree maps one to one (``convert.py``).
+convolutions take directly, and in which every channel norm's rows are
+contiguous: :func:`fused_channel_norm` runs them as one CUDA kernel on the
+card (forward and backward), the plain :func:`channel_norm` on the CPU.
+Module names follow the flax module names, so the snapshot's parameter tree
+maps one to one (``convert.py``).
 """
 
 from __future__ import annotations
@@ -19,16 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from climate2weather_tpu_torch.ops.attention import fused_attention
-
-
-def channel_norm(x: torch.Tensor, eps: float = 1e-5, ddof: int = 0, dim: int = 1) -> torch.Tensor:
-    """Standardize over the channel axis without learnable parameters;
-    statistics in fp32, result in ``x.dtype``. ``ddof=1`` is the reference's
-    unbiased variance for imported torch snapshots."""
-    x32 = x.float()
-    mean = x32.mean(dim=dim, keepdim=True)
-    var = x32.var(dim=dim, keepdim=True, correction=ddof)
-    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+from climate2weather_tpu_torch.ops.channel_norm import channel_norm, fused_channel_norm  # noqa: F401
 
 
 class _ComputeDtypeConv:
@@ -54,6 +48,15 @@ class _Conv3d(_ComputeDtypeConv, nn.Conv3d):
 
 
 _CONVS = {1: _Conv1d, 2: _Conv2d, 3: _Conv3d}
+
+
+def _channels_innermost(x: torch.Tensor) -> torch.Tensor:
+    """x of [B, C, *spatial] laid out with C innermost on the card, as the
+    norm kernel takes its rows: a copy only where x is not (the input of a
+    caller other than ScoreUNet; cuDNN's 1-D convs return channels-first)."""
+    if x.is_cuda and not x.movedim(1, -1).is_contiguous():
+        return x.movedim(1, -1).contiguous().movedim(-1, 1)
+    return x
 
 
 def _Conv(cin: int, cout: int, k: int, stride: int, dtype: torch.dtype, spatial: int = 2) -> nn.Module:
@@ -87,9 +90,7 @@ class ModResidualBlock(nn.Module):
         self.conv1 = _Conv(channels, channels, kernel_size, 1, dtype, spatial)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        proj = self.project(emb)
-        h = x + proj.reshape(*proj.shape, *(1,) * (x.dim() - 2))
-        h = channel_norm(h, ddof=self.norm_ddof)
+        h = fused_channel_norm(_channels_innermost(x), self.project(emb), self.norm_ddof)
         h = self.conv1(F.silu(self.conv0(h)))
         return x + h
 
@@ -112,10 +113,10 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, *spatial_shape = x.shape
-        hl = x.movedim(1, -1)  # [B, *spatial, C]
+        hl = _channels_innermost(x).movedim(1, -1)  # [B, *spatial, C]
         h = hl.reshape(b, -1, c)  # [B, T, C]
         t = h.shape[1]
-        qkv = self.qkv(channel_norm(h, ddof=self.norm_ddof, dim=-1))
+        qkv = self.qkv(fused_channel_norm(h, ddof=self.norm_ddof, dim=-1))
         if self.num_heads == 1:
             q, k, v = qkv.chunk(3, dim=-1)
             out = fused_attention(q, k, v)
@@ -234,7 +235,7 @@ class UNet(nn.Module):
             raise ValueError(f"a {self.spatial}-D UNet takes [B, C, *spatial], not {tuple(x.shape)}")
         nlev = len(self.hidden_blocks)
         emb = emb.to(self.dtype)
-        x = x.to(self.dtype)
+        x = _channels_innermost(x.to(self.dtype))
         memory = []
         for i in range(nlev):
             x = getattr(self, f"head{i}")(x)
@@ -244,7 +245,7 @@ class UNet(nn.Module):
         for i in reversed(range(nlev)):
             x = self._level(x, emb, i, "up")
             if i > 0:
-                x = channel_norm(x, ddof=self.norm_ddof)
+                x = fused_channel_norm(_channels_innermost(x), ddof=self.norm_ddof)
                 if not self.fused_upsample:
                     x = nearest_upsample(x, self.stride)
                 x = getattr(self, f"tail{i}")(x) + memory.pop()

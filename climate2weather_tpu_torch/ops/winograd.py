@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from climate2weather_tpu_torch.models.unet import channel_norm
+from climate2weather_tpu_torch.ops.channel_norm import channel_norm
 from climate2weather_tpu_torch.utils import trace
 
 # Launches of the CUDA kernel, counted by its wrapper where it launches

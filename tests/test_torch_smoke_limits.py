@@ -4,8 +4,9 @@
 The yardsticks against the JAX package's references (fp32 at 2e-4) and
 against numpy in float64; the limit helpers on bf16 inputs: the plain
 versions and the other summation orders pass, and every planted fault
-fails; phase 3 on the 72.1M snapshot and phase 3b on its blocks, at a small
-batch."""
+fails; phase 2's channel-norm checks with the plain version in the
+kernels' place; the norm count its launch gates take; phase 3 on the
+72.1M snapshot and phase 3b on its blocks, at a small batch."""
 
 import pathlib
 import types
@@ -19,6 +20,7 @@ import chip_smoke
 from _torch_parity import close, n, t
 from climate2weather_tpu.ops import attention as JA
 from climate2weather_tpu.ops import winograd as JW
+from climate2weather_tpu_torch.ops import channel_norm as cn
 from climate2weather_tpu_torch.ops import winograd as port
 from climate2weather_tpu_torch.ops.attention import attention_reference
 
@@ -143,6 +145,77 @@ def test_winograd_limit_in_fp32_is_unchanged():
     bad = {}
     chip_smoke._winograd_check(_with_fwd(chip_smoke._halo_unmasked), args, bad)
     assert bad["failed"] == ["the kernel is off the plain version by more than 1e-5 of the scale"]
+
+
+def _norm_stand_ins(monkeypatch, fault=None):
+    """The channel-norm wrappers replaced by their plain versions (the
+    kernels do not run on the CPU), ``fault`` applied to their outputs, and
+    the timings stubbed; small shapes of each width class, several float64
+    chunks a shape."""
+    def fwd(x, shift=None, ddof=0, eps=1e-5, dim=1, stats=False):
+        h = (x if shift is None else x + shift[:, :, None, None]).float()
+        rstd = torch.rsqrt(h.var(dim=1, correction=ddof) + eps).reshape(-1)
+        y = cn.channel_norm_reference(x, shift, ddof, eps, dim)
+        return (y if fault is None else fault(y)), h.mean(dim=1).reshape(-1), rstd
+
+    def bwd(dy, x, shift, mean, rstd, ddof=0, dim=1):
+        dh = cn.channel_norm_bwd_reference(dy, x, shift, ddof, 1e-5, dim)
+        return dh if fault is None else fault(dh)
+
+    monkeypatch.setattr(cn, "channel_norm_fwd", fwd)
+    monkeypatch.setattr(cn, "channel_norm_bwd", bwd)
+    monkeypatch.setattr(chip_smoke, "NORM_SHAPES", ((6, 128, 8, 8), (5, 384, 4, 4), (4, 768, 2, 2)))
+    monkeypatch.setattr(chip_smoke, "NORM_CHUNK", 2 ** 12)
+    monkeypatch.setattr(chip_smoke, "cuda_time_ms", lambda fn, **_: (fn(), 0.0)[1])
+
+
+def test_channel_norm_limits_on_bf16(monkeypatch):
+    """Phase 2's channel-norm checks with the plain version in the kernels'
+    place: every limit passes at ratios of exactly 1.0, the one-ulp-biased
+    output reads over FORWARD_SLACK, and each timed row is bound by bytes."""
+    _norm_stand_ins(monkeypatch)
+    checks, fwd_rows, bwd_rows = chip_smoke.phase2_channel_norm(CPU, torch.Generator().manual_seed(0))
+    assert [(c["kernel"], c["shift"], c["ddof"]) for c in checks[:4]] == [
+        ("channel_norm_fwd", True, 0), ("channel_norm_bwd", True, 0),
+        ("channel_norm_fwd", False, 1), ("channel_norm_bwd", False, 1)]
+    assert len(checks) == 4 * len(chip_smoke.NORM_SHAPES)
+    for c in checks:
+        assert c["failed"] == [] and c["max_abs_err"] == 0.0 and c["f64_ratios"] == [1.0, 1.0], c
+        assert min(c["faults"]["one_ulp_biased"]) > chip_smoke.FORWARD_SLACK, c
+        assert c["kernel"] == "channel_norm_fwd" or c["same_bits_twice"]
+    for rows, name in ((fwd_rows, "channel_norm_fwd"), (bwd_rows, "channel_norm_bwd")):
+        assert [r["shape"] for r in rows] == [list(s) for s in chip_smoke.NORM_SHAPES]
+        assert all(r["name"] == name and r["bound_by"] == "bytes" and r["max_abs_err"] == 0.0 for r in rows)
+
+
+def test_channel_norm_limits_see_a_one_ulp_fault(monkeypatch):
+    """The kernels' outputs moved one ulp away from zero stay within the
+    one-ulp limit against the plain version and fail the float64 one."""
+    _norm_stand_ins(monkeypatch, fault=chip_smoke._one_ulp_biased)
+    checks, _, _ = chip_smoke.phase2_channel_norm(CPU, torch.Generator().manual_seed(1))
+    for c in checks:
+        assert c["max_abs_err"] <= c["one_ulp"], c
+        assert "the kernel is farther from float64 than FORWARD_SLACK times the plain version" in c["failed"], c
+
+
+@pytest.mark.parametrize("config,norms", [("sda_unet", 40), ("sda_unet_large", 53), ("tiny_unet", None)])
+def test_norms_per_forward_counts_the_unets_norm_calls(monkeypatch, config, norms):
+    """The launch count phases 4, 5 and 9a gate is the UNet's count of
+    ``fused_channel_norm`` calls in a forward (nets at a width of 8)."""
+    from climate2weather_tpu_torch.io.snapshot import yaml_load_file
+    from climate2weather_tpu_torch.models import unet
+
+    model = yaml_load_file(chip_smoke.REPO / "configs" / f"{config}.yml")
+    levels = len(model["hidden_channels"])
+    torch.manual_seed(0)
+    net = unet.UNet(6, 6, 16, hidden_channels=[8] * levels, hidden_blocks=model["hidden_blocks"],
+                    attention_levels=model.get("attention_levels", ()), dtype=torch.float32)
+    calls = []
+    real = unet.fused_channel_norm
+    monkeypatch.setattr(unet, "fused_channel_norm", lambda *a, **k: calls.append(1) or real(*a, **k))
+    with torch.no_grad():
+        net(torch.randn(2, 6, 2 ** (levels - 1), 2 ** (levels - 1)), torch.randn(2, 16))
+    assert len(calls) == chip_smoke._norms_per_forward(model) == (norms or len(calls))
 
 
 def test_phase3_network_holds_the_72m_forward_to_float64():
